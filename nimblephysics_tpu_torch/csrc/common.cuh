@@ -82,4 +82,20 @@ template <typename T> NPTT_HD T val(T x) { return x; }
 template <typename T> NPTT_HD T val(Dual<T> x) { return x.v; }
 template <typename T> NPTT_HD T tangent(Dual<T> x) { return x.d; }
 
+// Selections on a value that are not arithmetic (the kernels' operation
+// counts leave them out). Each keeps NaN as jnp/torch do: fmin/fmax would
+// drop it.
+template <typename S> NPTT_HD S nabs(S x) { return val(x) < 0 ? S(-val(x)) : x; }
+// max(a, b), NaN if either is NaN (jnp.maximum, torch.maximum)
+template <typename S> NPTT_HD S pmax(S a, S b) {
+  if (nisnan(val(a))) return a;
+  if (nisnan(val(b))) return b;
+  return val(a) >= val(b) ? a : b;
+}
+// clip(x, lo, hi) = min(max(x, lo), hi); NaN passes through (jnp.clip)
+template <typename S, typename T> NPTT_HD S nclip(S x, T lo, T hi) {
+  S t = val(x) < lo ? S(lo) : x;
+  return val(t) > hi ? S(hi) : t;
+}
+
 }  // namespace nptt

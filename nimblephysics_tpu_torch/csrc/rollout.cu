@@ -1,8 +1,11 @@
-// K2: closed-loop line-search rollouts for every (alpha, world) pair.
+// K2: closed-loop line-search rollouts for every (alpha, world) pair, and
+// K6: the full-LCP class rollout of the contact replan.
 //
-// Replaces nimblephysics_tpu/ops/pallas_rollout.py :: rollout_gains_pallas
+// K2 replaces nimblephysics_tpu/ops/pallas_rollout.py :: rollout_gains_pallas
 // (kernel _rollout_kernel), which put (alpha, world) pairs on the TPU's
-// lanes and traced the cost callable into the kernel.
+// lanes and traced the cost callable into the kernel. With frozen classes
+// (M > 0 rows) its step is step.cuh's frozen_step, whose PCG runs n_cg
+// iterations, the class mask of step t read from cm (B, T, M).
 //
 // Bound on this card: arithmetic, then latency. Each pair runs T dependent
 // steps of the device step, a few hundred flops each, and moves (x, u) out
@@ -15,19 +18,31 @@
 //
 // Least work per call (chip_smoke.py least_work): each input read once and
 // (xs, us, costs) written once; per (alpha, world, t) the control law, the
-// running cost and one plain step (ops/device_step.py step_ops), and the
-// final cost per (alpha, world).
+// running cost and one plain step (ops/device_step.py step_ops, or
+// frozen_step_ops with classes), and the final cost per (alpha, world).
+//
+// K6 replaces rollout_classes_pallas (kernel _classes_kernel), which ran
+// the T-step scan of the full constrained step with the worlds on lanes
+// and the state carried in VMEM across time chunks. Bound on this card:
+// arithmetic (the LCP's three normal-equation rounds and eight PGS sweeps
+// per step); one thread per world carries x through the T steps in
+// registers, reads u packed (T, NA, B) and writes (x', cmask) packed
+// (T, NX + M, B), so neighbouring threads touch neighbouring addresses.
+// Least work (chip_smoke.py least_work): u and x0 read, (xs, cmask)
+// written once, one class_step per (world, t) (ops/device_step.py
+// class_step_ops).
 #include "step.cuh"
 
 namespace nptt {
 
-template <typename T, int NB, int NQ, int NA>
-NPTT_HD void rollout_thread(long long l, long long B, int Tn, const T* __restrict__ P,
+template <typename T, int NB, int NQ, int NA, int M>
+NPTT_HD void rollout_thread(long long l, long long B, int Tn, int n_cg, const T* __restrict__ P,
                             const int* __restrict__ I, const T* __restrict__ w,
                             const T* __restrict__ x0, const T* __restrict__ xs_ref,
                             const T* __restrict__ u_ref, const T* __restrict__ K,
                             const T* __restrict__ k, const T* __restrict__ alphas,
-                            T* __restrict__ xs, T* __restrict__ us, T* __restrict__ costs) {
+                            const T* __restrict__ cm, T* __restrict__ xs, T* __restrict__ us,
+                            T* __restrict__ costs) {
   using L = StepLayout<NB, NQ, NA>;
   constexpr int NX = 2 * NQ;
   const long long a = l / B, b = l % B;
@@ -69,7 +84,10 @@ NPTT_HD void rollout_thread(long long l, long long B, int Tn, const T* __restric
     for (int j = 0; j < NA; ++j) cu = cu + wu[j] * (u[j] * u[j]);
     cost = cost + (cq + cv + cu);
     T qn[NQ], vn[NQ];
-    device_step<T, T, NB, NQ, NA>(P, I, x, x + NQ, u, qn, vn);
+    if constexpr (M == 0)
+      device_step<T, T, NB, NQ, NA>(P, I, x, x + NQ, u, qn, vn);
+    else
+      frozen_step<T, T, NB, NQ, NA, M>(P, I, x, x + NQ, u, cm + bt * M, n_cg, qn, vn);
 #pragma unroll
     for (int i = 0; i < NQ; ++i) {
       x[i] = qn[i];
@@ -84,30 +102,75 @@ NPTT_HD void rollout_thread(long long l, long long B, int Tn, const T* __restric
   costs[l] = cost + cf;
 }
 
+template <typename T, int NB, int NQ, int NA, int M>
+NPTT_HD void classes_thread(long long b, long long B, int Tn, const T* __restrict__ P,
+                            const int* __restrict__ I, const T* __restrict__ x0,
+                            const T* __restrict__ u_tb, T* __restrict__ out) {
+  constexpr int NX = 2 * NQ, E = NX + M;
+  T x[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) x[i] = x0[b * NX + i];
+  for (int t = 0; t < Tn; ++t) {
+    T u[NA], qn[NQ], vn[NQ], cm[M];
+#pragma unroll
+    for (int a = 0; a < NA; ++a) u[a] = u_tb[((long long)t * NA + a) * B + b];
+    class_step<T, T, NB, NQ, NA, M>(P, I, x, x + NQ, u, qn, vn, cm);
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) {
+      x[i] = qn[i];
+      x[NQ + i] = vn[i];
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) out[((long long)t * E + i) * B + b] = x[i];
+#pragma unroll
+    for (int r = 0; r < M; ++r) out[((long long)t * E + NX + r) * B + b] = cm[r];
+  }
+}
+
 #ifdef __CUDACC__
-template <typename T, int NB, int NQ, int NA>
-__global__ void rollout_kernel(long long A, long long B, int Tn, const T* __restrict__ P,
+template <typename T, int NB, int NQ, int NA, int M>
+__global__ void rollout_kernel(long long A, long long B, int Tn, int n_cg, const T* __restrict__ P,
                                const int* __restrict__ I, const T* __restrict__ w,
                                const T* __restrict__ x0, const T* __restrict__ xs_ref,
                                const T* __restrict__ u_ref, const T* __restrict__ K,
                                const T* __restrict__ k, const T* __restrict__ alphas,
-                               T* __restrict__ xs, T* __restrict__ us, T* __restrict__ costs) {
+                               const T* __restrict__ cm, T* __restrict__ xs, T* __restrict__ us,
+                               T* __restrict__ costs) {
   const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (l < A * B)
-    rollout_thread<T, NB, NQ, NA>(l, B, Tn, P, I, w, x0, xs_ref, u_ref, K, k, alphas, xs, us,
-                                  costs);
+    rollout_thread<T, NB, NQ, NA, M>(l, B, Tn, n_cg, P, I, w, x0, xs_ref, u_ref, K, k, alphas, cm,
+                                     xs, us, costs);
 }
 
-template <typename T, int NB, int NQ, int NA>
-static int launch_rollout(long long A, long long B, int Tn, const void* P, const void* I,
+template <typename T, int NB, int NQ, int NA, int M>
+static int launch_rollout(long long A, long long B, int Tn, int n_cg, const void* P, const void* I,
                           const void* w, const void* x0, const void* xs_ref, const void* u_ref,
-                          const void* K, const void* k, const void* alphas, void* xs, void* us,
-                          void* costs, cudaStream_t stream) {
+                          const void* K, const void* k, const void* alphas, const void* cm,
+                          void* xs, void* us, void* costs, cudaStream_t stream) {
   const int threads = 128;
   const long long blocks = (A * B + threads - 1) / threads;
-  rollout_kernel<T, NB, NQ, NA><<<(unsigned)blocks, threads, 0, stream>>>(
-      A, B, Tn, (const T*)P, (const int*)I, (const T*)w, (const T*)x0, (const T*)xs_ref,
-      (const T*)u_ref, (const T*)K, (const T*)k, (const T*)alphas, (T*)xs, (T*)us, (T*)costs);
+  rollout_kernel<T, NB, NQ, NA, M><<<(unsigned)blocks, threads, 0, stream>>>(
+      A, B, Tn, n_cg, (const T*)P, (const int*)I, (const T*)w, (const T*)x0, (const T*)xs_ref,
+      (const T*)u_ref, (const T*)K, (const T*)k, (const T*)alphas, (const T*)cm, (T*)xs, (T*)us,
+      (T*)costs);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NB, int NQ, int NA, int M>
+__global__ void classes_kernel(long long B, int Tn, const T* __restrict__ P,
+                               const int* __restrict__ I, const T* __restrict__ x0,
+                               const T* __restrict__ u_tb, T* __restrict__ out) {
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b < B) classes_thread<T, NB, NQ, NA, M>(b, B, Tn, P, I, x0, u_tb, out);
+}
+
+template <typename T, int NB, int NQ, int NA, int M>
+static int launch_classes(long long B, int Tn, const void* P, const void* I, const void* x0,
+                          const void* u_tb, void* out, cudaStream_t stream) {
+  const int threads = 128;
+  const long long blocks = (B + threads - 1) / threads;
+  classes_kernel<T, NB, NQ, NA, M><<<(unsigned)blocks, threads, 0, stream>>>(
+      B, Tn, (const T*)P, (const int*)I, (const T*)x0, (const T*)u_tb, (T*)out);
   return (int)cudaGetLastError();
 }
 #endif
@@ -115,22 +178,46 @@ static int launch_rollout(long long A, long long B, int Tn, const void* P, const
 }  // namespace nptt
 
 #ifdef __CUDACC__
-// Returns 0, a cudaError_t, or -1 for a (dtype, nb, nq, na) without an instance.
-extern "C" int nptt_rollout(int is_double, int nb, int nq, int na, long long A, long long B, int T,
-                            const void* P, const void* I, const void* w, const void* x0,
-                            const void* xs_ref, const void* u_ref, const void* K, const void* k,
-                            const void* alphas, void* xs, void* us, void* costs, void* stream) {
+// Returns 0, a cudaError_t, or -1 for a (dtype, nb, nq, na, m) without an
+// instance. m = 0: the contact-free step; m > 0: the frozen step on the
+// class masks cm (B, T, m).
+extern "C" int nptt_rollout(int is_double, int nb, int nq, int na, int m, long long A, long long B,
+                            int T, int n_cg, const void* P, const void* I, const void* w,
+                            const void* x0, const void* xs_ref, const void* u_ref, const void* K,
+                            const void* k, const void* alphas, const void* cm, void* xs, void* us,
+                            void* costs, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-#define NPTT_ROLLOUT_CASE(NB, NQ, NA)                                                        \
-  if (nb == NB && nq == NQ && na == NA)                                                      \
-    return is_double ? nptt::launch_rollout<double, NB, NQ, NA>(A, B, T, P, I, w, x0, xs_ref, \
-                                                                 u_ref, K, k, alphas, xs, us, \
-                                                                 costs, s)                    \
-                     : nptt::launch_rollout<float, NB, NQ, NA>(A, B, T, P, I, w, x0, xs_ref,  \
-                                                                u_ref, K, k, alphas, xs, us,  \
-                                                                costs, s);
-  NPTT_STEP_SHAPES(NPTT_ROLLOUT_CASE)
-#undef NPTT_ROLLOUT_CASE
+#define NPTT_ROLLOUT_CALL(NB, NQ, NA, M)                                                      \
+  return is_double ? nptt::launch_rollout<double, NB, NQ, NA, M>(A, B, T, n_cg, P, I, w, x0,  \
+                                                                  xs_ref, u_ref, K, k, alphas, \
+                                                                  cm, xs, us, costs, s)        \
+                   : nptt::launch_rollout<float, NB, NQ, NA, M>(A, B, T, n_cg, P, I, w, x0,   \
+                                                                 xs_ref, u_ref, K, k, alphas,  \
+                                                                 cm, xs, us, costs, s);
+#define NPTT_ROLLOUT_FREE(NB, NQ, NA) \
+  if (m == 0 && nb == NB && nq == NQ && na == NA) NPTT_ROLLOUT_CALL(NB, NQ, NA, 0)
+#define NPTT_ROLLOUT_FROZEN(NB, NQ, NA, M) \
+  if (m == M && nb == NB && nq == NQ && na == NA) NPTT_ROLLOUT_CALL(NB, NQ, NA, M)
+  NPTT_STEP_SHAPES(NPTT_ROLLOUT_FREE)
+  NPTT_CONTACT_SHAPES(NPTT_ROLLOUT_FROZEN)
+#undef NPTT_ROLLOUT_FROZEN
+#undef NPTT_ROLLOUT_FREE
+#undef NPTT_ROLLOUT_CALL
+  return -1;
+}
+
+// K6. Returns 0, a cudaError_t, or -1 for a (dtype, nb, nq, na, m) without
+// an instance. u_tb (T, na, B); out (T, 2 nq + m, B).
+extern "C" int nptt_rollout_classes(int is_double, int nb, int nq, int na, int m, long long B,
+                                    int T, const void* P, const void* I, const void* x0,
+                                    const void* u_tb, void* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+#define NPTT_CLASSES_CASE(NB, NQ, NA, M)                                                     \
+  if (m == M && nb == NB && nq == NQ && na == NA)                                            \
+    return is_double ? nptt::launch_classes<double, NB, NQ, NA, M>(B, T, P, I, x0, u_tb, out, s) \
+                     : nptt::launch_classes<float, NB, NQ, NA, M>(B, T, P, I, x0, u_tb, out, s);
+  NPTT_CONTACT_SHAPES(NPTT_CLASSES_CASE)
+#undef NPTT_CLASSES_CASE
   return -1;
 }
 #endif

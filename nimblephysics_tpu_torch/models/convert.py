@@ -17,7 +17,9 @@ from nimblephysics_tpu_torch.models.model import JOINT_NDOF, LEAF_NAMES, Model
 from nimblephysics_tpu_torch.ops.lie import Transform
 
 STATIC_KEYS = ("joint_types", "parents", "joint_names", "body_names",
-               "actuated", "dof_names")
+               "actuated", "dof_names", "shapes", "servo_dofs", "mimic", "loops")
+# constraint topology the port cannot carry yet: must be empty when given
+UNPORTED_KEYS = ("shapes", "servo_dofs", "mimic", "loops")
 
 
 def model_from_numpy(
@@ -30,10 +32,12 @@ def model_from_numpy(
 
     ``static`` maps the keys of STATIC_KEYS to the topology (``joint_types``
     and ``parents`` required); ``leaves`` maps every name of
-    ``models.model.LEAF_NAMES`` to an array. ``dtype`` None keeps the
-    leaves' own floating type. Models with collision shapes, custom joints,
-    servos, mimic couplings or loop closures are not ported yet
-    (ROADMAP M4 and later) and are refused by the caller's extraction.
+    ``models.model.LEAF_NAMES`` to an array, the joint position limits
+    ``q_lower``/``q_upper`` and the Coulomb friction among them (the
+    constraint rows of ops/contact.py). ``dtype`` None keeps the leaves'
+    own floating type. Collision shapes, servos, mimic couplings and loop
+    closures are not ported yet (ROADMAP M4): ``static`` may name them
+    only empty, and custom joints are refused by their joint type.
     """
     device = resolve_device(device)
     missing = [n for n in LEAF_NAMES if n not in leaves]
@@ -43,6 +47,10 @@ def model_from_numpy(
     unknown = [k for k in static if k not in STATIC_KEYS]
     if unknown:
         raise ValueError(f"static: unexpected keys {unknown}")
+    given = [k for k in UNPORTED_KEYS if static.get(k)]
+    if given:
+        raise NotImplementedError(
+            f"static: {given} are not ported yet (ROADMAP queue A, M4)")
     types = tuple(static["joint_types"])
     for t in types:
         if t not in JOINT_NDOF:

@@ -1,7 +1,8 @@
 """Model and State: the world as data.
 
 PyTorch counterpart of ``nimblephysics_tpu/models/model.py`` for
-shape-free models. ``Model`` holds the static topology as plain Python
+shape-free models (joint limits and Coulomb joint friction are the only
+constraint rows). ``Model`` holds the static topology as plain Python
 fields (joint types, parents, names, the actuated dofs) and every numeric
 parameter as a tensor; all tensors of one model lie on one device and have
 one dtype.
@@ -91,6 +92,14 @@ class Model:
     dt: torch.Tensor                # ()
     actuated: Tuple[int, ...] = ()
     dof_names: Tuple[str, ...] = ()
+    # Constraint topology read by ops/contact.lcp_dim. The port builds no
+    # collision shapes, servos, mimic couplings or loop closures yet
+    # (ROADMAP M4): these stay empty, and ops/collide.py and
+    # ops/contact.py refuse a model that has any.
+    shapes: Tuple[Any, ...] = ()
+    servo_dofs: Tuple[int, ...] = ()
+    mimic: Tuple[Tuple[int, int, float, float], ...] = ()
+    loops: Tuple[Tuple[str, int, int], ...] = ()
 
     @property
     def num_bodies(self) -> int:

@@ -40,7 +40,9 @@ _LL = ctypes.c_longlong
 SIGNATURES = {
     "nptt_riccati": [_I, _I, _I, _LL, _I] + [_P] * 8,
     "nptt_linearize": [_I, _I, _I, _I, _LL] + [_P] * 7,
-    "nptt_rollout": [_I, _I, _I, _I, _LL, _LL, _I] + [_P] * 13,
+    "nptt_rollout": [_I, _I, _I, _I, _I, _LL, _LL, _I, _I] + [_P] * 14,
+    "nptt_linearize_split": [_I, _I, _I, _I, _I, _LL, _I] + [_P] * 8,
+    "nptt_rollout_classes": [_I, _I, _I, _I, _I, _LL, _I] + [_P] * 6,
 }
 
 

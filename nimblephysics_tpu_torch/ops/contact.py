@@ -1,41 +1,229 @@
-"""Constraint-row counting for the step's dispatch.
+"""The constrained timestep for joint limits and Coulomb joint friction.
 
-PyTorch counterpart of ``lcp_dim`` and the counters it needs in
-``nimblephysics_tpu/ops/contact.py``. The port's models carry no collision
-shapes, servos, mimic couplings or loop closures yet, so the LCP rows come
-from joint position limits and Coulomb joint friction alone. The
-constrained step itself (``contact_step``) is ROADMAP M4.
+PyTorch counterpart of ``nimblephysics_tpu/ops/contact.py``:
+
+    qdd  = ABA(q, v, tau)                      unconstrained forward dynamics
+    v*   = v + dt qdd                          pre-constraint velocity
+    x    = BoxedLCP(J M^-1 J^T + cfm I, b)     impulses
+    v'   = v* + M^-1 J^T x
+    q'   = integrate(q, v)                     pre-step velocity
+
+States carry leading batch dimensions. The port's models carry no
+collision shapes, servos, mimic couplings or loop closures yet, so the LCP
+rows come from joint position limits and Coulomb joint friction alone and
+``contact_step`` takes the direct active-set solve; the rest is ROADMAP
+queue A, M4.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import weakref
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
 
-from nimblephysics_tpu_torch.models.model import Model
+from nimblephysics_tpu_torch.models.model import Model, State
+from nimblephysics_tpu_torch.ops import dynamics as dyn
+from nimblephysics_tpu_torch.ops import lcp as lcp_mod
+from nimblephysics_tpu_torch.ops.collide import ContactSlots, detect_contacts, total_slots
+from nimblephysics_tpu_torch.ops.linalg_small import solve_spd
+
+# Reference constants: ContactConstraint.cpp:46-48
+CFM = 1e-5
+_BIG = lcp_mod._BIG
+
+
+# Model -> (leaf versions, (limited dofs, Coulomb dofs)); weak, like the
+# packed model of ops/device_step.py.
+_ROW_DOFS: "weakref.WeakKeyDictionary[Model, tuple]" = weakref.WeakKeyDictionary()
+
+
+def _row_dofs(model: Model):
+    """The dofs with limit rows and with Coulomb rows: static topology read
+    from the leaves' values, once per version of those leaves (a torch.func
+    transform cannot read a tensor's values, so the first read has to come
+    before it, as building the dynamics does)."""
+    leaves = (model.q_lower, model.q_upper, model.coulomb_friction)
+    key = tuple((t.data_ptr(), t._version) for t in leaves)
+    hit = _ROW_DOFS.get(model)
+    if hit is not None and hit[0] == key:
+        return hit[1]
+    lo, hi, cf = (t.detach().cpu().numpy() for t in leaves)
+    rows = (tuple(int(d) for d in range(model.nq) if np.isfinite(lo[d]) or np.isfinite(hi[d])),
+            tuple(int(d) for d in range(model.nq) if cf[d] > 0.0))
+    _ROW_DOFS[model] = (key, rows)
+    return rows
 
 
 def limited_dofs(model: Model) -> Tuple[int, ...]:
     """Dofs with any finite position limit."""
-    lo = model.q_lower.detach().cpu().numpy()
-    hi = model.q_upper.detach().cpu().numpy()
-    return tuple(int(d) for d in range(model.nq)
-                 if np.isfinite(lo[d]) or np.isfinite(hi[d]))
+    return _row_dofs(model)[0]
 
 
 def coulomb_dofs(model: Model) -> Tuple[int, ...]:
     """Dofs with static Coulomb joint friction."""
-    cf = model.coulomb_friction.detach().cpu().numpy()
-    return tuple(int(d) for d in range(model.nq) if cf[d] > 0.0)
+    return _row_dofs(model)[1]
+
+
+def loop_rows(model: Model) -> int:
+    """LCP rows of loop-closure constraints: 3 per ball, 6 per weld."""
+    return sum(3 if kind == "ball" else 6 for kind, _, _ in model.loops)
 
 
 def lcp_dim(model: Model) -> int:
-    return 2 * len(limited_dofs(model)) + len(coulomb_dofs(model))
+    return (3 * total_slots(model) + 2 * len(limited_dofs(model))
+            + len(coulomb_dofs(model)) + len(model.servo_dofs) + len(model.mimic)
+            + loop_rows(model))
 
 
-def contact_step(model: Model, state, tau):
-    raise NotImplementedError(
-        "the constrained step (joint limits, Coulomb friction, contact) is "
-        "not ported yet (ROADMAP queue A, M4); plan on relax_limits(model)"
-    )
+def lcp_findex(model: Model) -> Tuple[int, ...]:
+    """Static friction-coupling index per LCP row (-1: uncoupled)."""
+    fi = []
+    for k in range(total_slots(model)):
+        fi.extend([-1, 3 * k, 3 * k])
+    fi.extend([-1] * (2 * len(limited_dofs(model))))
+    fi.extend([-1] * len(coulomb_dofs(model)))
+    fi.extend([-1] * (len(model.servo_dofs) + len(model.mimic)))
+    fi.extend([-1] * loop_rows(model))
+    return tuple(fi)
+
+
+class ContactSolveInfo(NamedTuple):
+    """Post-step constraint diagnostics: the impulses, the constraint
+    Jacobian, the pre-constraint velocity and the class masks of the
+    solution (the reference's CLAMPING / UPPER_BOUND classification)."""
+
+    impulses: torch.Tensor       # (..., m) LCP solution
+    contacts: ContactSlots
+    J: torch.Tensor              # (..., m, nq) constraint Jacobian
+    v_star: torch.Tensor         # (..., nq) pre-constraint velocity
+    clamping: torch.Tensor       # (..., m) bool: constraint holds with equality
+    upper: torch.Tensor          # (..., m) bool: friction riding the cone surface
+    upper_sign: torch.Tensor     # (..., m) sign(x_i) fscale_i
+    residual: torch.Tensor       # (...,) boxed-complementarity violation
+
+
+def _no_unported_rows(model: Model) -> None:
+    if model.servo_dofs or model.mimic or model.loops:
+        raise NotImplementedError(
+            "servo, mimic and loop-closure rows are not ported yet (ROADMAP "
+            "queue A, M4)")
+
+
+def build_constraint_system(
+    model: Model,
+    q: torch.Tensor,
+    v_star: torch.Tensor,
+    kin,
+    contacts: ContactSlots,
+    servo_cmd: Optional[torch.Tensor] = None,
+    planner: bool = False,
+    spd_solve: Optional[bool] = None,
+):
+    """J, A, b, lo, hi, fscale, M^-1 J^T of the padded boxed LCP, each with
+    the leading batch dimensions of q.
+
+    ``planner=True`` builds the smooth planning variant of the frozen-class
+    path (ops/frozen_contact.py): every row is gated on (the frozen class
+    masks decide row activity), and the mass solve is the pivot-free SPD
+    solve. The limit rows come first (all lower rows, then all upper
+    rows), then the Coulomb rows."""
+    _no_unported_rows(model)
+    if len(contacts.body_a):
+        raise NotImplementedError("contact rows are not ported yet (ROADMAP queue A, M4)")
+    nq = model.nq
+    dtype, device = q.dtype, q.device
+    batch = q.shape[:-1]
+    Ld = limited_dofs(model)
+    Cd = coulomb_dofs(model)
+    zeros = q.new_zeros(batch + (0,))
+    J = q.new_zeros(batch + (0, nq))
+    b, lo, hi, fscale = zeros, zeros, zeros, zeros
+    if Ld:
+        # lower limit active when q <= lo (impulse >= 0 on +e_d); upper when
+        # q >= hi (row -e_d with impulse >= 0)
+        E = torch.eye(nq, dtype=dtype, device=device)[list(Ld)]          # (L, nq)
+        v_star_L = (E @ v_star[..., None])[..., 0]
+        if planner:
+            lo_act = q.new_ones(batch + (len(Ld),))
+            hi_act = q.new_ones(batch + (len(Ld),))
+        else:
+            q_L = (E @ q[..., None])[..., 0]
+            d_idx = list(Ld)
+            lo_act = ((q_L - model.q_lower[d_idx]) <= 0.0).to(dtype)
+            hi_act = ((q_L - model.q_upper[d_idx]) >= 0.0).to(dtype)
+        J_lim = torch.cat([lo_act[..., None] * E, -hi_act[..., None] * E], dim=-2)
+        b_lim = torch.cat([-lo_act * v_star_L, hi_act * v_star_L], dim=-1)
+        hi_lim = torch.cat([lo_act, hi_act], dim=-1) * _BIG
+        J = torch.cat([J, J_lim], dim=-2)
+        b = torch.cat([b, b_lim], dim=-1)
+        lo = torch.cat([lo, q.new_zeros(batch + (2 * len(Ld),))], dim=-1)
+        hi = torch.cat([hi, hi_lim], dim=-1)
+        fscale = torch.cat([fscale, q.new_zeros(batch + (2 * len(Ld),))], dim=-1)
+    if Cd:
+        # boxed impulse |x| <= mu_c dt resisting the dof velocity
+        Ec = torch.eye(nq, dtype=dtype, device=device)[list(Cd)]
+        f_imp = (model.coulomb_friction[list(Cd)] * model.dt).expand(batch + (len(Cd),))
+        J = torch.cat([J, Ec.expand(batch + Ec.shape)], dim=-2)
+        b = torch.cat([b, -(Ec @ v_star[..., None])[..., 0]], dim=-1)
+        lo = torch.cat([lo, -f_imp], dim=-1)
+        hi = torch.cat([hi, f_imp], dim=-1)
+        fscale = torch.cat([fscale, q.new_zeros(batch + (len(Cd),))], dim=-1)
+
+    M = dyn.mass_matrix(model, q, kin=kin)
+    if spd_solve is None:
+        spd_solve = planner and nq <= 40
+    Jt = J.transpose(-1, -2)
+    Minv_Jt = solve_spd(M, Jt) if spd_solve else torch.linalg.solve(M, Jt)
+    m_total = J.shape[-2]
+    A = J @ Minv_Jt + CFM * torch.eye(m_total, dtype=dtype, device=device)
+    return J, A, b, lo, hi, fscale, Minv_Jt
+
+
+def contact_step(
+    model: Model,
+    state: State,
+    tau: torch.Tensor,
+    x_warm: Optional[torch.Tensor] = None,
+    lcp_iters: Optional[int] = None,
+    return_info: bool = False,
+    servo_cmd: Optional[torch.Tensor] = None,
+    accuracy: str = "standard",
+):
+    """One constrained timestep. The limit/Coulomb-only LCP takes the direct
+    active-set solve (``lcp_iters`` rounds, 3 by default); ``x_warm`` is
+    accepted for the interface and unused by that method. ``accuracy``
+    other than "standard" is not ported yet."""
+    if accuracy != "standard":
+        raise NotImplementedError(
+            f"contact_step(accuracy={accuracy!r}) is not ported yet (ROADMAP "
+            "queue A, M4: the staged LCP cascade)")
+    q, v = state.q, state.v
+    kin0 = dyn.forward_kinematics(model, q)
+    qdd = dyn.aba(model, q, v, tau, kin=kin0)
+    v_star = v + model.dt * qdd
+    # imported here: simulation/step.py imports this module
+    from nimblephysics_tpu_torch.simulation.step import integrate_positions
+
+    m = lcp_dim(model)
+    if m == 0:
+        out = State(integrate_positions(model, q, v), v_star)
+        return (out, None) if return_info else out
+    lcp_iters = 3 if lcp_iters is None else lcp_iters
+    contacts = detect_contacts(model, kin0.T_wb)
+    J, A, b, lo, hi, fscale, Minv_Jt = build_constraint_system(
+        model, q, v_star, kin0, contacts, servo_cmd)
+    findex = lcp_findex(model)
+    if x_warm is None:
+        x_warm = torch.zeros_like(b)
+    x = lcp_mod.boxed_lcp(A, b, lo, hi, fscale, x_warm, findex, lcp_iters, "direct")
+    v_next = v_star + (Minv_Jt @ x[..., None])[..., 0]
+    out = State(integrate_positions(model, q, v), v_next)
+    if not return_info:
+        return out
+    clamping, upper, s = lcp_mod._classify(x, lo, hi, fscale, findex)
+    resid = lcp_mod.lcp_residual(A, x, b, lo, hi, fscale, findex)
+    return out, ContactSolveInfo(
+        impulses=x, contacts=contacts, J=J, v_star=v_star, clamping=clamping,
+        upper=upper, upper_sign=s, residual=resid.detach())

@@ -43,3 +43,11 @@ def inv_spd_pivots(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def inv_spd(A: torch.Tensor) -> torch.Tensor:
     return inv_spd_pivots(A)[0]
+
+
+def solve_spd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A^-1 b for SPD A (..., n, n) with b (..., n) or (..., n, k)."""
+    Ai = inv_spd(A)
+    if b.dim() == A.dim() - 1:
+        return (Ai @ b[..., None])[..., 0]
+    return Ai @ b

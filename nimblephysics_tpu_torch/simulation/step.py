@@ -1,4 +1,4 @@
-"""The contact-free timestep.
+"""The timestep: contact-free, or constrained through ops/contact.py.
 
 PyTorch counterpart of ``nimblephysics_tpu/simulation/step.py``:
 
@@ -7,7 +7,7 @@ PyTorch counterpart of ``nimblephysics_tpu/simulation/step.py``:
     q_t+1  = integrate(q_t, v_t)    (pre-step velocity)
 
 States carry leading batch dimensions. A model with constraint rows
-dispatches to ``ops/contact.contact_step``, which is not ported yet.
+(joint limits, Coulomb friction) dispatches to ``ops/contact.contact_step``.
 """
 
 from __future__ import annotations
@@ -56,13 +56,19 @@ def rollout(model: Model, state0: State, actions: torch.Tensor) -> Tuple[State, 
     """Roll a horizon of actions (..., T, na) forward from state0 (..., nq).
 
     Returns (final state, trajectory) with the trajectory's time axis just
-    before the dof axis, (..., T, nq)."""
-    if lcp_dim(model) > 0:
-        return contact_step(model, state0, actions)
+    before the dof axis, (..., T, nq). A constrained model takes
+    ``contact_step`` with the previous step's impulses as its warm start."""
+    m = lcp_dim(model)
     s = state0
+    x_prev = None
     qs, vs = [], []
     for t in range(actions.shape[-2]):
-        s = forward_step(model, s, model.action_to_tau(actions[..., t, :]))
+        tau = model.action_to_tau(actions[..., t, :])
+        if m:
+            s, info = contact_step(model, s, tau, x_warm=x_prev, return_info=True)
+            x_prev = info.impulses
+        else:
+            s = forward_step(model, s, tau)
         qs.append(s.q)
         vs.append(s.v)
     return s, State(q=torch.stack(qs, dim=-2), v=torch.stack(vs, dim=-2))

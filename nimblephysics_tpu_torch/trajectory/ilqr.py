@@ -1,4 +1,5 @@
-"""iLQR for the MPC layer: the contact-free batched replan.
+"""iLQR for the MPC layer: the batched replan, contact-free or on frozen
+contact classes, and the contact-MPC loop around it.
 
 PyTorch counterpart of ``nimblephysics_tpu/trajectory/ilqr.py``:
 
@@ -6,32 +7,50 @@ PyTorch counterpart of ``nimblephysics_tpu/trajectory/ilqr.py``:
     regularisation, the alpha ladder and the reg schedule — the plain
     end-to-end reference, with no kernel.
   * ``ilqr_solve_batch``: B worlds at once, the same iteration as
-    ``vmap(ilqr_solve)``, with the three kernels where the JAX package runs
-    its three Pallas kernels: linearize (K3), the Riccati backward (K1) and
-    the line-search rollout (K2), the last also for the first open-loop
-    rollout.
+    ``vmap(ilqr_solve)``, with kernels where the JAX package runs its
+    Pallas kernels: linearize (K3, or K4 on frozen classes), the Riccati
+    backward (K1) and the line-search rollout (K2), the last also for the
+    first open-loop rollout.
+  * ``solve_contact_mpc`` (one world, plain) and ``solve_contact_mpc_batch``
+    (``class_refresh="rollout"``): one full-LCP rollout records each step's
+    LCP classes (K6 in the batch), iLQR runs on the smooth frozen-class
+    dynamics, and the winning trajectory is classified again pointwise for
+    the next replan's warm start.
 
 The cost derivatives (lx, lu, lxx, luu, lux, Vx_T, Vxx_T) come from
-``torch.func`` outside any kernel. Models with constraint rows are refused
-up front, so the dynamics is the contact-free ``dyn_for_trace`` (the JAX
-package's ``_make_dyn``). Forward-only, like the JAX solver's
+``torch.func`` outside any kernel. Forward-only, like the JAX solver's
 batched path.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch.func import grad, hessian, jacfwd, vmap
 
 from nimblephysics_tpu_torch.models.model import Model, State
+from nimblephysics_tpu_torch.ops import frozen_contact
 from nimblephysics_tpu_torch.ops.contact import lcp_dim
-from nimblephysics_tpu_torch.ops.cuda_linearize import dyn_for_trace, linearize, linearize_plain
+from nimblephysics_tpu_torch.ops.cuda_linearize import (
+    dyn_for_trace,
+    dyn_frozen_for_trace,
+    linearize,
+    linearize_plain,
+    linearize_split,
+    linearize_split_plain,
+)
 from nimblephysics_tpu_torch.ops.cuda_riccati import riccati_backward, riccati_backward_plain
-from nimblephysics_tpu_torch.ops.cuda_rollout import rollout_gains, rollout_gains_plain
+from nimblephysics_tpu_torch.ops.cuda_rollout import (
+    rollout_classes,
+    rollout_classes_plain,
+    rollout_gains,
+    rollout_gains_plain,
+)
+from nimblephysics_tpu_torch.ops.frozen_contact import FrozenClasses
 from nimblephysics_tpu_torch.ops.linalg_small import inv_spd_pivots
+from nimblephysics_tpu_torch.simulation.step import rollout as full_rollout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,7 +65,19 @@ class ILQRConfig:
     # backward pass: "sequential" only; "parallel" (the associative-scan
     # LQR of the JAX package) is not ported yet
     riccati: str = "sequential"
-    # ilqr_solve_batch: False runs the plain PyTorch versions of the three
+    # linearize sweep of ilqr_solve_batch: "auto" and "split" take K3 on the
+    # contact-free step and K4 on frozen classes (the JAX package's "auto"
+    # also takes K4 for the models this port covers: nq < 4 or no linear
+    # position update would send it to K5); "jvp", "vjp", "chain" and "xla"
+    # are not ported yet
+    linearize: str = "auto"
+    # PCG depth of the frozen-class solve in the planner (K2, K4); None is
+    # m + 6
+    planner_cg_iters: Optional[int] = None
+    # line-search rollout of ilqr_solve_batch: "auto" (K2) only; "xla" is
+    # not ported
+    rollout: str = "auto"
+    # ilqr_solve_batch: False runs the plain PyTorch versions of the
     # kernels on any device (what the kernels are held against); True runs
     # the kernels on CUDA tensors (the plain versions on CPU tensors)
     kernels: bool = True
@@ -61,23 +92,38 @@ class ILQRSolution(NamedTuple):
     k: torch.Tensor             # (..., T, na) feedforward terms
 
 
-def _check(model: Model, config: ILQRConfig, classes, dtype, device) -> None:
-    if classes is not None:
-        raise NotImplementedError(
-            "classes (frozen-contact iLQR) are not ported yet (ROADMAP queue A, M5)")
+_UNPORTED_LINEARIZE = {"jvp": "queue B, K3 classes=", "vjp": "queue B, K5",
+                       "chain": "queue B, K8", "xla": "queue B"}
+
+
+def _check(model: Model, config: ILQRConfig, classes, dtype, device):
+    """Validate the call; returns the classes as a (cmask, us) pair of
+    contiguous tensors, or None for the contact-free dynamics."""
     if config.riccati != "sequential":
         raise NotImplementedError(
             f"riccati={config.riccati!r} is not ported yet (ROADMAP queue A, M3)")
+    if config.linearize not in ("auto", "split"):
+        raise NotImplementedError(
+            f"linearize={config.linearize!r} is not ported yet (ROADMAP "
+            f"{_UNPORTED_LINEARIZE.get(config.linearize, 'queue B')})")
+    if config.rollout != "auto":
+        raise NotImplementedError(
+            f"rollout={config.rollout!r} is not ported yet (ROADMAP queue B, K2)")
     if config.iters < 1:
         raise ValueError("iters must be at least 1")
     if model.device != device or model.dtype != dtype:
         raise ValueError(f"model is {model.dtype} on {model.device}, "
                          f"inputs are {dtype} on {device}")
-    if lcp_dim(model) > 0:
+    m = lcp_dim(model)
+    if m == 0:
+        # the frozen-class step of a model without rows is the contact-free step
+        return None
+    if classes is None:
         raise NotImplementedError(
-            "models with constraint rows (joint limits, Coulomb friction) need "
-            "the frozen-contact path (ROADMAP queue A, M4/M5); plan on "
-            "relax_limits(model)")
+            "iLQR on the full constrained step needs the implicit boxed_lcp "
+            "derivative (ROADMAP queue A, M4); pass frozen classes "
+            "(solve_contact_mpc_batch) or plan on relax_limits(model)")
+    return tuple(c.contiguous() for c in classes)
 
 
 def _controls_clamp(model: Model):
@@ -118,15 +164,30 @@ def ilqr_solve_batch(
     Riccati and rollout kernels on CUDA tensors (``config.kernels``).
 
     ``running_cost(x, u, t)`` and ``final_cost(x)`` act on one point; on the
-    card they must be a QuadraticCost and a QuadraticFinalCost."""
+    card they must be a QuadraticCost and a QuadraticFinalCost. ``classes``
+    (a FrozenClasses or (cmask, us) pair, each (B, T, m)): solve on the
+    frozen-class contact dynamics, required for a model with constraint
+    rows."""
     B, T, na = u_init.shape
     dtype, device = u_init.dtype, u_init.device
-    _check(model, config, classes, dtype, device)
+    cl = _check(model, config, classes, dtype, device)
     nx = x0_flat.shape[-1]
+    cg = config.planner_cg_iters
     if config.kernels:
-        lin, ric, roll = linearize, riccati_backward, rollout_gains
+        lin_free, lin_frozen, ric, roll_fn = (linearize, linearize_split, riccati_backward,
+                                              rollout_gains)
     else:
-        lin, ric, roll = linearize_plain, riccati_backward_plain, rollout_gains_plain
+        lin_free, lin_frozen, ric, roll_fn = (linearize_plain, linearize_split_plain,
+                                              riccati_backward_plain, rollout_gains_plain)
+
+    def lin(model, xs, u):
+        if cl is None:
+            return lin_free(model, xs, u)
+        return lin_frozen(model, xs, u, cl, cg)
+
+    def roll(*args):
+        return roll_fn(*args, classes=cl, cg_iters=cg)
+
     clamp = _controls_clamp(model)
     x0_flat = x0_flat.contiguous()
     alphas = torch.tensor(config.alphas, dtype=dtype, device=device)
@@ -170,11 +231,26 @@ def ilqr_solve(
 ) -> ILQRSolution:
     """Minimize sum_t running_cost(x_t, u_t, t) + final_cost(x_T) for one
     world: the plain end-to-end reference (sequential Riccati recursion with
-    Tassa regularisation Vxx + reg I inside the fu products)."""
+    Tassa regularisation Vxx + reg I inside the fu products).
+
+    ``classes`` (a FrozenClasses or (cmask, us) pair, each (T, m)): solve on
+    the frozen-class contact dynamics (the solve's default PCG depth, as
+    the JAX package's ``ilqr_solve``)."""
     T, na = u_init.shape
     dtype, device = u_init.dtype, u_init.device
-    _check(model, config, classes, dtype, device)
-    dyn = dyn_for_trace(model)
+    cl = _check(model, config, classes, dtype, device)
+    if cl is None:
+        step_free = dyn_for_trace(model)
+
+        def dyn(x, u, cl_t):
+            return step_free(x, u)
+
+        cl = (u_init.new_zeros((T, 0)),) * 2
+    else:
+        step_frozen = dyn_frozen_for_trace(model)
+
+        def dyn(x, u, cl_t):
+            return step_frozen(x, u, cl_t[0], cl_t[1])
     clamp = _controls_clamp(model)
     xflat0 = x0.flat()
     nx = xflat0.shape[-1]
@@ -184,7 +260,7 @@ def ilqr_solve(
     def rollout_controls(u):
         xs = [xflat0]
         for t in range(T):
-            xs.append(dyn(xs[-1], u[t]))
+            xs.append(dyn(xs[-1], u[t], (cl[0][t], cl[1][t])))
         return torch.stack(xs)
 
     def traj_cost(xs, u):
@@ -194,7 +270,7 @@ def ilqr_solve(
         x, xs, us = xflat0, [xflat0], []
         for t in range(T):
             u_t = clamp(u_ref[t] + alpha * k[t] + K[t] @ (x - xs_ref[t]))
-            x = dyn(x, u_t)
+            x = dyn(x, u_t, (cl[0][t], cl[1][t]))
             xs.append(x)
             us.append(u_t)
         return torch.stack(xs), torch.stack(us)
@@ -202,7 +278,7 @@ def ilqr_solve(
     dyn_jac = vmap(jacfwd(dyn, argnums=(0, 1)))
 
     def backward(xs, u, reg):
-        fx, fu = dyn_jac(xs[:-1], u)
+        fx, fu = dyn_jac(xs[:-1], u, cl)
         lx, lu = vmap(grad(running_cost, argnums=(0, 1)))(xs[:-1], u, ts)
         lxx = vmap(hessian(running_cost, argnums=0))(xs[:-1], u, ts)
         luu = vmap(hessian(running_cost, argnums=1))(xs[:-1], u, ts)
@@ -247,3 +323,93 @@ def ilqr_solve(
         hist.append(cost)
     return ILQRSolution(u=u, x=xs, cost=cost, cost_history=torch.stack(hist),
                         K=K, k=k)
+
+
+def solve_contact_mpc(
+    model: Model,
+    x0: State,
+    u_init: torch.Tensor,        # (T, na)
+    running_cost: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor],
+    final_cost: Callable[[torch.Tensor], torch.Tensor],
+    config: ILQRConfig = ILQRConfig(),
+    outer_iters: int = 2,
+    classes=None,
+):
+    """Contact-model iLQR on frozen mode sequences for one world, the plain
+    reference: alternate {one full-LCP rollout recording the per-step LCP
+    classes} with {iLQR on the frozen-class dynamics}. ``classes`` seeds the
+    first inner solve (None: from ``u_init``'s rollout).
+
+    Returns (ILQRSolution with x and cost evaluated on the true constrained
+    dynamics, the final FrozenClasses for the next replan's warm start)."""
+    ts = torch.arange(u_init.shape[0], device=u_init.device)
+    u, sol = u_init, None
+    for _ in range(outer_iters):
+        if classes is None or sol is not None:
+            _, _, classes, _ = frozen_contact.rollout_classes(model, x0, u)
+        sol = ilqr_solve(model, x0, u, running_cost, final_cost, config, classes)
+        u = sol.u
+    _, traj = full_rollout(model, x0, u)
+    xs_true = torch.cat([x0.flat()[None], traj.flat()], dim=0)
+    cost_true = vmap(running_cost)(xs_true[:-1], u, ts).sum() + final_cost(xs_true[-1])
+    _, _, classes_out, _ = frozen_contact.rollout_classes(model, x0, u)
+    return sol._replace(x=xs_true, cost=cost_true), classes_out
+
+
+def solve_contact_mpc_batch(
+    model: Model,
+    x0_flat: torch.Tensor,       # (B, nx)
+    u_init: torch.Tensor,        # (B, T, na)
+    running_cost,
+    final_cost,
+    config: ILQRConfig = ILQRConfig(),
+    outer_iters: int = 2,
+    classes=None,
+    class_refresh: str = "rollout",
+):
+    """Batched contact-model MPC replans on the frozen-mode fast path:
+    ``solve_contact_mpc`` over B worlds with ``ilqr_solve_batch`` doing the
+    inner iLQR. The mode sequence of each world comes from one full-LCP
+    rollout of its plan (``class_refresh="rollout"``: K6 when
+    ``fused_class_rollout_ok``); the returned classes are those of the
+    winning trajectory ``sol.x`` under ``sol.u``, classified pointwise, to
+    warm-start the next replan. Returns (ILQRSolution, FrozenClasses).
+
+    ``class_refresh="pointwise"`` (and with it the JAX package's
+    ``refresh_fixed_point`` argument) is not ported yet. On CUDA tensors
+    with ``config.kernels`` a model that fails ``fused_class_rollout_ok``
+    raises rather than taking the plain scan."""
+    if class_refresh == "pointwise":
+        raise NotImplementedError(
+            "class_refresh='pointwise' is not ported yet (ROADMAP queue A, M5)")
+    if class_refresh != "rollout":
+        raise ValueError(f"unknown class_refresh {class_refresh!r}")
+    B, T, na = u_init.shape
+    m = lcp_dim(model)
+    x0_flat = x0_flat.contiguous()
+
+    def classes_of(u):
+        if m == 0:
+            z = u.new_zeros((B, T, 0))
+            return FrozenClasses(cmask=z, us=z)
+        if frozen_contact.fused_class_rollout_ok(model):
+            roll = rollout_classes if config.kernels else rollout_classes_plain
+            return roll(model, x0_flat, u)[1]
+        if config.kernels and x0_flat.is_cuda:
+            raise NotImplementedError(
+                "the class-rollout kernel needs fused_class_rollout_ok(model) "
+                "(ROADMAP queue A, M4/M5: contact slots, loops, servos)")
+        return frozen_contact.rollout_classes(model, State.from_flat(x0_flat), u)[2]
+
+    u, sol = u_init, None
+    for _ in range(outer_iters):
+        if classes is None or sol is not None:
+            classes = classes_of(u)
+        sol = ilqr_solve_batch(model, x0_flat, u, running_cost, final_cost, config,
+                               classes=classes)
+        u = sol.u
+    if m > 0:
+        cl_out, _ = frozen_contact.classify_points(model, sol.x[:, :-1],
+                                                   model.action_to_tau(sol.u))
+        return sol, cl_out
+    return sol, classes_of(u)

@@ -190,3 +190,317 @@ def test_pack_model_follows_in_place_edits():
     assert not torch.equal(P1, P0)
     assert torch.equal(P1, device_step.pack_model(fresh)[0])
     assert torch.equal(I1, I0)
+
+
+# The constrained device code (csrc/step.cuh frozen_step and class_step) and
+# the thread bodies of K2 with classes, K4 and K6, built for the host.
+# Reads "nb nq na m n nr ni n_cg", the packed reals and ints, the cost
+# weights (2 nq + na + nx), then n points (x, u, cmask); writes the
+# operation counts by kind of frozen_step on the counting scalar, of
+# class_step on it, and of frozen_step on dual numbers over it (a plain
+# step plus one tangent); then per point frozen_step's (q', v'),
+# class_step's (q', v', cmask) and K4's thread bodies' (fx, fu); then K6's
+# and K2's threads run over the n points as one trajectory (x0 = the first
+# point's x, u_t = the points' u, K2 with zero gains and the points' cmask):
+# per step K6's (x', cmask) and K2's x', and K2's cost last.
+CONTACT_MAIN = r"""
+#include <cstdio>
+#include <vector>
+#include "linearize.cu"
+#include "rollout.cu"
+
+namespace nptt {
+long long g_ops[8];  // add, add_c, mul, mul_c, div, sin, cos, sqrt
+struct C {
+  double v;
+  C() : v(0) {}
+  C(double x) : v(x) {}
+};
+inline C operator+(C a, C b) { ++g_ops[0]; return C(a.v + b.v); }
+inline C operator-(C a, C b) { ++g_ops[0]; return C(a.v - b.v); }
+inline C operator-(C a) { ++g_ops[0]; return C(-a.v); }
+inline C operator-(double a, C b) { ++g_ops[0]; return C(a - b.v); }
+inline C operator+(C a, double b) { ++g_ops[1]; return C(a.v + b); }
+inline C operator+(double a, C b) { ++g_ops[1]; return C(a + b.v); }
+inline C operator-(C a, double b) { ++g_ops[1]; return C(a.v - b); }
+inline C operator*(C a, C b) { ++g_ops[2]; return C(a.v * b.v); }
+inline C operator*(C a, double b) { ++g_ops[3]; return C(a.v * b); }
+inline C operator*(double a, C b) { ++g_ops[3]; return C(a * b.v); }
+inline C operator/(C a, double b) { ++g_ops[3]; return C(a.v / b); }
+inline C operator/(C a, C b) { ++g_ops[4]; return C(a.v / b.v); }
+inline C operator/(double a, C b) { ++g_ops[4]; return C(a / b.v); }
+inline C nsin(C x) { ++g_ops[5]; return C(std::sin(x.v)); }
+inline C ncos(C x) { ++g_ops[6]; return C(std::cos(x.v)); }
+inline C nsqrt(C x) { ++g_ops[7]; return C(std::sqrt(x.v)); }
+inline double val(C x) { return x.v; }
+// dual numbers over the counting scalar, with the model's constants as double
+using DC = Dual<C>;
+inline DC operator+(DC a, double b) { return DC(a.v + b, a.d); }
+inline DC operator+(double a, DC b) { return DC(a + b.v, b.d); }
+inline DC operator-(DC a, double b) { return DC(a.v - b, a.d); }
+inline DC operator-(double a, DC b) { return DC(a - b.v, -b.d); }
+inline DC operator*(DC a, double b) { return DC(a.v * b, a.d * b); }
+inline DC operator*(double a, DC b) { return DC(a * b.v, a * b.d); }
+inline DC operator/(DC a, double b) { return DC(a.v / b, a.d / b); }
+inline DC operator/(double a, DC b) { C q = a / b.v; return DC(q, -q * b.d / b.v); }
+inline double val(DC x) { return x.v.v; }
+}  // namespace nptt
+
+static void print_ops() {
+  for (int k = 0; k < 8; ++k) printf("%lld ", nptt::g_ops[k]);
+  printf("\n");
+  for (int k = 0; k < 8; ++k) nptt::g_ops[k] = 0;
+}
+
+template <int NB, int NQ, int NA, int M>
+void run(const double* P, const int* I, const double* w, const std::vector<double>& pts, int n,
+         int n_cg) {
+  constexpr int NX = 2 * NQ, K = NX + NA, E = NX + NA + M;
+  using nptt::C;
+  using nptt::DC;
+  std::vector<double> xs(n * NX), us(n * NA), cms(n * M);
+  for (int p = 0; p < n; ++p) {
+    for (int i = 0; i < NX; ++i) xs[p * NX + i] = pts[p * E + i];
+    for (int a = 0; a < NA; ++a) us[p * NA + a] = pts[p * E + NX + a];
+    for (int r = 0; r < M; ++r) cms[p * M + r] = pts[p * E + NX + NA + r];
+  }
+  {
+    C q[NQ], v[NQ], u[NA], qn[NQ], vn[NQ];
+    double cmo[M];
+    for (int i = 0; i < NQ; ++i) { q[i] = C(xs[i]); v[i] = C(xs[NQ + i]); }
+    for (int a = 0; a < NA; ++a) u[a] = C(us[a]);
+    nptt::frozen_step<double, C, NB, NQ, NA, M>(P, I, q, v, u, cms.data(), n_cg, qn, vn);
+    print_ops();
+    nptt::class_step<double, C, NB, NQ, NA, M>(P, I, q, v, u, qn, vn, cmo);
+    print_ops();
+    DC qd[NQ], vd[NQ], ud[NA], qnd[NQ], vnd[NQ];
+    for (int i = 0; i < NQ; ++i) { qd[i] = DC(C(xs[i]), C(1.0)); vd[i] = DC(C(xs[NQ + i])); }
+    for (int a = 0; a < NA; ++a) ud[a] = DC(C(us[a]));
+    nptt::frozen_step<double, DC, NB, NQ, NA, M>(P, I, qd, vd, ud, cms.data(), n_cg, qnd, vnd);
+    print_ops();
+  }
+  std::vector<double> fx(n * NX * NX), fu(n * NX * NA);
+  for (long long t = 0; t < (long long)n * K; ++t)
+    nptt::linearize_split_thread<double, NB, NQ, NA, M>(t, n_cg, P, I, xs.data(), us.data(),
+                                                         cms.data(), fx.data(), fu.data());
+  for (int p = 0; p < n; ++p) {
+    double qo[NQ], vo[NQ], qc[NQ], vc[NQ], cmo[M];
+    nptt::frozen_step<double, double, NB, NQ, NA, M>(P, I, &xs[p * NX], &xs[p * NX + NQ],
+                                                     &us[p * NA], &cms[p * M], n_cg, qo, vo);
+    nptt::class_step<double, double, NB, NQ, NA, M>(P, I, &xs[p * NX], &xs[p * NX + NQ],
+                                                    &us[p * NA], qc, vc, cmo);
+    for (int i = 0; i < NQ; ++i) printf("%.17g ", qo[i]);
+    for (int i = 0; i < NQ; ++i) printf("%.17g ", vo[i]);
+    for (int i = 0; i < NQ; ++i) printf("%.17g ", qc[i]);
+    for (int i = 0; i < NQ; ++i) printf("%.17g ", vc[i]);
+    for (int r = 0; r < M; ++r) printf("%.17g ", cmo[r]);
+    for (int i = 0; i < NX * NX; ++i) printf("%.17g ", fx[p * NX * NX + i]);
+    for (int i = 0; i < NX * NA; ++i) printf("%.17g ", fu[p * NX * NA + i]);
+    printf("\n");
+  }
+  // one trajectory of n steps from the first point: K6, then K2 (zero gains)
+  std::vector<double> out(n * (NX + M)), xs_ref((n + 1) * NX, 0.0), Kg(n * NA * NX, 0.0),
+      kf(n * NA, 0.0), xs2((n + 1) * NX), us2(n * NA);
+  double alpha = 1.0, cost = 0.0;
+  nptt::classes_thread<double, NB, NQ, NA, M>(0, 1, n, P, I, xs.data(), us.data(), out.data());
+  nptt::rollout_thread<double, NB, NQ, NA, M>(0, 1, n, n_cg, P, I, w, xs.data(), xs_ref.data(),
+                                               us.data(), Kg.data(), kf.data(), &alpha,
+                                               cms.data(), xs2.data(), us2.data(), &cost);
+  for (int t = 0; t < n; ++t) {
+    for (int e = 0; e < NX + M; ++e) printf("%.17g ", out[t * (NX + M) + e]);
+    for (int i = 0; i < NX; ++i) printf("%.17g ", xs2[(t + 1) * NX + i]);
+    printf("\n");
+  }
+  printf("%.17g\n", cost);
+}
+
+int main() {
+  int nb, nq, na, m, n, nr, ni, n_cg;
+  if (scanf("%d %d %d %d %d %d %d %d", &nb, &nq, &na, &m, &n, &nr, &ni, &n_cg) != 8) return 2;
+  std::vector<double> P(nr), w(4 * nq + na), pts(n * (2 * nq + na + m));
+  std::vector<int> I(ni);
+  for (auto& x : P) if (scanf("%lf", &x) != 1) return 2;
+  for (auto& x : I) if (scanf("%d", &x) != 1) return 2;
+  for (auto& x : w) if (scanf("%lf", &x) != 1) return 2;
+  for (auto& x : pts) if (scanf("%lf", &x) != 1) return 2;
+#define RUN(NB, NQ, NA, M) \
+  if (nb == NB && nq == NQ && na == NA && m == M) { run<NB, NQ, NA, M>(P.data(), I.data(), w.data(), pts, n, n_cg); return 0; }
+  NPTT_CONTACT_SHAPES(RUN)
+  return 3;
+}
+"""
+
+# m + 6, the default; a truncated PCG; one iteration, which stops short of
+# the solution where two rows clamp (contact_points has such points), so
+# that the implicit tangent and the derivative of the iteration differ
+CG_DEPTHS = (10, 4, 1)
+
+
+@pytest.fixture(scope="module")
+def contact_exe(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed: the device step cannot be built for the host")
+    d = tmp_path_factory.mktemp("contact_step")
+    (d / "contact_main.cpp").write_text(CONTACT_MAIN)
+    exe = d / "contact_main"
+    subprocess.run(["g++", "-std=c++17", "-O0", "-I", str(CSRC), str(d / "contact_main.cpp"),
+                    "-o", str(exe)], check=True, capture_output=True, timeout=300)
+    return exe
+
+
+def limited_cartpole():
+    """Cartpole with the narrowed limits of tests/test_frozen_contact.py."""
+    m = builders.cartpole(dt=0.02, dtype=torch.float64, device="cpu")
+    return m.replace(q_lower=torch.tensor([-0.6, -0.5], dtype=torch.float64),
+                     q_upper=torch.tensor([0.6, 0.5], dtype=torch.float64))
+
+
+def contact_points(n=8, seed=6):
+    """Points at and beyond the limits, with velocities into them, strong
+    pushes, and class masks with some rows clamping."""
+    rng = np.random.default_rng(seed)
+    q = rng.uniform(-0.7, 0.7, (n, 2))
+    v = -np.sign(q) * rng.uniform(-0.5, 2.0, (n, 2))
+    x = np.concatenate([q, -v], axis=1)
+    u = rng.uniform(-40.0, 40.0, (n, 1))
+    cm = (rng.uniform(size=(n, 4)) < 0.4).astype(np.float64)
+    cm[0] = [1.0, 0.0, 0.0, 1.0]
+    # the trajectory the thread bodies roll from the first point runs into
+    # the upper limits
+    x[0] = [0.55, 0.45, 1.5, 2.0]
+    u[: n // 2] = 30.0
+    return x, u, cm
+
+
+@functools.lru_cache(maxsize=None)
+def run_contact(exe, n_cg):
+    """(model, x, u, cmask, operation counts of frozen_step, class_step and
+    frozen_step on duals, one row per point, one row per trajectory step,
+    K2's trajectory cost)."""
+    model = limited_cartpole()
+    x, u, cm = contact_points()
+    P, I = device_step.pack_model(model)
+    w = np.concatenate([np.full(2, 0.1), np.zeros(2), np.full(1, 1e-3), np.full(4, 10.0)])
+    head = (model.num_bodies, model.nq, model.num_actions, 4, x.shape[0], P.numel(), I.numel(),
+            n_cg)
+    text = "\n".join([" ".join(str(v) for v in head),
+                      " ".join(repr(v) for v in P.tolist()),
+                      " ".join(str(v) for v in I.tolist()),
+                      " ".join(repr(float(v)) for v in w),
+                      " ".join(repr(float(v)) for v in np.concatenate([x, u, cm], axis=1).ravel())])
+    out = subprocess.run([str(exe)], input=text, capture_output=True, text=True,
+                         check=True, timeout=60).stdout.splitlines()
+    counts = [dict(zip(KINDS, (int(c) for c in line.split()))) for line in out[:3]]
+    n = x.shape[0]
+    rows = np.array([[float(v) for v in line.split()] for line in out[3:3 + n]])
+    traj = np.array([[float(v) for v in line.split()] for line in out[3 + n:3 + 2 * n]])
+    return model, x, u, cm, counts, rows, traj, float(out[3 + 2 * n])
+
+
+@pytest.mark.parametrize("n_cg", CG_DEPTHS)
+def test_frozen_and_class_steps_match_plain(contact_exe, n_cg):
+    from nimblephysics_tpu_torch.ops.cuda_linearize import dyn_frozen_for_trace
+    from nimblephysics_tpu_torch.ops.frozen_contact import step_with_classes_for_trace
+
+    model, x, u, cm, _, rows, _, _ = run_contact(contact_exe, n_cg)
+    xt, ut, cmt = (torch.tensor(a) for a in (x, u, cm))
+    frozen = dyn_frozen_for_trace(model, n_cg)(xt, ut, cmt, torch.zeros_like(cmt)).numpy()
+    np.testing.assert_allclose(rows[:, :4], frozen, rtol=1e-12, atol=1e-12)
+    x2, cm2, _ = step_with_classes_for_trace(model)(xt, ut)
+    np.testing.assert_allclose(rows[:, 4:8], x2.numpy(), rtol=1e-12, atol=1e-12)
+    np.testing.assert_array_equal(rows[:, 8:12], cm2.numpy())
+    assert 0 < cm2.sum() < cm2.numel()
+
+
+@pytest.mark.parametrize("n_cg", CG_DEPTHS)
+def test_linearize_split_thread_matches_implicit_jacfwd(contact_exe, n_cg):
+    """K4's thread body (the frozen step on duals, with solve_frozen's
+    implicit tangent) against jacfwd of the plain frozen step."""
+    from nimblephysics_tpu_torch.ops.cuda_linearize import linearize_split_plain
+
+    model, x, u, cm, _, rows, _, _ = run_contact(contact_exe, n_cg)
+    n = x.shape[0]
+    cmt = torch.tensor(cm)[:, None]
+    fx, fu = linearize_split_plain(model, torch.tensor(x)[:, None], torch.tensor(u)[:, None],
+                                   (cmt, torch.zeros_like(cmt)), n_cg)
+    np.testing.assert_allclose(rows[:, 12:28], fx.reshape(n, -1).numpy(), rtol=1e-11, atol=1e-11)
+    np.testing.assert_allclose(rows[:, 28:32], fu.reshape(n, -1).numpy(), rtol=1e-11, atol=1e-11)
+
+
+def test_linearize_split_thread_rejects_the_iterated_tangent(contact_exe, monkeypatch):
+    """At one PCG iteration the derivative taken through the iteration is
+    another Jacobian: the comparison above, at rel 1e-11, would reject a
+    thread body that pushed its duals through the PCG."""
+    from torch_port_helpers import iterate_through_pcg
+
+    from nimblephysics_tpu_torch.ops.cuda_linearize import linearize_split_plain
+
+    model, x, u, cm, _, rows, _, _ = run_contact(contact_exe, 1)
+    n = x.shape[0]
+    cmt = torch.tensor(cm)[:, None]
+    iterate_through_pcg(monkeypatch)
+    fx, _ = linearize_split_plain(model, torch.tensor(x)[:, None], torch.tensor(u)[:, None],
+                                  (cmt, torch.zeros_like(cmt)), 1)
+    gap = np.abs(rows[:, 12:28] - fx.reshape(n, -1).numpy()).max() / np.abs(rows[:, 12:28]).max()
+    assert gap > 1e-3, gap
+
+
+def test_class_and_rollout_threads_match_plain(contact_exe):
+    """K6's and K2's (with classes) thread bodies over one trajectory."""
+    from nimblephysics_tpu_torch.ops.cuda_rollout import rollout_classes_plain, rollout_gains_plain
+    from nimblephysics_tpu_torch.trajectory.costs import QuadraticCost, QuadraticFinalCost
+
+    model, x, u, cm, _, _, traj, cost = run_contact(contact_exe, 10)
+    n = x.shape[0]
+    x0, ut = torch.tensor(x[:1]), torch.tensor(u)[None]
+    xs6, cl6 = rollout_classes_plain(model, x0, ut)
+    np.testing.assert_allclose(traj[:, :4], xs6[0].numpy(), rtol=1e-12, atol=1e-12)
+    np.testing.assert_array_equal(traj[:, 4:8], cl6.cmask[0].numpy())
+    assert 0 < cl6.cmask.sum() < cl6.cmask.numel()
+    cmt = torch.tensor(cm)[None]
+    xs2, _, c2 = rollout_gains_plain(
+        model, QuadraticCost(model, wq=0.1, wu=1e-3), QuadraticFinalCost(model, wx=10.0), x0,
+        torch.zeros(1, n + 1, 4, dtype=torch.float64), ut,
+        torch.zeros(1, n, 1, 4, dtype=torch.float64), torch.zeros(1, n, 1, dtype=torch.float64),
+        torch.ones(1, dtype=torch.float64), classes=(cmt, torch.zeros_like(cmt)))
+    np.testing.assert_allclose(traj[:, 8:12], xs2[0, 0, 1:].numpy(), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(cost, float(c2[0, 0]), rtol=1e-12)
+
+
+@pytest.mark.parametrize("n_cg", CG_DEPTHS)
+def test_constrained_op_counts_match_code(contact_exe, n_cg):
+    """The closed-form counts behind the bounds of K2 with classes, K4 and
+    K6 equal what frozen_step and class_step do, kind by kind, and the
+    tangent of frozen_step on duals (with solve_frozen's second PCG) in
+    total."""
+    model, _, _, _, counts, _, _, _ = run_contact(contact_exe, n_cg)
+    frozen = device_step.frozen_step_op_kinds(model, n_cg)
+    assert counts[0] == {k: frozen.get(k, 0) for k in KINDS}
+    cls = device_step.class_step_op_kinds(model)
+    assert counts[1] == {k: cls.get(k, 0) for k in KINDS}
+    assert sum(counts[2].values()) - sum(counts[0].values()) == \
+        device_step.frozen_step_tangent_ops(model, n_cg)
+
+
+def test_pack_model_appends_constraint_rows():
+    """The packed model of a model with limit and Coulomb rows carries one
+    bound per row and each row's dof and kind, in ops/contact.py's order;
+    the constrained kernels take it and refuse a model without rows."""
+    model = limited_cartpole().replace(
+        coulomb_friction=torch.tensor([0.0, 0.3], dtype=torch.float64))
+    from nimblephysics_tpu_torch.models.model import relax_limits
+
+    P, I = device_step.pack_model(model)
+    P0, I0 = device_step.pack_model(relax_limits(model))
+    lim = [-0.6, -0.5, 0.6, 0.5, 0.3 * float(model.dt)]
+    np.testing.assert_allclose(P[P0.numel():].numpy(), lim, rtol=1e-15)
+    # dofs of the rows, then their kinds (lower, lower, upper, upper, Coulomb)
+    np.testing.assert_array_equal(I[I0.numel():].numpy(), [0, 1, 0, 1, 1, 0, 0, 1, 1, 2])
+    assert device_step.check_contact_model("k", limited_cartpole()) == 4
+    with pytest.raises(NotImplementedError, match="M4"):
+        device_step.check_contact_model(
+            "k", builders.pendulum(dtype=torch.float64, device="cpu").replace(
+                q_lower=torch.tensor([-1.0], dtype=torch.float64),
+                q_upper=torch.tensor([1.0], dtype=torch.float64), servo_dofs=(0,)))
+    with pytest.raises(NotImplementedError, match="fused_class_rollout_ok"):
+        device_step.check_contact_model("k", relax_limits(limited_cartpole()))

@@ -39,7 +39,7 @@ def case():
     u0 = np.zeros((B, T, mj.num_actions))
     run_j, fin_j = jax_cartpole_costs(mj.nq)
     sol_j = j_solve_batch(mj, jnp.asarray(x0), jnp.asarray(u0), run_j, fin_j,
-                          JConfig(iters=ITERS), block_b=8)
+                          JConfig(iters=ITERS, unroll=1), block_b=8)
     mt = to_port(mj)
     run_t, fin_t = port_cartpole_costs(mt)
     sol_t = ilqr_solve_batch(mt, t64(x0), t64(u0), run_t, fin_t, ILQRConfig(iters=ITERS))
@@ -84,13 +84,22 @@ def test_plain_config_matches_kernel_config_on_cpu(case):
 def test_unported_options_raise(case):
     run_t, fin_t = case["costs"]
     args = (case["mt"], t64(case["x0"]), t64(case["u0"]), run_t, fin_t)
-    with pytest.raises(NotImplementedError, match="M5"):
-        ilqr_solve_batch(*args, classes=object())
     with pytest.raises(NotImplementedError, match="parallel"):
         ilqr_solve_batch(*args, ILQRConfig(riccati="parallel"))
+    for linearize, item in (("jvp", "K3"), ("vjp", "K5"), ("chain", "K8")):
+        with pytest.raises(NotImplementedError, match=item):
+            ilqr_solve_batch(*args, ILQRConfig(linearize=linearize))
+    with pytest.raises(NotImplementedError, match="K2"):
+        ilqr_solve_batch(*args, ILQRConfig(rollout="xla"))
+    # a model with limit rows needs frozen classes (or the implicit LCP
+    # derivative, not ported yet); classes on a model without rows are the
+    # contact-free step
     limited = builders.cartpole(device="cpu", dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="M4"):
         ilqr_solve_batch(limited, *args[1:])
+    z = torch.zeros(B, T, 0, dtype=torch.float64)
+    sol = ilqr_solve_batch(*args, ILQRConfig(iters=ITERS), classes=(z, z))
+    assert torch.equal(sol.u, case["sol_t"].u)
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

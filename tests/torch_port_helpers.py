@@ -54,3 +54,18 @@ def port_cartpole_costs(model):
 
 def t64(a):
     return torch.as_tensor(np.asarray(a), dtype=torch.float64)
+
+
+def iterate_through_pcg(monkeypatch):
+    """Make the port's solve_frozen take forward mode through its PCG
+    iterations (the derivative of the truncated iteration) instead of the
+    implicit tangent that the JAX package's lax.custom_linear_solve gives:
+    the wrong tangent, to show that a comparison rejects it."""
+    from nimblephysics_tpu_torch.ops import frozen_contact
+
+    class _Iterated:
+        @staticmethod
+        def apply(Qf, reg, diagM, bvec, n_cg):
+            return frozen_contact._pcg(Qf, reg, diagM, bvec, n_cg)
+
+    monkeypatch.setattr(frozen_contact, "_FrozenPCG", _Iterated)

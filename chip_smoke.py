@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on the card, after building the CUDA kernels
+Drives the port's three paths on the card, after building the CUDA kernels
 and holding each one against its plain PyTorch version:
 
   * the contact-free batched iLQR replan of ``bench.py``'s cartpole row
@@ -14,12 +14,18 @@ and holding each one against its plain PyTorch version:
     H=100, 8 iterations, 6 alphas): kernels K6 (full-LCP class rollout),
     K4 (linearize of the frozen-class step), K2 on frozen classes and K1,
     on the stock cartpole (limits +-1 m, +-1.57 rad) and on a cartpole
-    with narrowed limits (+-0.6 m, +-0.5 rad) started into them.
+    with narrowed limits (+-0.6 m, +-0.5 rad) started into them;
+  * the jump worm's frictional-contact MPC replan of ``bench.py``'s
+    jump_worm_contact_b2048 row, ``solve_contact_mpc_batch(class_refresh=
+    "pointwise")`` (B=2048, H=100, 4 iterations, 4 alphas, PCG depth 12):
+    kernels K7 (batched PGS inside the classification), K5 (row-VJP
+    linearize), K2 on frozen classes with contact rows and K1.
 
 Phases:
 
   1. environment: torch, the card, its power limit (nvidia-smi);
-  2. build: one nvcc call for all kernels (skipped when already built);
+  2. build: one nvcc per source, all started together, and a link
+     (skipped when already built);
   3. K1-K3 against their plain versions at B=512, T=100, in f64
      (rel 1e-9) and f32 (rel 2e-4), and the Riccati kernel's second
      instance, (nx, na) = (6, 3); then each kernel at the contact-free
@@ -52,7 +58,29 @@ Phases:
      points with a clamping row in the returned classes (>= 5% on the
      narrowed model), three warm timed replans (solves/s, replan ms), and
      one profiled replan (device-busy share, top kernels);
-  8. a JSON line with every kernel's numbers, then the result line.
+  8. the worm path's kernels, K7 (batched PGS), K5 (row-VJP linearize), K2
+     with classes at m = 28 and K1 at (nx, na) = (8, 2), against their
+     plain versions on the worm's own inputs (bench.py's x0, u from numpy,
+     the plain pointwise refresh's states and classes) at B=512, T=100:
+     f64 rel 1e-9, f32 rel 2e-4 (K7's classes identical in f64, differing
+     in f32 only near CLAMPING_THRESHOLD or the cone bound; a row beyond
+     tolerance also passes where the plain version's own move under a
+     +-1e-13 input shift is at least the tolerance and at most 1e-6 and
+     the kernel differs by at most twice that move, for at most 0.2% of
+     the rows (at least 4), counts printed); then K2 over one step and K5
+     on 256 sliding worm points whose friction rows ride the cone, at PCG
+     depths 1 and 2, with no row excused (f64 rel 1e-9, f32 rel 2e-4);
+     then each kernel at B=2048 in f32 with kernel and plain times;
+  9. the worm replan in f64, kernel path against plain path, B=256, from
+     cold (two pointwise refreshes): costs rel 1e-10, u as in phase 6,
+     no world above its initial cost;
+ 10. the worm replan at full width in f32 (B=2048, H=100, 4 iterations, 4
+     alphas, PCG 12): cold (launch counts K2 7, K7 3, K5 4, K1 4), then
+     warm replans threading u and the classes (K2 5, K7 1, K5 4, K1 4: the
+     JAX package refreshes only when classes is None), no world above its
+     initial cost, the share of points with a clamping contact row (> 0),
+     three timed warm replans and one profiled;
+ 11. a JSON line with every kernel's numbers, then the result line.
 
 Exits non-zero without CUDA, and on any failure. Imports nothing of JAX.
 """
@@ -75,13 +103,22 @@ from nimblephysics_tpu_torch.models.model import relax_limits
 from nimblephysics_tpu_torch.ops import _build, device_step
 from nimblephysics_tpu_torch.ops import dynamics as dyn
 from nimblephysics_tpu_torch.ops.collide import detect_contacts
-from nimblephysics_tpu_torch.ops.contact import build_constraint_system, lcp_dim, limited_dofs
+from nimblephysics_tpu_torch.ops.contact import (
+    build_constraint_system,
+    lcp_dim,
+    lcp_findex,
+    limited_dofs,
+)
+from nimblephysics_tpu_torch.ops.cuda_lcp import pgs_batched, pgs_batched_plain
 from nimblephysics_tpu_torch.ops.cuda_linearize import (
     linearize,
     linearize_plain,
     linearize_split,
     linearize_split_plain,
+    linearize_vjp,
+    linearize_vjp_plain,
 )
+from nimblephysics_tpu_torch.ops.frozen_contact import classify_points
 from nimblephysics_tpu_torch.ops.cuda_riccati import riccati_backward, riccati_backward_plain
 from nimblephysics_tpu_torch.ops.cuda_rollout import (
     rollout_classes,
@@ -89,7 +126,13 @@ from nimblephysics_tpu_torch.ops.cuda_rollout import (
     rollout_gains,
     rollout_gains_plain,
 )
-from nimblephysics_tpu_torch.ops.lcp import _BIG, CLAMPING_THRESHOLD, direct_boxed_solve_lane
+from nimblephysics_tpu_torch.ops.lcp import (
+    _BIG,
+    CLAMPING_THRESHOLD,
+    _classify,
+    direct_boxed_solve_lane,
+    lcp_residual,
+)
 from nimblephysics_tpu_torch.trajectory.costs import QuadraticCost, QuadraticFinalCost
 from nimblephysics_tpu_torch.trajectory.ilqr import (
     ILQRConfig,
@@ -107,6 +150,12 @@ TOL = {"float64": 1e-9, "float32": 2e-4}
 U_TOL_F64 = 1e-8
 U_SENS_FACTOR = 2.0
 X0_SHIFT = 1e-13
+# A worm kernel's row beyond tolerance is excused (worm_rows_within) only
+# where the plain version's own move stays at or below EXCUSE_MOVE_MAX, and
+# for at most EXCUSE_SHARE_MAX of the rows (at least EXCUSE_ROWS_MIN).
+EXCUSE_MOVE_MAX = 1e-6
+EXCUSE_SHARE_MAX = 2e-3
+EXCUSE_ROWS_MIN = 4
 COST_RTOL_F64 = 1e-10
 FLAT_IMPROVEMENT, FLAT_COST_RTOL = 1e-12, 1e-14
 # the contact path (bench.py cartpole_limits)
@@ -116,6 +165,13 @@ NARROW_LOWER, NARROW_UPPER = (-0.6, -0.5), (0.6, 0.5)
 MIN_ACTIVE_SHARE = 0.05
 CG_CHECK = (None, 4, 1)
 NEAR_IMPULSE, NEAR_LIMIT = 1e-4, 1e-5
+# the worm path (bench.py jump_worm_contact_b2048)
+WORM_B, WORM_B_CHECK, WORM_B_PATH = 2048, 512, 256
+WORM_ITERS, WORM_ALPHAS, WORM_CG, WORM_SEED = 4, (1.0, 0.6, 0.3, 0.1), 12, 1
+WORM_LCP_ITERS = 60
+# sliding worm points whose friction rows ride the cone, and the PCG depths
+# at which K2 and K5 are held to their plain versions there with no excuse
+WORM_COUPLED_B, COUPLED_CG = 256, (1, 2)
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12, "float64": 34e12}  # non-tensor-core FP32 / FP64
 
@@ -135,11 +191,13 @@ PLAIN = {"riccati_backward": riccati_backward_plain, "linearize": linearize_plai
 # every kernel wrapper, with its launch counter
 WRAPPERS = {"riccati_backward": riccati_backward, "linearize": linearize,
             "rollout_gains": rollout_gains, "linearize_split": linearize_split,
-            "rollout_classes": rollout_classes}
-EXPECTED_LAUNCHES = {"riccati_backward": ITERS, "linearize": ITERS,
-                     "rollout_gains": ITERS + 1, "linearize_split": 0, "rollout_classes": 0}
-EXPECTED_CONTACT = {"riccati_backward": ITERS, "linearize": 0,
-                    "rollout_gains": ITERS + 1, "linearize_split": ITERS, "rollout_classes": 1}
+            "rollout_classes": rollout_classes, "linearize_vjp": linearize_vjp,
+            "pgs_batched": pgs_batched}
+_NONE = {name: 0 for name in WRAPPERS}
+EXPECTED_LAUNCHES = dict(_NONE, riccati_backward=ITERS, linearize=ITERS,
+                         rollout_gains=ITERS + 1)
+EXPECTED_CONTACT = dict(_NONE, riccati_backward=ITERS, rollout_gains=ITERS + 1,
+                        linearize_split=ITERS, rollout_classes=1)
 # the contact path's kernels: K6, K4 and K2 on frozen classes
 CONTACT_KERNELS = {"rollout_classes": rollout_classes, "linearize_split": linearize_split,
                    "rollout_gains[classes]": rollout_gains}
@@ -298,10 +356,10 @@ def least_work(model, B, T, A, itemsize):
                              B * T * riccati_step_ops(n, m)),
         # K3: one plain step and nx + na tangents per point
         "linearize": (itemsize * lin_io, B * T * (step + (nx + na) * tangent)),
-        # K2: per (alpha, world, t) the control law, the running cost and a
-        # step; the final cost per (alpha, world)
+        # K2: per (alpha, world, t) the control law, the running cost (its
+        # target subtracted) and a step; the final cost per (alpha, world)
         "rollout_gains": (itemsize * (roll_in + roll_out),
-                          A * B * (T * (4 * nx + 2 * na * nx + 6 * na + 3 + step) + 3 * nx + 1)),
+                          A * B * (T * (5 * nx + 2 * na * nx + 6 * na + 3 + step) + 4 * nx + 1)),
     }
 
 
@@ -325,8 +383,8 @@ def contact_least_work(model, B, T, A, itemsize):
         "linearize_split": (itemsize * n * (nx + na + 2 * m + nx * nx + nx * na),
                             n * (frozen + (nx + na) * tangent)),
         "rollout_gains[classes]": (itemsize * (roll_in + roll_out),
-                                   A * B * (T * (4 * nx + 2 * na * nx + 6 * na + 3 + frozen)
-                                            + 3 * nx + 1)),
+                                   A * B * (T * (5 * nx + 2 * na * nx + 6 * na + 3 + frozen)
+                                            + 4 * nx + 1)),
     }
 
 
@@ -350,21 +408,43 @@ def solve(dev, dtype, use_kernels, x0_np, T):
     return sol, cost0, seconds
 
 
-def profile_solve(label, run):
+# kernels per wrapper launch where it is not 1: K5 runs its primal kernel,
+# then its column kernel
+KERNELS_PER_LAUNCH = {"linearize_vjp": 2}
+
+
+def kernel_launches():
+    """The port's kernel launches so far, by the wrappers' counters."""
+    return sum(fn.launches * KERNELS_PER_LAUNCH.get(n, 1) for n, fn in WRAPPERS.items())
+
+
+def profile_solve(label, run, attempts=2):
     """One warm solve (``run()``) under torch.profiler: the device's busy
     time (the union of its kernel and copy intervals; CPU op rows, which
     repeat their kernels' time, are left out) against the host clock, and
-    the kernels with the most device time."""
+    the kernels with the most device time. The profiler can drop device
+    events; where it saw fewer of the port's kernels than the wrappers
+    launched, the solve is profiled again (``attempts`` in all), and a
+    profile still short says so: its busy share undercounts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    for attempt in range(attempts):
+        launched = kernel_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launched = kernel_launches() - launched
+        averages = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+        seen = sum(ev.count for ev in averages if "nptt::" in ev.key)
+        if seen == launched:
+            break
+        log(f"  profiled {label}: the profiler saw {seen} of the port's {launched} kernel "
+            f"launches (attempt {attempt + 1} of {attempts})")
     spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
                    if ev.device_type == DeviceType.CUDA)
     if not spans:
@@ -374,12 +454,14 @@ def profile_solve(label, run):
         busy_us += max(0.0, end - max(start, reach))
         reach = max(reach, end)
     busy_ms = busy_us / 1e3
-    rows = sorted(((ev.self_device_time_total, ev.count, ev.key) for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA), reverse=True)
+    rows = sorted(((ev.self_device_time_total, ev.count, ev.key) for ev in averages),
+                  reverse=True)
+    short = "" if seen == launched else (f"; it lost {launched - seen} of the port's "
+                                         f"{launched} kernel launches, so busy undercounts")
     log(f"  profiled {label}: wall {wall * 1e3:.2f} ms (profiler on), device busy "
         f"{busy_ms:.3f} ms ({100 * busy_ms / (wall * 1e3):.2f}%) over {len(spans)} device "
-        f"events (kernel rows add up to {sum(r[0] for r in rows) / 1e3:.3f} ms); "
-        "top device kernels:")
+        f"events (kernel rows add up to {sum(r[0] for r in rows) / 1e3:.3f} ms; the port's "
+        f"kernels {seen} of {launched} launches seen{short}); top device kernels:")
     for t_us, count, key in rows[:8]:
         log(f"    {t_us / 1e3:9.3f} ms  {count:5d} calls  {key[:90]}")
 
@@ -611,6 +693,367 @@ def contact_cost0(dev, dtype, x0_np, narrow, T=H):
                                u0.new_ones(1), classes=(cl.cmask, cl.us))[2][0]
 
 
+# ------------------------------------------------------------ the worm path
+
+
+def worm_model(dev, dtype):
+    """bench.py's jump_worm_contact_b2048 model: builders.jump_worm(dt=0.001)."""
+    return builders.jump_worm(dt=0.001, dtype=dtype, device=dev)
+
+
+def worm_costs(model):
+    """bench.py's jump-worm task: running 1e-5 sum u^2 + 2 (q1 + 0.4)^2, final
+    20 (q1 + 0.4)^2."""
+    goal = torch.zeros(2 * model.nq, dtype=model.dtype, device=model.device)
+    goal[1] = -0.4
+    wq = torch.zeros(model.nq, dtype=model.dtype, device=model.device)
+    wq[1] = 2.0
+    wx = torch.zeros(2 * model.nq, dtype=model.dtype, device=model.device)
+    wx[1] = 20.0
+    return (QuadraticCost(model, wq=wq, wu=1e-5, x_goal=goal),
+            QuadraticFinalCost(model, wx=wx, x_goal=goal))
+
+
+def worm_x0(B):
+    """bench.py's jump-worm start states: q = 0 with q1 = -0.5, plus 0.02 N(0, 1)
+    on q from numpy's default_rng(WORM_SEED); v = 0."""
+    q = np.zeros((B, 4))
+    q[:, 1] = -0.5
+    q = q + 0.02 * np.random.default_rng(WORM_SEED).standard_normal((B, 4))
+    return np.concatenate([q, np.zeros_like(q)], axis=1)
+
+
+def worm_config(use_kernels=True):
+    """bench.py's contact budget: 4 iterations, 4 alphas, PCG depth 12,
+    linearize "auto" (K5 on the worm)."""
+    return ILQRConfig(iters=WORM_ITERS, alphas=WORM_ALPHAS, planner_cg_iters=WORM_CG,
+                      kernels=use_kernels)
+
+
+def worm_lcps(model, pre, u):
+    """The full LCPs that classify_points solves at the points (pre, u):
+    (A, b, lo, hi, fscale, x0 = 0), each with the points' leading axes."""
+    nq = model.nq
+    q, v = pre[..., :nq], pre[..., nq:]
+    kin = dyn.forward_kinematics(model, q)
+    v_star = v + model.dt * dyn.aba(model, q, v, model.action_to_tau(u), kin=kin)
+    _, A, b, lo, hi, fs, _ = build_constraint_system(
+        model, q, v_star, kin, detect_contacts(model, kin.T_wb))
+    return A, b, lo, hi, fs, torch.zeros_like(b)
+
+
+def worm_kernel_inputs(dev, B, T, dtype):
+    """The worm path's kernel arguments: x0 as the path's, u from numpy (std
+    5, seed SEED); the states of the plain pointwise refresh (two rounds from
+    no clamping row: the frozen rollout on the plain K2, then the plain
+    classify_points) and the classes of its last classification; K5's plain
+    version, the cost derivatives and the plain Riccati pass give the gains;
+    K7 gets the classification's LCPs at those points."""
+    model = worm_model(dev, dtype)
+    rc, fc = worm_costs(model)
+    x0 = torch.tensor(worm_x0(B), dtype=dtype, device=dev)
+    u = torch.tensor(5.0 * np.random.default_rng(SEED).standard_normal((B, T, 2)),
+                     dtype=dtype, device=dev)
+    m, nx = lcp_dim(model), 2 * model.nq
+    cm = us = torch.zeros((B, T, m), dtype=dtype, device=dev)
+    for _ in range(2):
+        xs = rollout_gains_plain(model, rc, fc, x0, u.new_zeros(B, T + 1, nx), u,
+                                 u.new_zeros(B, T, 2, nx), u.new_zeros(B, T, 2), u.new_ones(1),
+                                 classes=(cm, us), cg_iters=WORM_CG)[0][0].contiguous()
+        cl, _ = classify_points(model, xs[:, :-1], model.action_to_tau(u), kernels=False)
+        cm, us = cl.cmask.contiguous(), cl.us.contiguous()
+    classes = (cm, us)
+    pre = xs[:, :-1].contiguous()
+    fx, fu = linearize_vjp_plain(model, pre, u, classes, WORM_CG)
+    ric = (fx.contiguous(), fu.contiguous()) + _cost_derivatives(rc, fc, xs, u) + (
+        torch.full((B,), 1e-3, dtype=dtype, device=dev),)
+    K, k, _, _ = riccati_backward_plain(*ric)
+    alphas = torch.tensor(WORM_ALPHAS, dtype=dtype, device=dev)
+    lcps = tuple(t.reshape((B * T,) + t.shape[2:]).contiguous() for t in worm_lcps(model, pre, u))
+    return {
+        "pgs_batched": (lcps + (lcp_findex(model), WORM_LCP_ITERS), {}),
+        "linearize_vjp": ((model, pre, u, classes, WORM_CG), {}),
+        "rollout_gains[worm]": ((model, rc, fc, x0, xs, u, K.contiguous(), k.contiguous(),
+                                 alphas), {"classes": classes, "cg_iters": WORM_CG}),
+        "riccati_backward[worm]": (ric, {}),
+    }
+
+
+WORM_KERNELS = {"pgs_batched": pgs_batched, "linearize_vjp": linearize_vjp,
+                "rollout_gains[worm]": rollout_gains,
+                "riccati_backward[worm]": riccati_backward}
+WORM_PLAIN = {"pgs_batched": pgs_batched_plain, "linearize_vjp": linearize_vjp_plain,
+              "rollout_gains[worm]": rollout_gains_plain,
+              "riccati_backward[worm]": riccati_backward_plain}
+WORM_COUNTER = {"pgs_batched": "pgs_batched", "linearize_vjp": "linearize_vjp",
+                "rollout_gains[worm]": "rollout_gains",
+                "riccati_backward[worm]": "riccati_backward"}
+# per replan: warm classes skip the refresh (the JAX package's
+# solve_contact_mpc_batch refreshes only when classes is None), so K2 runs
+# the first rollout and one line search per iteration and K7 the final
+# classification; a cold replan adds refresh_fixed_point = 2 refreshes,
+# each one K2 rollout and one K7 classification
+EXPECTED_WORM_WARM = dict(_NONE, riccati_backward=WORM_ITERS, rollout_gains=WORM_ITERS + 1,
+                          linearize_vjp=WORM_ITERS, pgs_batched=1)
+EXPECTED_WORM_COLD = dict(EXPECTED_WORM_WARM, rollout_gains=WORM_ITERS + 3, pgs_batched=3)
+REPLACES.update({
+    "pgs_batched": ("nimblephysics_tpu_torch/csrc/lcp.cu",
+                    "nimblephysics_tpu/ops/pallas_lcp.py:96"),
+    "linearize_vjp": ("nimblephysics_tpu_torch/csrc/linearize.cu",
+                      "nimblephysics_tpu/ops/pallas_linearize.py:498"),
+    "rollout_gains[worm]": ("nimblephysics_tpu_torch/csrc/rollout.cu",
+                            "nimblephysics_tpu/ops/pallas_rollout.py:371"),
+    "riccati_backward[worm]": ("nimblephysics_tpu_torch/csrc/riccati.cu",
+                               "nimblephysics_tpu/ops/pallas_riccati.py:329"),
+})
+
+
+def worm_least_work(model, B, T, A, itemsize, n_lcp_iters=WORM_LCP_ITERS, cg=WORM_CG):
+    """(bytes, operations) of the worm path's kernels, as least_work: every
+    input read once, every output written once, and the kernel's
+    arithmetic in closed form. K7: per LCP m divisions (the inverse
+    diagonal), then per sweep and row a dot product of length m, the
+    residual and the update, and on a friction row its coupled bound
+    (pgs_solve's arithmetic; the sweep count is fixed, not data-dependent).
+    K5: ops/device_step.py vjp_point_least_ops per point (the primal with
+    its nq adjoint PCGs once, then nq reverse sweeps at a tangent sweep's
+    cost, not the kernel's 2 nq + na columns). K2 and K1 as
+    contact_least_work and least_work, at the worm's shapes and PCG depth."""
+    nx, na, m = 2 * model.nq, model.num_actions, lcp_dim(model)
+    n = B * T
+    nc = sum(1 for f in lcp_findex(model) if f >= 0)
+    frozen, _ = device_step.frozen_step_ops(model, cg)
+    roll_in = B * nx + B * (T + 1) * nx + B * T * (na + na * nx + na) + A + 2 * n * m
+    roll_out = A * B * ((T + 1) * nx + T * na + 1)
+    ric_in = n * (2 * nx * nx + nx * na + nx + na + na * na + na * nx) + B * (nx + nx * nx + 1)
+    return {
+        "pgs_batched": (itemsize * n * (m * m + 6 * m) + 4 * m,
+                        n * (m + n_lcp_iters * (m * (2 * m + 2) + 2 * nc))),
+        "linearize_vjp": (itemsize * n * (nx + na + 2 * m + nx * nx + nx * na),
+                          n * device_step.vjp_point_least_ops(model, cg)),
+        "rollout_gains[worm]": (itemsize * (roll_in + roll_out),
+                                A * B * (T * (5 * nx + 2 * na * nx + 6 * na + 3 + frozen)
+                                         + 4 * nx + 1)),
+        "riccati_backward[worm]": (itemsize * (ric_in + n * (na * nx + na) + 2 * B) + B,
+                                   n * riccati_step_ops(nx, na)),
+    }
+
+
+def worm_sliding_points(dev, dtype, n, seed=SEED):
+    """(model, x, u, cmask, us) at n worm states 3 mm into the floor and
+    moving down, the root sliding at up to 1.5 m/s, the links near their
+    lower limits, under strong pushes (numpy, seed ``seed``), with the
+    classes of the plain classify_points: friction rows ride the cone
+    (UPPER, us != 0), so the frozen solve's friction coupling is live."""
+    model = worm_model(dev, dtype)
+    rng = np.random.default_rng(seed)
+    q = 0.01 * rng.standard_normal((n, 4))
+    q[:, 1] += -0.528
+    q[:, 2:] = 0.5 * np.abs(q[:, 2:])
+    v = 0.05 * rng.standard_normal((n, 4))
+    v[:, 1] = -0.4
+    v[:, 0] = rng.uniform(-1.5, 1.5, n)
+    u = 20.0 * rng.standard_normal((n, 2))
+    x = torch.tensor(np.concatenate([q, v], axis=1), dtype=dtype, device=dev)
+    ut = torch.tensor(u, dtype=dtype, device=dev)
+    cl, _ = classify_points(model, x, model.action_to_tau(ut), kernels=False)
+    return model, x, ut, cl.cmask.contiguous(), cl.us.contiguous()
+
+
+def check_coupled_rows(dev):
+    """K2 over one step (alpha 1, zero gains) and K5 at sliding worm points
+    (worm_sliding_points, WORM_COUPLED_B of them), at PCG depths
+    COUPLED_CG, against their plain versions with no row excused: f64 rel
+    1e-9, f32 rel 2e-4. Over one step and a short PCG the cone points'
+    normal equations do not amplify rounding (at depth 12 two summation
+    orders of one step part there by far more than 1e-9), so this holds the
+    friction coupling's arithmetic outright."""
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        model, x, u, cm, us = worm_sliding_points(dev, dtype, WORM_COUPLED_B)
+        n_upper = int((us != 0).sum())
+        log(f"  coupled rows {dname}: {WORM_COUPLED_B} sliding points, {n_upper} UPPER rows, "
+            f"{int(cm.sum())} clamping rows")
+        if n_upper == 0:
+            raise AssertionError("the sliding worm points have no UPPER row")
+        rc, fc = worm_costs(model)
+        B, nx = x.shape
+        classes = (cm[:, None].contiguous(), us[:, None].contiguous())
+        x1, u1 = x[:, None].contiguous(), u[:, None].contiguous()
+        for cg in COUPLED_CG:
+            calls = {
+                "rollout_gains[worm]": (
+                    (model, rc, fc, x, x.new_zeros(B, 2, nx), u1, x.new_zeros(B, 1, 2, nx),
+                     x.new_zeros(B, 1, 2), x.new_ones(1)),
+                    {"classes": classes, "cg_iters": cg}),
+                "linearize_vjp": ((model, x1, u1, classes, cg), {}),
+            }
+            for name, (args, kwargs) in calls.items():
+                abs_err, rel_err = compare_worm(name, args, kwargs, dname, excuse=False)
+                ok = rel_err <= TOL[dname]
+                log(f"  {name:24s} {dname}, one step, PCG depth {cg}: max abs err "
+                    f"{abs_err:.3e}, rel err {rel_err:.3e} (tol rel {TOL[dname]:.0e}, no row "
+                    f"excused) {'PASS' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name} {dname} disagrees on the coupled rows")
+
+
+def worm_solve(dev, dtype, use_kernels, x0_np, classes=None, u0=None):
+    """One solve_contact_mpc_batch(class_refresh="pointwise") on bench.py's
+    jump-worm task; returns (solution, returned classes, host seconds)."""
+    model = worm_model(dev, dtype)
+    rc, fc = worm_costs(model)
+    x0 = torch.tensor(x0_np, dtype=dtype, device=dev)
+    if u0 is None:
+        u0 = torch.zeros((x0.shape[0], H, 2), dtype=dtype, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    sol, cl = solve_contact_mpc_batch(model, x0, u0, rc, fc, worm_config(use_kernels),
+                                      outer_iters=1, classes=classes,
+                                      class_refresh="pointwise")
+    sync()
+    return sol, cl, time.perf_counter() - t0
+
+
+def worm_cost0(dev, dtype, x0_np, u0, classes=None):
+    """Each world's cost before a replan of the kernel path: u0 rolled on
+    the frozen-class step (K2) under the classes the replan's first inner
+    solve takes: the given warm classes, or from cold the pointwise
+    refresh's (K2 and K7), the same calls on the same inputs as the
+    replan's own first rollout, so the same numbers."""
+    model = worm_model(dev, dtype)
+    rc, fc = worm_costs(model)
+    x0 = torch.tensor(x0_np, dtype=dtype, device=dev)
+    B, nx = x0.shape
+    u0 = u0.contiguous()
+    z = u0.new_zeros((B, H, lcp_dim(model)))
+    cl = (z, z) if classes is None else (classes.cmask.contiguous(), classes.us.contiguous())
+
+    def roll(c):
+        return rollout_gains(model, rc, fc, x0, u0.new_zeros(B, H + 1, nx), u0,
+                             u0.new_zeros(B, H, 2, nx), u0.new_zeros(B, H, 2),
+                             u0.new_ones(1), classes=c, cg_iters=WORM_CG)
+
+    for _ in range(2 if classes is None else 0):
+        c, _ = classify_points(model, roll(cl)[0][0][:, :-1], model.action_to_tau(u0))
+        cl = (c.cmask, c.us)
+    return roll(cl)[2][0]
+
+
+def lcp_class_near(x, fs, findex):
+    """Per row, whether rounding may decide its class (ops/lcp.py
+    _classify): the impulse within NEAR_IMPULSE of CLAMPING_THRESHOLD; on a
+    friction row also its normal impulse so, or |x| within NEAR_IMPULSE of
+    the cone bound's tolerance band (CLAMPING_THRESHOLD max(bound, 1))."""
+    gather = torch.tensor([max(f, 0) for f in findex], device=x.device)
+    coupled = torch.tensor([f >= 0 for f in findex], device=x.device)
+    xn = x[..., gather]
+    bound = fs * xn.clamp(min=0.0)
+    band = CLAMPING_THRESHOLD * bound.clamp(min=1.0)
+    near = (x - CLAMPING_THRESHOLD).abs() <= NEAR_IMPULSE
+    near_f = (((xn - CLAMPING_THRESHOLD).abs() <= NEAR_IMPULSE)
+              | (((x.abs() - bound).abs() - band).abs() <= NEAR_IMPULSE))
+    return near | (coupled & near_f)
+
+
+# The argument a rounding-level shift moves, per worm kernel: K7's b, K5's
+# states, K2's x0 (K1's inputs are no contact point's).
+WORM_SHIFTED = {"pgs_batched": 1, "linearize_vjp": 1, "rollout_gains[worm]": 3}
+
+
+def _row_errors(name, outs, plains):
+    """Per row (an LCP, a point or an (alpha, world) pair: the leading axes
+    of K7's, K5's and K2's outputs), the max over the outputs of the max abs
+    difference over that output's max |plain|."""
+    lead = 1 if name == "pgs_batched" else 2
+    err = None
+    for a, b in zip(outs, plains):
+        scale = max(float(b.abs().max()), 1e-30)
+        d = (a - b).abs().reshape(a.shape[:lead] + (-1,)).amax(-1).reshape(-1) / scale
+        err = d if err is None else torch.maximum(err, d)
+    return err
+
+
+def worm_rows_within(name, args, kwargs, out_k, out_p, tol, label):
+    """Hold each row of a worm kernel's outputs to tol, rel to each plain
+    output's max. Where the frozen solve's PCG is badly conditioned
+    (friction rows riding the cone), any two summation orders part after a
+    few iterations (ROADMAP queue C); a row beyond tol therefore also passes
+    where the plain version itself, run again with the shifted argument
+    moved by +-X0_SHIFT, moves by at least tol and the kernel differs by at
+    most U_SENS_FACTOR times that move, a move of at most EXCUSE_MOVE_MAX
+    (a larger one would excuse any error); more excused rows than
+    EXCUSE_SHARE_MAX of them (at least EXCUSE_ROWS_MIN) fail. No row is
+    excused by the kernel's own reruns. Returns the largest rel error of a
+    row that is not excused."""
+    err = _row_errors(name, out_k, out_p)
+    within = err <= tol
+    move = torch.zeros_like(err)
+    i = WORM_SHIFTED[name]
+    for shift in (X0_SHIFT, -X0_SHIFT):
+        a = list(args)
+        a[i] = (a[i] + shift).contiguous()
+        o = WORM_PLAIN[name](*a, **kwargs)
+        o = (o,) if isinstance(o, torch.Tensor) else o
+        move = torch.maximum(move, _row_errors(name, o, out_p))
+    excused = (~within & (move >= tol) & (move <= EXCUSE_MOVE_MAX)
+               & (err <= U_SENS_FACTOR * move))
+    bad = ~(within | excused)
+
+    def top(t, mask, fn):
+        return float(fn(t[mask])) if bool(mask.any()) else 0.0
+
+    log(f"  {name} {label}: {int(within.sum())} of {err.numel()} rows within rel {tol:.0e} "
+        f"(max there {top(err, within, torch.max):.3e}); {int(excused.sum())} excused by the "
+        f"plain version's own move under a +-{X0_SHIFT:.0e} shift (rel diff max "
+        f"{top(err, excused, torch.max):.3e}, own move there min "
+        f"{top(move, excused, torch.min):.3e}) {excused.nonzero().flatten().tolist()[:12]}; "
+        f"{int(bad.sum())} out of tolerance {bad.nonzero().flatten().tolist()[:12]}")
+    most = max(EXCUSE_ROWS_MIN, int(EXCUSE_SHARE_MAX * err.numel()))
+    if int(excused.sum()) > most:
+        raise AssertionError(f"{name} {label}: {int(excused.sum())} rows excused, at most "
+                             f"{most} allowed")
+    return top(err, ~excused, torch.max)
+
+
+def compare_worm(name, args, kwargs, label="", excuse=True):
+    """(max abs err, rel err) of a worm kernel against its plain version,
+    the rel err taken over the rows worm_rows_within does not excuse (none
+    without ``excuse``); for K7 also the classes its impulses give (the
+    count of differing rows is printed)."""
+    out_k = WORM_KERNELS[name](*args, **kwargs)
+    sync()
+    out_p = WORM_PLAIN[name](*args, **kwargs)
+    if isinstance(out_k, torch.Tensor):
+        out_k, out_p = (out_k,), (out_p,)
+    pairs = [(a, b) for a, b in zip(out_k, out_p) if a.dtype != torch.bool]
+    for a, b in zip(out_k, out_p):
+        if a.dtype == torch.bool and not torch.equal(a, b):
+            raise AssertionError(f"{name}: ok flags differ in {int((a != b).sum())} worlds")
+    if name == "pgs_batched":
+        A, b, lo, hi, fs, _, findex, _ = args
+        ck = _classify(out_k[0], lo, hi, fs, findex)
+        cp = _classify(out_p[0], lo, hi, fs, findex)
+        diff = (ck[0] != cp[0]) | (ck[1] != cp[1])
+        near = lcp_class_near(out_k[0], fs, findex) | lcp_class_near(out_p[0], fs, findex)
+        far = int((diff & ~near).sum())
+        log(f"  pgs_batched {str(b.dtype).split('.')[-1]}: classes differ at {int(diff.sum())} "
+            f"of {diff.numel()} rows ({far} of them with both impulses farther than "
+            f"{NEAR_IMPULSE:.0e} from CLAMPING_THRESHOLD); residual max kernel "
+            f"{float(lcp_residual(A, out_k[0], b, lo, hi, fs, findex).max()):.3e}, plain "
+            f"{float(lcp_residual(A, out_p[0], b, lo, hi, fs, findex).max()):.3e}")
+        if b.dtype == torch.float64 and int(diff.sum()):
+            raise AssertionError("pgs_batched f64: classes differ")
+        if far:
+            raise AssertionError("pgs_batched: classes differ away from the threshold")
+    abs_err, rel_err = rel_errors(*zip(*pairs))
+    tol = TOL[str(out_p[0].dtype).split(".")[-1]]
+    if excuse and rel_err > tol and name in WORM_SHIFTED:
+        ks, ps = zip(*pairs)
+        rel_err = worm_rows_within(name, args, kwargs, ks, ps, tol, label)
+    return abs_err, rel_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr, flush=True)
@@ -630,7 +1073,7 @@ def main() -> int:
     log(f"{elapsed()} phase 2: build")
     path, nvcc_s = _build.build()
     _build.load()
-    log(f"build: one nvcc call, {nvcc_s:.1f} s "
+    log(f"build: one nvcc per source in parallel and a link, {nvcc_s:.1f} s "
         f"({'built now' if nvcc_s else 'already built'}) -> {path}")
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -786,14 +1229,112 @@ def main() -> int:
         model_c, x0_cc, u0_cc, rc_c, fc_c, ILQRConfig(iters=ITERS, alphas=ALPHAS),
         outer_iters=1))
 
+    log(f"{elapsed()} phase 8: the worm path's kernels against their plain versions, "
+        f"jump worm, B={WORM_B_CHECK}, T={H}")
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        inputs = worm_kernel_inputs(dev, WORM_B_CHECK, H, dtype)
+        cl = inputs["linearize_vjp"][0][3]
+        log(f"  inputs {dname}: {float((cl[0].amax(-1) > 0).float().mean()):.4f} of the points "
+            f"with a clamping row, {float((cl[0][..., :24].amax(-1) > 0).float().mean()):.4f} "
+            f"with a clamping contact row, {int((cl[1] != 0).sum())} UPPER rows")
+        for name in WORM_KERNELS:
+            args, kwargs = inputs[name]
+            abs_err, rel_err = compare_worm(name, args, kwargs, dname)
+            ok = rel_err <= TOL[dname]
+            log(f"  {name:24s} {dname}: max abs err {abs_err:.3e}, rel err {rel_err:.3e} "
+                f"(tol rel {TOL[dname]:.0e}) {'PASS' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} {dname} disagrees with its plain version")
+        del inputs
+    check_coupled_rows(dev)
+
+    log(f"{elapsed()} phase 8b: the worm kernels at the worm path's shapes, f32, "
+        f"B={WORM_B}, T={H}")
+    full_w = worm_kernel_inputs(dev, WORM_B, H, torch.float32)
+    for name in WORM_KERNELS:
+        args, kwargs = full_w[name]
+        abs_err, rel_err = compare_worm(name, args, kwargs, "float32")
+        if rel_err > TOL["float32"]:
+            raise AssertionError(f"{name}: f32 disagrees at the worm path's shapes")
+        ms = time_ms(lambda: WORM_KERNELS[name](*args, **kwargs), 10)
+        plain_ms = time_ms(lambda: WORM_PLAIN[name](*args, **kwargs), 1)
+        records[name] = (abs_err, ms, plain_ms)
+        log(f"  {name:24s} max abs err {abs_err:.3e} (rel {rel_err:.3e}); "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    work.update(worm_least_work(full_w["linearize_vjp"][0][0], WORM_B, H, len(WORM_ALPHAS), 4))
+    del full_w
+
+    log(f"{elapsed()} phase 9: the worm replan in f64, kernel path against plain path, "
+        f"B={WORM_B_PATH}, H={H}, pointwise refresh from cold")
+    x0_w = worm_x0(WORM_B_PATH)
+    reset_counts()
+    sol_k, cl_k, s_k = worm_solve(dev, torch.float64, True, x0_w)
+    check_counts("f64 worm kernel path (cold)", EXPECTED_WORM_COLD)
+    sol_p, cl_p, s_p = worm_solve(dev, torch.float64, False, x0_w)
+    dc = float(((sol_k.cost - sol_p.cost).abs() / sol_p.cost.abs()).max())
+    log(f"  f64: kernel path {s_k:.3f} s, plain path {s_p:.3f} s; max rel cost diff {dc:.3e} "
+        f"(tol {COST_RTOL_F64:.0e}); returned classes differ at "
+        f"{int((cl_k.cmask != cl_p.cmask).any(-1).sum())} of {cl_p.cmask[..., 0].numel()} points")
+    u_agreement("f64 worm", sol_k, sol_p,
+                lambda shift: worm_solve(dev, torch.float64, False, x0_w + shift)[0],
+                WORM_B_PATH, flat_end=True)
+    if not dc <= COST_RTOL_F64:
+        raise AssertionError("f64 worm kernel path and plain path disagree on the cost")
+    u0_w = torch.zeros((WORM_B_PATH, H, 2), dtype=torch.float64, device=dev)
+    check_solution(sol_k, worm_cost0(dev, torch.float64, x0_w, u0_w), "f64 worm kernel path")
+
+    log(f"{elapsed()} phase 10: the worm replan at full width, f32, B={WORM_B}, H={H}, "
+        f"iters={WORM_ITERS}, alphas={WORM_ALPHAS}, PCG {WORM_CG}, pointwise refresh")
+    x0_wf = worm_x0(WORM_B)
+    u0_wf = torch.zeros((WORM_B, H, 2), dtype=torch.float32, device=dev)
+    cost0 = worm_cost0(dev, torch.float32, x0_wf, u0_wf)
+    reset_counts()
+    sol_w, cl_w, s_cold = worm_solve(dev, torch.float32, True, x0_wf)
+    check_counts("f32 worm replan, cold", EXPECTED_WORM_COLD)
+    check_solution(sol_w, cost0, "f32 worm replan, cold")
+    share = float(cl_w.cmask.amax(-1).mean())
+    share_c = float(cl_w.cmask[..., :24].amax(-1).mean())
+    log(f"  returned classes: {share:.4f} of the (world, step) points with a clamping row, "
+        f"{share_c:.4f} with a clamping contact row, {int((cl_w.us != 0).sum())} UPPER rows")
+    if not share_c > 0.0:
+        raise AssertionError("no point of the worm replan has a clamping contact row")
+    # warm replans thread u and the classes as bench.py's _time_solves does
+    cost0_warm = worm_cost0(dev, torch.float32, x0_wf, sol_w.u, cl_w)
+    reset_counts()
+    sol_w2, cl_w2, s_warm = worm_solve(dev, torch.float32, True, x0_wf, classes=cl_w,
+                                       u0=sol_w.u)
+    counts_w = check_counts("f32 worm replan, warm", EXPECTED_WORM_WARM)
+    check_solution(sol_w2, cost0_warm, "f32 worm replan, warm")
+    times, warm = [], (sol_w2.u, cl_w2)
+    for _ in range(3):
+        sol_t, cl_t, s = worm_solve(dev, torch.float32, True, x0_wf, classes=warm[1],
+                                    u0=warm[0])
+        times.append(s)
+        warm = (sol_t.u, cl_t)
+    worm_rate = WORM_B / (sum(times) / len(times))
+    log(f"  f32 worm replan: cold {s_cold:.4f} s, first warm {s_warm:.4f} s, warm "
+        f"{[round(t, 4) for t in times]} s -> {worm_rate:.1f} solves/s, replan "
+        f"{1e3 * sum(times) / len(times):.2f} ms (B={WORM_B})")
+    model_w = worm_model(dev, torch.float32)
+    rc_w, fc_w = worm_costs(model_w)
+    x0_wt = torch.tensor(x0_wf, dtype=torch.float32, device=dev)
+    profile_solve("f32 worm replan (warm)", lambda: solve_contact_mpc_batch(
+        model_w, x0_wt, warm[0], rc_w, fc_w, worm_config(), outer_iters=1, classes=warm[1],
+        class_refresh="pointwise"))
+
     out = []
-    for name in list(KERNELS) + list(CONTACT_KERNELS):
+    for name in list(KERNELS) + list(CONTACT_KERNELS) + list(WORM_KERNELS):
         b, ops = work[name]
         t_bytes = b / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS["float32"] * 1e3
         abs_err, ms, plain_ms = records[name]
-        launches = (counts[name] if name in KERNELS
-                    else counts_c[CONTACT_COUNTER[name]])
+        if name in KERNELS:
+            launches = counts[name]
+        elif name in CONTACT_KERNELS:
+            launches = counts_c[CONTACT_COUNTER[name]]
+        else:
+            launches = counts_w[WORM_COUNTER[name]]
         out.append({
             "name": name, "route": "cuda", "source": REPLACES[name][0],
             "replaces": REPLACES[name][1], "launches": launches,
@@ -806,7 +1347,8 @@ def main() -> int:
             f"({t_ops:.5f} ms)")
     log(f"{elapsed()} done: contact-free {rate:.1f} solves/s (B={B_FULL}); contact "
         f"{contact_rates[False]:.1f} (stock limits) and {contact_rates[True]:.1f} (narrowed) "
-        f"solves/s (B={B_CONTACT}); nvcc {nvcc_s:.1f} s")
+        f"solves/s (B={B_CONTACT}); worm {worm_rate:.1f} solves/s (B={WORM_B}); build "
+        f"{nvcc_s:.1f} s")
     log(smi)
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

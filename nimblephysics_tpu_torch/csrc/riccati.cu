@@ -291,6 +291,7 @@ extern "C" int nptt_riccati(int is_double, int nx, int na, long long B, int T,
                : nptt::launch_riccati<float, NX, NA>(B, T, steps, VxT, VxxT, reg, Kk, dV, ok, s);
   NPTT_RICCATI_CASE(4, 1)
   NPTT_RICCATI_CASE(6, 3)
+  NPTT_RICCATI_CASE(8, 2)
 #undef NPTT_RICCATI_CASE
   return -1;
 }

@@ -4,8 +4,9 @@
 // K2 replaces nimblephysics_tpu/ops/pallas_rollout.py :: rollout_gains_pallas
 // (kernel _rollout_kernel), which put (alpha, world) pairs on the TPU's
 // lanes and traced the cost callable into the kernel. With frozen classes
-// (M > 0 rows) its step is step.cuh's frozen_step, whose PCG runs n_cg
-// iterations, the class mask of step t read from cm (B, T, M).
+// (M > 0 rows, NS of them contact slots) its step is step.cuh's
+// frozen_step, whose PCG runs n_cg iterations, the class masks of step t
+// read from cm and us (B, T, M).
 //
 // Bound on this card: arithmetic, then latency. Each pair runs T dependent
 // steps of the device step, a few hundred flops each, and moves (x, u) out
@@ -14,7 +15,9 @@
 // u = clip(u_ref + alpha k + K (x - x_ref)), adds the running cost, and
 // runs the device step of step.cuh; the terminal cost is added at the end.
 // The cost is data, not code: diagonal weights on q, v and u for the running
-// cost and on x for the final cost (trajectory/costs.py).
+// cost and on x for the final cost, each about its target state
+// (trajectory/costs.py): w = [wq | wv | wu | wx | x_goal running | x_goal
+// final].
 //
 // Least work per call (chip_smoke.py least_work): each input read once and
 // (xs, us, costs) written once; per (alpha, world, t) the control law, the
@@ -35,14 +38,14 @@
 
 namespace nptt {
 
-template <typename T, int NB, int NQ, int NA, int M>
+template <typename T, int NB, int NQ, int NA, int M, int NS>
 NPTT_HD void rollout_thread(long long l, long long B, int Tn, int n_cg, const T* __restrict__ P,
                             const int* __restrict__ I, const T* __restrict__ w,
                             const T* __restrict__ x0, const T* __restrict__ xs_ref,
                             const T* __restrict__ u_ref, const T* __restrict__ K,
                             const T* __restrict__ k, const T* __restrict__ alphas,
-                            const T* __restrict__ cm, T* __restrict__ xs, T* __restrict__ us,
-                            T* __restrict__ costs) {
+                            const T* __restrict__ cm, const T* __restrict__ ucl,
+                            T* __restrict__ xs, T* __restrict__ us, T* __restrict__ costs) {
   using L = StepLayout<NB, NQ, NA>;
   constexpr int NX = 2 * NQ;
   const long long a = l / B, b = l % B;
@@ -51,6 +54,8 @@ NPTT_HD void rollout_thread(long long l, long long B, int Tn, int n_cg, const T*
   const T* wv = w + NQ;
   const T* wu = w + 2 * NQ;
   const T* wf = w + 2 * NQ + NA;
+  const T* gr = wf + NX;
+  const T* gf = gr + NX;
   T x[NX];
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
@@ -77,8 +82,9 @@ NPTT_HD void rollout_thread(long long l, long long B, int Tn, int n_cg, const T*
     T cq = T(0), cv = T(0), cu = T(0);
 #pragma unroll
     for (int i = 0; i < NQ; ++i) {
-      cq = cq + wq[i] * (x[i] * x[i]);
-      cv = cv + wv[i] * (x[NQ + i] * x[NQ + i]);
+      const T dq = x[i] - gr[i], dv = x[NQ + i] - gr[NQ + i];
+      cq = cq + wq[i] * (dq * dq);
+      cv = cv + wv[i] * (dv * dv);
     }
 #pragma unroll
     for (int j = 0; j < NA; ++j) cu = cu + wu[j] * (u[j] * u[j]);
@@ -87,7 +93,8 @@ NPTT_HD void rollout_thread(long long l, long long B, int Tn, int n_cg, const T*
     if constexpr (M == 0)
       device_step<T, T, NB, NQ, NA>(P, I, x, x + NQ, u, qn, vn);
     else
-      frozen_step<T, T, NB, NQ, NA, M>(P, I, x, x + NQ, u, cm + bt * M, n_cg, qn, vn);
+      frozen_step<T, T, NB, NQ, NA, M, NS>(P, I, x, x + NQ, u, cm + bt * M, ucl + bt * M, n_cg,
+                                           qn, vn);
 #pragma unroll
     for (int i = 0; i < NQ; ++i) {
       x[i] = qn[i];
@@ -98,7 +105,10 @@ NPTT_HD void rollout_thread(long long l, long long B, int Tn, int n_cg, const T*
   }
   T cf = T(0);
 #pragma unroll
-  for (int i = 0; i < NX; ++i) cf = cf + wf[i] * (x[i] * x[i]);
+  for (int i = 0; i < NX; ++i) {
+    const T dx = x[i] - gf[i];
+    cf = cf + wf[i] * (dx * dx);
+  }
   costs[l] = cost + cf;
 }
 
@@ -128,31 +138,31 @@ NPTT_HD void classes_thread(long long b, long long B, int Tn, const T* __restric
 }
 
 #ifdef __CUDACC__
-template <typename T, int NB, int NQ, int NA, int M>
+template <typename T, int NB, int NQ, int NA, int M, int NS>
 __global__ void rollout_kernel(long long A, long long B, int Tn, int n_cg, const T* __restrict__ P,
                                const int* __restrict__ I, const T* __restrict__ w,
                                const T* __restrict__ x0, const T* __restrict__ xs_ref,
                                const T* __restrict__ u_ref, const T* __restrict__ K,
                                const T* __restrict__ k, const T* __restrict__ alphas,
-                               const T* __restrict__ cm, T* __restrict__ xs, T* __restrict__ us,
-                               T* __restrict__ costs) {
+                               const T* __restrict__ cm, const T* __restrict__ ucl,
+                               T* __restrict__ xs, T* __restrict__ us, T* __restrict__ costs) {
   const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (l < A * B)
-    rollout_thread<T, NB, NQ, NA, M>(l, B, Tn, n_cg, P, I, w, x0, xs_ref, u_ref, K, k, alphas, cm,
-                                     xs, us, costs);
+    rollout_thread<T, NB, NQ, NA, M, NS>(l, B, Tn, n_cg, P, I, w, x0, xs_ref, u_ref, K, k, alphas,
+                                         cm, ucl, xs, us, costs);
 }
 
-template <typename T, int NB, int NQ, int NA, int M>
+template <typename T, int NB, int NQ, int NA, int M, int NS>
 static int launch_rollout(long long A, long long B, int Tn, int n_cg, const void* P, const void* I,
                           const void* w, const void* x0, const void* xs_ref, const void* u_ref,
                           const void* K, const void* k, const void* alphas, const void* cm,
-                          void* xs, void* us, void* costs, cudaStream_t stream) {
+                          const void* ucl, void* xs, void* us, void* costs, cudaStream_t stream) {
   const int threads = 128;
   const long long blocks = (A * B + threads - 1) / threads;
-  rollout_kernel<T, NB, NQ, NA, M><<<(unsigned)blocks, threads, 0, stream>>>(
+  rollout_kernel<T, NB, NQ, NA, M, NS><<<(unsigned)blocks, threads, 0, stream>>>(
       A, B, Tn, n_cg, (const T*)P, (const int*)I, (const T*)w, (const T*)x0, (const T*)xs_ref,
-      (const T*)u_ref, (const T*)K, (const T*)k, (const T*)alphas, (const T*)cm, (T*)xs, (T*)us,
-      (T*)costs);
+      (const T*)u_ref, (const T*)K, (const T*)k, (const T*)alphas, (const T*)cm, (const T*)ucl,
+      (T*)xs, (T*)us, (T*)costs);
   return (int)cudaGetLastError();
 }
 
@@ -178,28 +188,29 @@ static int launch_classes(long long B, int Tn, const void* P, const void* I, con
 }  // namespace nptt
 
 #ifdef __CUDACC__
-// Returns 0, a cudaError_t, or -1 for a (dtype, nb, nq, na, m) without an
-// instance. m = 0: the contact-free step; m > 0: the frozen step on the
-// class masks cm (B, T, m).
-extern "C" int nptt_rollout(int is_double, int nb, int nq, int na, int m, long long A, long long B,
-                            int T, int n_cg, const void* P, const void* I, const void* w,
-                            const void* x0, const void* xs_ref, const void* u_ref, const void* K,
-                            const void* k, const void* alphas, const void* cm, void* xs, void* us,
-                            void* costs, void* stream) {
+// Returns 0, a cudaError_t, or -1 for a (dtype, nb, nq, na, m, ns) without
+// an instance. m = 0: the contact-free step; m > 0: the frozen step on the
+// class masks cm and us (B, T, m).
+extern "C" int nptt_rollout(int is_double, int nb, int nq, int na, int m, int ns, long long A,
+                            long long B, int T, int n_cg, const void* P, const void* I,
+                            const void* w, const void* x0, const void* xs_ref, const void* u_ref,
+                            const void* K, const void* k, const void* alphas, const void* cm,
+                            const void* ucl, void* xs, void* us, void* costs, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-#define NPTT_ROLLOUT_CALL(NB, NQ, NA, M)                                                      \
-  return is_double ? nptt::launch_rollout<double, NB, NQ, NA, M>(A, B, T, n_cg, P, I, w, x0,  \
-                                                                  xs_ref, u_ref, K, k, alphas, \
-                                                                  cm, xs, us, costs, s)        \
-                   : nptt::launch_rollout<float, NB, NQ, NA, M>(A, B, T, n_cg, P, I, w, x0,   \
-                                                                 xs_ref, u_ref, K, k, alphas,  \
-                                                                 cm, xs, us, costs, s);
+#define NPTT_ROLLOUT_CALL(NB, NQ, NA, M, NS)                                                   \
+  return is_double ? nptt::launch_rollout<double, NB, NQ, NA, M, NS>(                          \
+                         A, B, T, n_cg, P, I, w, x0, xs_ref, u_ref, K, k, alphas, cm, ucl, xs, \
+                         us, costs, s)                                                         \
+                   : nptt::launch_rollout<float, NB, NQ, NA, M, NS>(                           \
+                         A, B, T, n_cg, P, I, w, x0, xs_ref, u_ref, K, k, alphas, cm, ucl, xs, \
+                         us, costs, s);
 #define NPTT_ROLLOUT_FREE(NB, NQ, NA) \
-  if (m == 0 && nb == NB && nq == NQ && na == NA) NPTT_ROLLOUT_CALL(NB, NQ, NA, 0)
-#define NPTT_ROLLOUT_FROZEN(NB, NQ, NA, M) \
-  if (m == M && nb == NB && nq == NQ && na == NA) NPTT_ROLLOUT_CALL(NB, NQ, NA, M)
+  if (m == 0 && ns == 0 && nb == NB && nq == NQ && na == NA) NPTT_ROLLOUT_CALL(NB, NQ, NA, 0, 0)
+#define NPTT_ROLLOUT_FROZEN(NB, NQ, NA, M, NS) \
+  if (m == M && ns == NS && nb == NB && nq == NQ && na == NA) NPTT_ROLLOUT_CALL(NB, NQ, NA, M, NS)
   NPTT_STEP_SHAPES(NPTT_ROLLOUT_FREE)
   NPTT_CONTACT_SHAPES(NPTT_ROLLOUT_FROZEN)
+  NPTT_WORM_SHAPES(NPTT_ROLLOUT_FROZEN)
 #undef NPTT_ROLLOUT_FROZEN
 #undef NPTT_ROLLOUT_FREE
 #undef NPTT_ROLLOUT_CALL
@@ -212,7 +223,7 @@ extern "C" int nptt_rollout_classes(int is_double, int nb, int nq, int na, int m
                                     int T, const void* P, const void* I, const void* x0,
                                     const void* u_tb, void* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-#define NPTT_CLASSES_CASE(NB, NQ, NA, M)                                                     \
+#define NPTT_CLASSES_CASE(NB, NQ, NA, M, NS)                                                 \
   if (m == M && nb == NB && nq == NQ && na == NA)                                            \
     return is_double ? nptt::launch_classes<double, NB, NQ, NA, M>(B, T, P, I, x0, u_tb, out, s) \
                      : nptt::launch_classes<float, NB, NQ, NA, M>(B, T, P, I, x0, u_tb, out, s);

@@ -1,11 +1,11 @@
-// The contact-free planning step on the card: ABA forward dynamics plus a
-// semi-implicit Euler update, for chains of weld, revolute and prismatic
+// The planning step on the card: ABA forward dynamics plus a semi-implicit
+// Euler update, for chains of weld, revolute, prismatic and translational2d
 // joints.
 //
 // Hopper's answer to the JAX package's LaneFn (nimblephysics_tpu/ops/
 // lanevmap.py), which traced the step once and re-emitted it with the world
 // batch on the TPU's lanes: here the step is written once by hand, templated
-// on the scalar type S (T, or Dual<T> for the linearize kernel) and on the
+// on the scalar type S (T, or Dual<T> for the linearize kernels) and on the
 // compile-time body, dof and action counts, so every per-body array is
 // unrolled into registers. Joint types and parents are read at run time
 // from the packed model; they are the same for every thread, so the
@@ -14,12 +14,15 @@
 // memory).
 //
 // The packed model (written by nimblephysics_tpu_torch/ops/device_step.py):
-//   reals, per body (kBody = 69): T_pj R(9) p(3) | T_cj^-1 R(9) p(3) |
-//     joint axis(3) | child-frame subspace S(6) | spatial inertia(36);
+//   reals, per body (kBody = 78): T_pj R(9) p(3) | T_cj^-1 R(9) p(3) |
+//     joint axis 0 (3) | child-frame subspace column 0 (6) | spatial
+//     inertia(36) | joint axis 1 (3) | subspace column 1 (6) (columns a
+//     joint does not have are zero);
 //   then per dof: damping, stiffness, rest position (3 NQ);
 //   per action: tau lower, tau upper (2 NA); gravity (3); dt (1).
-//   ints: parents[NB] | joint type[NB] (0 weld, 1 revolute, 2 prismatic) |
-//     dof of each body[NB] (-1 for a weld) | dof of each action[NA].
+//   ints: parents[NB] | joint type[NB] (0 weld, 1 revolute, 2 prismatic,
+//     3 translational2d) | first dof of each body[NB] (-1 for a weld) |
+//     dof of each action[NA].
 //
 // ops/device_step.py step_op_kinds counts this function's operations by
 // kind in closed form (for the kernels' least-work bounds);
@@ -35,13 +38,15 @@
 
 namespace nptt {
 
-enum JointCode { kWeld = 0, kRevolute = 1, kPrismatic = 2 };
+enum JointCode { kWeld = 0, kRevolute = 1, kPrismatic = 2, kTranslational2d = 3 };
+
+NPTT_HD int joint_ndof(int jt) { return jt == kWeld ? 0 : (jt == kTranslational2d ? 2 : 1); }
 
 template <int NB, int NQ, int NA>
 struct StepLayout {
-  static constexpr int kBody = 69;
+  static constexpr int kBody = 78;
   static constexpr int kRpj = 0, kPpj = 9, kRci = 12, kPci = 21, kAxis = 24,
-                       kS = 27, kI = 33;
+                       kS = 27, kI = 33, kAxis1 = 69, kS1 = 72;
   static constexpr int kDof = NB * kBody;
   static constexpr int kAct = kDof + 3 * NQ;
   static constexpr int kGrav = kAct + 2 * NA;
@@ -159,8 +164,47 @@ NPTT_HD void expm_so3(const S* w, S* R) {
   R[8] = R[8] + T(1);
 }
 
+// Pivot-free Gauss-Jordan inverse of an SPD matrix on the augmented rows
+// [A | I] (ops/linalg_small.py inv_spd): prow = row_k (1 / pivot),
+// row_i -= row_i[k] prow.
+template <typename T, typename S, int N>
+NPTT_HD void inv_spd(const S (&A)[N][N], S (&Ai)[N][N]) {
+  S rows[N][2 * N];
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      rows[k][j] = A[k][j];
+      rows[k][N + j] = S(T(k == j ? 1 : 0));
+    }
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const S inv = T(1) / rows[k][k];
+    S prow[2 * N];
+#pragma unroll
+    for (int j = 0; j < 2 * N; ++j) prow[j] = rows[k][j] * inv;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (i == k) {
+#pragma unroll
+        for (int j = 0; j < 2 * N; ++j) rows[i][j] = prow[j];
+      } else {
+        const S f = rows[i][k];
+#pragma unroll
+        for (int j = 0; j < 2 * N; ++j) rows[i][j] = rows[i][j] - f * prow[j];
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) Ai[i][j] = rows[i][N + j];
+}
+
 // Forward kinematics and ABA: each body's transform to its parent (R, p)
-// and the generalized accelerations qdd at (q, v, u).
+// and the generalized accelerations qdd at (q, v, u). A body's joint has
+// nd = joint_ndof(type) dofs, from its first dof on; the two-dof branch
+// (translational2d) inverts its 2x2 joint inertia with inv_spd.
 template <typename T, typename S, int NB, int NQ, int NA>
 NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I,
                               const S* q, const S* v, const S* u, S (&R)[NB][9],
@@ -191,13 +235,19 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
   for (int i = 0; i < NB; ++i) {
     const T* Bp = P + i * L::kBody;
     const int jt = I[L::iType + i], dof = I[L::iDof + i], par = I[L::iParent + i];
-    S qi = S(T(0)), vi = S(T(0));
+    const int nd = joint_ndof(jt);
+    S qi = S(T(0)), vi = S(T(0)), qj = S(T(0)), vj = S(T(0));
 #pragma unroll
-    for (int d = 0; d < NQ; ++d)
+    for (int d = 0; d < NQ; ++d) {
       if (d == dof) {
         qi = q[d];
         vi = v[d];
       }
+      if (nd == 2 && d == dof + 1) {
+        qj = q[d];
+        vj = v[d];
+      }
+    }
     S Rq[9], pq[3];
     for (int k = 0; k < 9; ++k) Rq[k] = S(T((k % 4) == 0 ? 1 : 0));
     for (int k = 0; k < 3; ++k) pq[k] = S(T(0));
@@ -206,6 +256,8 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
       expm_so3<T>(w, Rq);
     } else if (jt == kPrismatic) {
       for (int k = 0; k < 3; ++k) pq[k] = Bp[L::kAxis + k] * qi;
+    } else if (jt == kTranslational2d) {
+      for (int k = 0; k < 3; ++k) pq[k] = Bp[L::kAxis + k] * qi + Bp[L::kAxis1 + k] * qj;
     }
     // T_pc = T_pj o Q(q) o T_cj^-1
     S RA[9], pAq[3], tmp[3];
@@ -219,6 +271,7 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
     S vJ[6], Vpar[6];
     for (int k = 0; k < 6; ++k) {
       vJ[k] = Bp[L::kS + k] * vi;
+      if (nd == 2) vJ[k] = vJ[k] + Bp[L::kS1 + k] * vj;
       Vpar[k] = S(T(0));
     }
 #pragma unroll
@@ -233,35 +286,73 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
   }
 
   // backward sweep: articulated inertias and bias forces
-  S U[NB][6], Dinv[NB], uu[NB];
+  S U[NB][2][6], Dinv[NB][2][2], uu[NB][2];
 #pragma unroll
   for (int i = NB - 1; i >= 0; --i) {
     const T* Sv = P + i * L::kBody + L::kS;
+    const T* Sv1 = P + i * L::kBody + L::kS1;
     const int dof = I[L::iDof + i], par = I[L::iParent + i];
+    const int nd = joint_ndof(I[L::iType + i]);
     S Ia[36], pa[6], Iac[6];
-    if (dof >= 0) {
-      mv6(IA[i], Sv, U[i]);
-      S D = Sv[0] * U[i][0];
+    if (nd == 1) {
+      mv6(IA[i], Sv, U[i][0]);
+      S D = Sv[0] * U[i][0][0];
       S sp = Sv[0] * pA[i][0];
       for (int k = 1; k < 6; ++k) {
-        D = D + Sv[k] * U[i][k];
+        D = D + Sv[k] * U[i][0][k];
         sp = sp + Sv[k] * pA[i][k];
       }
-      Dinv[i] = T(1) / D;
+      Dinv[i][0][0] = T(1) / D;
       S te = S(T(0));
 #pragma unroll
       for (int d = 0; d < NQ; ++d)
         if (d == dof) te = tau[d];
-      uu[i] = te - sp;
+      uu[i][0] = te - sp;
       for (int r = 0; r < 6; ++r)
-        for (int k = 0; k < 6; ++k) Ia[6 * r + k] = IA[i][6 * r + k] - (U[i][r] * Dinv[i]) * U[i][k];
+        for (int k = 0; k < 6; ++k)
+          Ia[6 * r + k] = IA[i][6 * r + k] - (U[i][0][r] * Dinv[i][0][0]) * U[i][0][k];
       mv6(Ia, c[i], Iac);
-      S Du = Dinv[i] * uu[i];
-      for (int k = 0; k < 6; ++k) pa[k] = pA[i][k] + Iac[k] + U[i][k] * Du;
+      S Du = Dinv[i][0][0] * uu[i][0];
+      for (int k = 0; k < 6; ++k) pa[k] = pA[i][k] + Iac[k] + U[i][0][k] * Du;
+    } else if (nd == 2) {
+      // D = S^T IA S (2x2), u = tau - S^T pA, Ia = IA - U D^-1 U^T,
+      // pa = pA + Ia c + U D^-1 u
+      mv6(IA[i], Sv, U[i][0]);
+      mv6(IA[i], Sv1, U[i][1]);
+      S D[2][2], sp[2], te[2] = {S(T(0)), S(T(0))};
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        const T* Sa = a == 0 ? Sv : Sv1;
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          D[a][b] = Sa[0] * U[i][b][0];
+          for (int k = 1; k < 6; ++k) D[a][b] = D[a][b] + Sa[k] * U[i][b][k];
+        }
+        sp[a] = Sa[0] * pA[i][0];
+        for (int k = 1; k < 6; ++k) sp[a] = sp[a] + Sa[k] * pA[i][k];
+      }
+      inv_spd<T>(D, Dinv[i]);
+#pragma unroll
+      for (int d = 0; d < NQ; ++d) {
+        if (d == dof) te[0] = tau[d];
+        if (d == dof + 1) te[1] = tau[d];
+      }
+      uu[i][0] = te[0] - sp[0];
+      uu[i][1] = te[1] - sp[1];
+      S UD[6][2];
+      for (int r = 0; r < 6; ++r)
+        for (int b = 0; b < 2; ++b) UD[r][b] = U[i][0][r] * Dinv[i][0][b] + U[i][1][r] * Dinv[i][1][b];
+      for (int r = 0; r < 6; ++r)
+        for (int k = 0; k < 6; ++k)
+          Ia[6 * r + k] = IA[i][6 * r + k] - (UD[r][0] * U[i][0][k] + UD[r][1] * U[i][1][k]);
+      mv6(Ia, c[i], Iac);
+      S Du[2];
+      for (int a = 0; a < 2; ++a) Du[a] = Dinv[i][a][0] * uu[i][0] + Dinv[i][a][1] * uu[i][1];
+      for (int k = 0; k < 6; ++k) pa[k] = pA[i][k] + Iac[k] + (U[i][0][k] * Du[0] + U[i][1][k] * Du[1]);
     } else {
-      U[i][0] = S(T(0));
-      Dinv[i] = S(T(0));
-      uu[i] = S(T(0));
+      U[i][0][0] = S(T(0));
+      Dinv[i][0][0] = S(T(0));
+      uu[i][0] = S(T(0));
       for (int k = 0; k < 36; ++k) Ia[k] = IA[i][k];
       mv6(Ia, c[i], Iac);
       for (int k = 0; k < 6; ++k) pa[k] = pA[i][k] + Iac[k];
@@ -292,21 +383,38 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
 #pragma unroll
   for (int i = 0; i < NB; ++i) {
     const T* Sv = P + i * L::kBody + L::kS;
+    const T* Sv1 = P + i * L::kBody + L::kS1;
     const int dof = I[L::iDof + i], par = I[L::iParent + i];
+    const int nd = joint_ndof(I[L::iType + i]);
     S ap[6];
     if (par < 0) ad_inv_apply(R[i], p[i], g, ap);
 #pragma unroll
     for (int pp = 0; pp < i; ++pp)
       if (pp == par) ad_inv_apply(R[i], p[i], a[pp], ap);
     for (int k = 0; k < 6; ++k) ap[k] = ap[k] + c[i][k];
-    if (dof >= 0) {
-      S Ua = U[i][0] * ap[0];
-      for (int k = 1; k < 6; ++k) Ua = Ua + U[i][k] * ap[k];
-      S qi = Dinv[i] * (uu[i] - Ua);
+    if (nd == 1) {
+      S Ua = U[i][0][0] * ap[0];
+      for (int k = 1; k < 6; ++k) Ua = Ua + U[i][0][k] * ap[k];
+      S qi = Dinv[i][0][0] * (uu[i][0] - Ua);
 #pragma unroll
       for (int d = 0; d < NQ; ++d)
         if (d == dof) qdd[d] = qi;
       for (int k = 0; k < 6; ++k) a[i][k] = ap[k] + Sv[k] * qi;
+    } else if (nd == 2) {
+      S r[2];
+      for (int b = 0; b < 2; ++b) {
+        S Ua = U[i][b][0] * ap[0];
+        for (int k = 1; k < 6; ++k) Ua = Ua + U[i][b][k] * ap[k];
+        r[b] = uu[i][b] - Ua;
+      }
+      S q0 = Dinv[i][0][0] * r[0] + Dinv[i][0][1] * r[1];
+      S q1 = Dinv[i][1][0] * r[0] + Dinv[i][1][1] * r[1];
+#pragma unroll
+      for (int d = 0; d < NQ; ++d) {
+        if (d == dof) qdd[d] = q0;
+        if (d == dof + 1) qdd[d] = q1;
+      }
+      for (int k = 0; k < 6; ++k) a[i][k] = ap[k] + (Sv[k] * q0 + Sv1[k] * q1);
     } else {
       for (int k = 0; k < 6; ++k) a[i][k] = ap[k];
     }
@@ -331,30 +439,53 @@ NPTT_HD void device_step(const T* __restrict__ P, const int* __restrict__ I,
 }
 
 // ---------------------------------------------------------------------------
-// Constraint rows (joint limits and Coulomb joint friction) and the two
-// constrained steps built on them:
+// Constraint rows (contact slots, joint limits and Coulomb joint friction)
+// and the two constrained steps built on them:
 //
 //   frozen_step: the smooth step on frozen LCP classes (ops/frozen_contact.py
 //     frozen_contact_step with the planner assembly): every row gated on,
 //     impulses from solve_frozen (regularised normal equations by Jacobi-
 //     preconditioned CG). K2 with classes runs it on T, K4 on Dual<T>,
-//     where solve_frozen takes the implicit tangent of the linear solve.
+//     where solve_frozen takes the implicit tangent of the linear solve;
+//     K5 (linearize.cu) runs its inputs on T and Dual<T> and takes the
+//     transposed solve itself.
 //   class_step: the full step of the class rollout (ops/frozen_contact.py
 //     step_with_classes_for_trace): rows gated by the limits, impulses from
-//     direct_boxed_solve_lane, then the class of each row. K6 runs it.
+//     direct_boxed_solve_lane, then the class of each row. K6 runs it, for
+//     models without contact slots only.
 //
-// The packed model gains, after the step's buffers (ops/device_step.py):
-//   reals: per row, its limit position (limit rows) or its impulse bound
-//     mu dt (Coulomb rows);
-//   ints: per row its dof, then per row its kind (RowKind).
-// Rows come in the order of ops/contact.py: lower limit rows, upper limit
-// rows, Coulomb rows. None is friction-coupled (findex -1, fscale 0), so
-// gov = 0, the frozen solve's R is diag(cmask), and no row is UPPER.
+// The LCP has M rows: first 3 NS contact rows (per slot its normal row and
+// two friction rows, the friction rows coupled to the normal: findex 3k),
+// then MR = M - 3 NS limit and Coulomb rows in the order of ops/contact.py
+// (lower limit rows, upper limit rows, Coulomb rows). The packed model
+// gains, after the step's buffers (ops/device_step.py):
+//   reals: per limit/Coulomb row, its limit position or its impulse bound
+//     mu dt; then per slot (kSlotReals = 8): the contact point in its body's
+//     frame (3), the world normal of the static halfspace (3), the plane
+//     offset (1), the friction coefficient (1);
+//   ints: per limit/Coulomb row its dof, then per such row its kind
+//     (RowKind); then per slot its body.
+// The planner assembly gates every contact row on and drops the bounce, so
+// the frozen step reads neither the depth nor the restitution. Friction
+// coupling enters the frozen solve through R = (I + diag(us) gov) diag(cm).
 //
-// The (bodies, dofs, actions, rows) shapes the constrained kernels are
-// built for; the Python wrappers refuse any other model. cartpole with its
-// two limited dofs: 2 bodies, 2 dofs, 1 action, 4 rows.
-#define NPTT_CONTACT_SHAPES(X) X(2, 2, 1, 4)
+// Every loop over the rows is unrolled, for M = 28 too, although those
+// arrays live in local memory either way. With only the outer row loops
+// rolled (`#pragma unroll 1`), nvcc 12.9 built a K5 whose frozen solve
+// returned NaN at every point on the card, for a reason not found: the
+// host build is clean under -fsanitize=address,undefined, and with every
+// loop of this file and linearize.cu rolled K5 is right at -O3 and -G
+// (scripts/torch_rolled_k5_check.py, PERF.md). Unrolled, the build takes
+// minutes and the results agree with the plain versions.
+//
+// The (bodies, dofs, actions, rows, slots) shapes the constrained kernels
+// are built for; the Python wrappers refuse any other model. cartpole with
+// its two limited dofs: 2 bodies, 2 dofs, 1 action, 4 rows, no slot (K2
+// with classes, K4, K6); the jump worm: 3 bodies, 4 dofs, 2 actions, 8
+// box-corner slots and two limited dofs, 28 rows (K2 with classes and K5;
+// class_step is not built for contact slots).
+#define NPTT_CONTACT_SHAPES(X) X(2, 2, 1, 4, 0)
+#define NPTT_WORM_SHAPES(X) X(3, 4, 2, 28, 8)
 
 enum RowKind { kLowerLimit = 0, kUpperLimit = 1, kCoulomb = 2 };
 
@@ -373,11 +504,12 @@ template <> struct Prec<double> {
   static NPTT_HD double tol() { return 1e-10; }
 };
 
-template <int NB, int NQ, int NA, int M>
+template <int NB, int NQ, int NA, int M, int NS>
 struct RowLayout {
   using L = StepLayout<NB, NQ, NA>;
-  static constexpr int kRow = L::kSize;
-  static constexpr int iRowDof = L::kInts, iRowKind = L::kInts + M;
+  static constexpr int MR = M - 3 * NS, kSlotReals = 8;
+  static constexpr int kRow = L::kSize, kSlot = kRow + MR;
+  static constexpr int iRowDof = L::kInts, iRowKind = L::kInts + MR, iSlotBody = L::kInts + 2 * MR;
 };
 
 // A[r][c] = v for run-time (r, c), by unrolled selects (no local memory)
@@ -425,91 +557,175 @@ NPTT_HD void mass_matrix(const T* __restrict__ P, const int* __restrict__ I,
   for (int i = 0; i < NB; ++i) {
     const int dof = I[L::iDof + i];
     if (dof < 0) continue;
-    const T* Sv = P + i * L::kBody + L::kS;
-    S F[6];
-    mv6(Ic[i], Sv, F);
-    S Mii = Sv[0] * F[0];
-    for (int k = 1; k < 6; ++k) Mii = Mii + Sv[k] * F[k];
-    set_at(Mm, dof, dof, Mii);
-    // carry F = Ic S up the chain of ancestors (parents[j] < j)
-    int cur = i;
+    const int nd = joint_ndof(I[L::iType + i]);
 #pragma unroll
-    for (int jj = i; jj >= 1; --jj) {
-      if (jj != cur) continue;
-      const int par = I[L::iParent + jj];
-      if (par < 0) {
-        cur = -1;
-        continue;
+    for (int ci = 0; ci < 2; ++ci) {
+      if (ci >= nd) continue;
+      const T* Sv = P + i * L::kBody + (ci == 0 ? L::kS : L::kS1);
+      S F[6];
+      mv6(Ic[i], Sv, F);
+      // the diagonal block, column dof + ci
+#pragma unroll
+      for (int cr = 0; cr < 2; ++cr) {
+        if (cr >= nd) continue;
+        const T* Sr = P + i * L::kBody + (cr == 0 ? L::kS : L::kS1);
+        S Mii = Sr[0] * F[0];
+        for (int k = 1; k < 6; ++k) Mii = Mii + Sr[k] * F[k];
+        set_at(Mm, dof + cr, dof + ci, Mii);
       }
-      S G[6];
-      ad_dual_apply(R[jj], p[jj], F, G);
-      for (int k = 0; k < 6; ++k) F[k] = G[k];
-      cur = par;
-      const int dp = I[L::iDof + par];
-      if (dp >= 0) {
-        const T* Sp = P + par * L::kBody + L::kS;
-        S mij = Sp[0] * F[0];
-        for (int k = 1; k < 6; ++k) mij = mij + Sp[k] * F[k];
-        set_at(Mm, dp, dof, mij);
-        set_at(Mm, dof, dp, mij);
+      // carry F = Ic S up the chain of ancestors (parents[j] < j)
+      int cur = i;
+#pragma unroll
+      for (int jj = i; jj >= 1; --jj) {
+        if (jj != cur) continue;
+        const int par = I[L::iParent + jj];
+        if (par < 0) {
+          cur = -1;
+          continue;
+        }
+        S G[6];
+        ad_dual_apply(R[jj], p[jj], F, G);
+        for (int k = 0; k < 6; ++k) F[k] = G[k];
+        cur = par;
+        const int dp = I[L::iDof + par];
+        const int ndp = joint_ndof(I[L::iType + par]);
+        for (int cp = 0; cp < ndp; ++cp) {
+          const T* Sp = P + par * L::kBody + (cp == 0 ? L::kS : L::kS1);
+          S mij = Sp[0] * F[0];
+          for (int k = 1; k < 6; ++k) mij = mij + Sp[k] * F[k];
+          set_at(Mm, dp + cp, dof + ci, mij);
+          set_at(Mm, dof + ci, dp + cp, mij);
+        }
       }
     }
   }
 }
 
-// Pivot-free Gauss-Jordan inverse of an SPD matrix on the augmented rows
-// [A | I] (ops/linalg_small.py inv_spd): prow = row_k (1 / pivot),
-// row_i -= row_i[k] prow.
-template <typename T, typename S, int N>
-NPTT_HD void inv_spd(const S (&A)[N][N], S (&Ai)[N][N]) {
-  S rows[N][2 * N];
+// The contact rows of the planner assembly (ops/contact.py _contact_rows
+// with planner=True): per slot k the world point p = R_wa p_local + p_wa on
+// its body a, the point Jacobian Jp = v + omega x p of the world Jacobian
+// columns Ad(T_wk) S_k of a's ancestors k (ops/dynamics.py world_jacobian),
+// and the rows n^T Jp, t1^T Jp, t2^T Jp with (t1, t2) = _tangent_basis(n);
+// b = -J v*. The halfspace is static, so n and the basis are constants.
+template <typename T, typename S, int NB, int NQ, int NA, int M, int NS>
+NPTT_HD void contact_rows(const T* __restrict__ P, const int* __restrict__ I,
+                          const S (&R)[NB][9], const S (&p)[NB][3], const S* vs,
+                          S (&Jc)[3 * NS][NQ], S (&b)[M], T (&lo)[M], T (&hi)[M]) {
+  using L = StepLayout<NB, NQ, NA>;
+  using RL = RowLayout<NB, NQ, NA, M, NS>;
+  // body -> world transforms
+  S Rw[NB][9], pw[NB][3];
 #pragma unroll
-  for (int k = 0; k < N; ++k)
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      rows[k][j] = A[k][j];
-      rows[k][N + j] = S(T(k == j ? 1 : 0));
+  for (int i = 0; i < NB; ++i) {
+    const int par = I[L::iParent + i];
+    if (par < 0) {
+      for (int k = 0; k < 9; ++k) Rw[i][k] = R[i][k];
+      for (int k = 0; k < 3; ++k) pw[i][k] = p[i][k];
     }
 #pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const S inv = T(1) / rows[k][k];
-    S prow[2 * N];
-#pragma unroll
-    for (int j = 0; j < 2 * N; ++j) prow[j] = rows[k][j] * inv;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      if (i == k) {
-#pragma unroll
-        for (int j = 0; j < 2 * N; ++j) rows[i][j] = prow[j];
-      } else {
-        const S f = rows[i][k];
-#pragma unroll
-        for (int j = 0; j < 2 * N; ++j) rows[i][j] = rows[i][j] - f * prow[j];
-      }
+    for (int pp = 0; pp < i; ++pp) {
+      if (pp != par) continue;
+      S tmp[3];
+      mm3(Rw[pp], R[i], Rw[i]);
+      mv3(Rw[pp], p[i], tmp);
+      for (int k = 0; k < 3; ++k) pw[i][k] = tmp[k] + pw[pp][k];
     }
   }
 #pragma unroll
-  for (int i = 0; i < N; ++i)
+  for (int s = 0; s < NS; ++s) {
+    const T* sd = P + RL::kSlot + RL::kSlotReals * s;
+    const int ab = I[RL::iSlotBody + s];
+    S pk[3], Jp[3][NQ];
+    bool anc[NB];
 #pragma unroll
-    for (int j = 0; j < N; ++j) Ai[i][j] = rows[i][N + j];
+    for (int i = 0; i < NB; ++i) {
+      anc[i] = false;
+      if (i == ab) {
+        S tmp[3];
+        mv3(Rw[i], sd, tmp);
+        for (int k = 0; k < 3; ++k) pk[k] = tmp[k] + pw[i][k];
+      }
+    }
+    int cur = ab;
+#pragma unroll
+    for (int jj = NB - 1; jj >= 0; --jj)
+      if (jj == cur) {
+        anc[jj] = true;
+        cur = I[L::iParent + jj];
+      }
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int e = 0; e < NQ; ++e) Jp[r][e] = S(T(0));
+#pragma unroll
+    for (int kb = 0; kb < NB; ++kb) {
+      if (!anc[kb]) continue;
+      const int dof = I[L::iDof + kb], nd = joint_ndof(I[L::iType + kb]);
+      for (int cc = 0; cc < nd; ++cc) {
+        const T* Sc = P + kb * L::kBody + (cc == 0 ? L::kS : L::kS1);
+        // Ad(T_wk) S = (R w; p x (R w) + R v), then v + omega x p
+        S w[3], Rv[3], pxw[3], wxp[3];
+        mv3(Rw[kb], Sc, w);
+        mv3(Rw[kb], Sc + 3, Rv);
+        cross3(pw[kb], w, pxw);
+        cross3(w, pk, wxp);
+#pragma unroll
+        for (int e = 0; e < NQ; ++e)
+          if (e == dof + cc)
+            for (int r = 0; r < 3; ++r) Jp[r][e] = (pxw[r] + Rv[r]) + wxp[r];
+      }
+    }
+    // _tangent_basis of the constant normal
+    const T n[3] = {sd[3], sd[4], sd[5]};
+    const T ez[3] = {T(0), T(0), T(1)}, ex[3] = {T(1), T(0), T(0)};
+    T tz[3], tx[3], t1[3], t2[3];
+    cross3(ez, n, tz);
+    cross3(ex, n, tx);
+    const bool use_z = tz[0] * tz[0] + tz[1] * tz[1] + tz[2] * tz[2] > T(1e-12);
+    for (int k = 0; k < 3; ++k) t1[k] = use_z ? tz[k] : tx[k];
+    T nt = t1[0] * t1[0] + t1[1] * t1[1] + t1[2] * t1[2];
+    nt = nsqrt(nt > T(1e-18) ? nt : T(1e-18));
+    for (int k = 0; k < 3; ++k) t1[k] = t1[k] / nt;
+    cross3(n, t1, t2);
+    const T* dirs[3] = {n, t1, t2};
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const int row = 3 * s + d;
+      S rel = S(T(0));
+#pragma unroll
+      for (int e = 0; e < NQ; ++e) {
+        Jc[row][e] = (dirs[d][0] * Jp[0][e] + dirs[d][1] * Jp[1][e]) + dirs[d][2] * Jp[2][e];
+        rel = e == 0 ? Jc[row][e] * vs[e] : rel + Jc[row][e] * vs[e];
+      }
+      b[row] = -rel;
+      lo[row] = T(0);
+      hi[row] = d == 0 ? T(kBig) : T(0);
+    }
+  }
 }
 
-// The boxed LCP of the rows (ops/contact.py build_constraint_system):
-// J_r = s_r a_r e_{d_r} (s = -1 on upper limit rows, a the row's
-// activation: 1 in the planner form, q <= lower / q >= upper otherwise),
-// MJ = M^-1 J^T and A = J MJ + CFM I, both taken from their one nonzero
-// term (the dense products add exact zeros to it).
-template <typename T, typename S, int NB, int NQ, int NA, int M, bool PLANNER>
+// The boxed LCP of the rows (ops/contact.py build_constraint_system): the
+// contact rows Jc of contact_rows, then the limit/Coulomb rows J_r = s_r
+// a_r e_{d_r} (s = -1 on upper limit rows, a the row's activation: 1 in the
+// planner form, q <= lower / q >= upper otherwise). MJ = M^-1 J^T and A =
+// J MJ + CFM I: the contact columns and rows by their dense products, the
+// limit/Coulomb ones from their one nonzero term (the dense products add
+// exact zeros to it). Contact slots exist in the planner form only.
+template <typename T, typename S, int NB, int NQ, int NA, int M, int NS, bool PLANNER>
 NPTT_HD void constraint_rows(const T* __restrict__ P, const int* __restrict__ I, const S* q,
-                             const S* vs, const S (&Mi)[NQ][NQ], S (&A)[M][M], S (&b)[M],
-                             T (&lo)[M], T (&hi)[M], S (&MJ)[NQ][M]) {
-  using RL = RowLayout<NB, NQ, NA, M>;
+                             const S* vs, const S (&R)[NB][9], const S (&p)[NB][3],
+                             const S (&Mi)[NQ][NQ], S (&A)[M][M], S (&b)[M], T (&lo)[M],
+                             T (&hi)[M], S (&MJ)[NQ][M]) {
+  static_assert(PLANNER || NS == 0, "contact slots are built in the planner form only");
+  using RL = RowLayout<NB, NQ, NA, M, NS>;
+  constexpr int C0 = 3 * NS;
   T coef[M];
   int dofs[M];
+  S Jc[C0 > 0 ? C0 : 1][NQ];
+  if constexpr (NS > 0) contact_rows<T, S, NB, NQ, NA, M, NS>(P, I, R, p, vs, Jc, b, lo, hi);
 #pragma unroll
-  for (int r = 0; r < M; ++r) {
-    const int d = I[RL::iRowDof + r], kind = I[RL::iRowKind + r];
-    const T lim = P[RL::kRow + r];
+  for (int r = C0; r < M; ++r) {
+    const int d = I[RL::iRowDof + r - C0], kind = I[RL::iRowKind + r - C0];
+    const T lim = P[RL::kRow + r - C0];
     dofs[r] = d;
     S qd = S(T(0)), vd = S(T(0));
 #pragma unroll
@@ -538,35 +754,68 @@ NPTT_HD void constraint_rows(const T* __restrict__ P, const int* __restrict__ I,
   for (int k = 0; k < NQ; ++k)
 #pragma unroll
     for (int c = 0; c < M; ++c) {
-      S mk = S(T(0));
+      if (c < C0) {
+        S mk = Mi[k][0] * Jc[c][0];
 #pragma unroll
-      for (int e = 0; e < NQ; ++e)
-        if (e == dofs[c]) mk = Mi[k][e];
-      MJ[k][c] = mk * coef[c];
+        for (int e = 1; e < NQ; ++e) mk = mk + Mi[k][e] * Jc[c][e];
+        MJ[k][c] = mk;
+      } else {
+        S mk = S(T(0));
+#pragma unroll
+        for (int e = 0; e < NQ; ++e)
+          if (e == dofs[c]) mk = Mi[k][e];
+        MJ[k][c] = mk * coef[c];
+      }
     }
 #pragma unroll
   for (int r = 0; r < M; ++r)
 #pragma unroll
     for (int c = 0; c < M; ++c) {
-      S jr = S(T(0));
+      if (r < C0) {
+        S ar = Jc[r][0] * MJ[0][c];
 #pragma unroll
-      for (int e = 0; e < NQ; ++e)
-        if (e == dofs[r]) jr = MJ[e][c];
-      A[r][c] = coef[r] * jr;
+        for (int e = 1; e < NQ; ++e) ar = ar + Jc[r][e] * MJ[e][c];
+        A[r][c] = ar;
+      } else {
+        S jr = S(T(0));
+#pragma unroll
+        for (int e = 0; e < NQ; ++e)
+          if (e == dofs[r]) jr = MJ[e][c];
+        A[r][c] = coef[r] * jr;
+      }
       if (r == c) A[r][c] = A[r][c] + T(kCfm);
     }
 }
 
-// Qf = C A R + (I - C) with R = diag(cmask) (gov = 0), C = diag(cmask)
-template <typename T, typename S, int M>
-NPTT_HD void frozen_system(const S (&A)[M][M], const T* cm, S (&Qf)[M][M]) {
+// Qf = C A R + (I - C), C = diag(cmask), R = (I + diag(us) gov) C: column
+// j of A R is (A[:, j] + sum over the rows l coupled to j of us_l A[:, l])
+// cm_j. With NS slots, rows 3k + 1 and 3k + 2 are coupled to 3k; the other
+// rows to none (gov = 0 there, and A R = A C).
+template <typename T, typename S, int M, int NS>
+NPTT_HD void frozen_system(const S (&A)[M][M], const T* cm, const T* us, S (&Qf)[M][M]) {
 #pragma unroll
   for (int i = 0; i < M; ++i)
 #pragma unroll
     for (int j = 0; j < M; ++j) {
-      Qf[i][j] = (cm[i] * (A[i][j] * cm[j])) * cm[j];
+      S ar = A[i][j];
+      if (j < 3 * NS && j % 3 == 0) ar = (ar + us[j + 1] * A[i][j + 1]) + us[j + 2] * A[i][j + 2];
+      Qf[i][j] = (cm[i] * (ar * cm[j])) * cm[j];
       if (i == j) Qf[i][j] = Qf[i][j] + (T(1) - cm[i]);
     }
+}
+
+// x = R (cm * xc): x_i = cm_i cm_i xc_i, plus us_i cm_f cm_f xc_f on a
+// friction row i coupled to f.
+template <typename T, typename S, int M, int NS>
+NPTT_HD void frozen_impulses(const T* cm, const T* us, const S (&xc)[M], S (&x)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    x[i] = cm[i] * (cm[i] * xc[i]);
+    if (i < 3 * NS && i % 3 != 0) {
+      const int f = i - i % 3;
+      x[i] = x[i] + us[i] * (cm[f] * (cm[f] * xc[f]));
+    }
+  }
 }
 
 // Jacobi-preconditioned CG on (Qf^T Qf + reg I) x = bb from x = 0
@@ -623,11 +872,11 @@ NPTT_HD void pcg(const S (&Qf)[M][M], S reg, const S (&diagM)[M], const S (&bb)[
 
 // Impulses on frozen classes (ops/frozen_contact.py solve_frozen):
 // x = R x_C, (Qf^T Qf + reg I) x_C = Qf^T (cmask b), reg = eps max(max|Qf|, 1)^2.
-template <typename T, typename S, int M>
-NPTT_HD void solve_frozen(const S (&A)[M][M], const S (&b)[M], const T* cm, int n_cg,
-                          S (&x)[M]) {
-  S Qf[M][M], rhs[M], diagM[M], bvec[M], xc[M];
-  frozen_system<T>(A, cm, Qf);
+template <typename T, typename S, int M, int NS>
+NPTT_HD void frozen_normal_eqs(const S (&A)[M][M], const S (&b)[M], const T* cm, const T* us,
+                               S (&Qf)[M][M], S& reg, S (&diagM)[M], S (&bvec)[M]) {
+  S rhs[M];
+  frozen_system<T, S, M, NS>(A, cm, us, Qf);
 #pragma unroll
   for (int i = 0; i < M; ++i) rhs[i] = cm[i] * b[i];
   S qs = S(T(1));
@@ -635,7 +884,7 @@ NPTT_HD void solve_frozen(const S (&A)[M][M], const S (&b)[M], const T* cm, int 
   for (int i = 0; i < M; ++i)
 #pragma unroll
     for (int j = 0; j < M; ++j) qs = pmax(qs, nabs(Qf[i][j]));
-  const S reg = (Prec<T>::eps() * qs) * qs;
+  reg = (Prec<T>::eps() * qs) * qs;
 #pragma unroll
   for (int j = 0; j < M; ++j) {
     S dg = Qf[0][j] * Qf[0][j], bv = Qf[0][j] * rhs[0];
@@ -647,23 +896,28 @@ NPTT_HD void solve_frozen(const S (&A)[M][M], const S (&b)[M], const T* cm, int 
     diagM[j] = dg + reg;
     bvec[j] = bv;
   }
-  pcg<T>(Qf, reg, diagM, bvec, n_cg, xc);
-#pragma unroll
-  for (int i = 0; i < M; ++i) x[i] = cm[i] * (cm[i] * xc[i]);
 }
 
-// solve_frozen on dual numbers, with the tangent lax.custom_linear_solve
-// gives the JAX package: the primal PCG on the values, then ONE tangent
-// PCG with the same iteration count and the primal preconditioner,
-//   dx_C = PCG(dbvec - (dQf^T Qf x_C + Qf^T dQf x_C + dreg x_C)).
-// Pushing the tangent through the CG iterations would differentiate the
-// truncated iteration instead. max|Qf| takes jnp's tangent: the mean over
-// tied entries, |.|' = +1 at 0, and half of it where max(., 1) ties.
-template <typename T, typename V, int M>
-NPTT_HD void solve_frozen(const Dual<V> (&A)[M][M], const Dual<V> (&b)[M], const T* cm, int n_cg,
-                          Dual<V> (&x)[M]) {
-  Dual<V> Qf[M][M], rhs[M], bvec[M];
-  frozen_system<T>(A, cm, Qf);
+template <int NS, typename T, typename S, int M>
+NPTT_HD void solve_frozen(const S (&A)[M][M], const S (&b)[M], const T* cm, const T* us, int n_cg,
+                          S (&x)[M]) {
+  S Qf[M][M], reg, diagM[M], bvec[M], xc[M];
+  frozen_normal_eqs<T, S, M, NS>(A, b, cm, us, Qf, reg, diagM, bvec);
+  pcg<T>(Qf, reg, diagM, bvec, n_cg, xc);
+  frozen_impulses<T, S, M, NS>(cm, us, xc, x);
+}
+
+// The frozen normal equations on dual numbers, as lax.custom_linear_solve
+// differentiates them: Qf, reg and bvec carry tangents, the Jacobi
+// preconditioner diagM (the solver's, not the problem's) does not. max|Qf|
+// takes jnp's tangent: the mean over tied entries, |.|' = +1 at 0, and half
+// of it where max(., 1) ties. Qv holds Qf's values.
+template <typename T, typename V, int M, int NS>
+NPTT_HD void frozen_normal_eqs_dual(const Dual<V> (&A)[M][M], const Dual<V> (&b)[M], const T* cm,
+                                    const T* us, Dual<V> (&Qf)[M][M], V (&Qv)[M][M],
+                                    Dual<V>& reg, V (&diagM)[M], Dual<V> (&bvec)[M]) {
+  Dual<V> rhs[M];
+  frozen_system<T, Dual<V>, M, NS>(A, cm, us, Qf);
 #pragma unroll
   for (int i = 0; i < M; ++i) rhs[i] = cm[i] * b[i];
   T mx = nabs(val(Qf[0][0].v));
@@ -683,8 +937,7 @@ NPTT_HD void solve_frozen(const Dual<V> (&A)[M][M], const Dual<V> (&b)[M], const
     }
   const T share = mx > T(1) ? T(1) / cnt : (mx == T(1) ? T(0.5) / cnt : T(0));
   const Dual<V> qs(V(pmax(mx, T(1))), dsum * share);
-  const Dual<V> reg = (Prec<T>::eps() * qs) * qs;
-  V Qv[M][M], diagM[M], bv[M], xc[M], Qx[M], dQx[M], rt[M], dxc[M];
+  reg = (Prec<T>::eps() * qs) * qs;
 #pragma unroll
   for (int j = 0; j < M; ++j) {
     V dg = Qf[0][j].v * Qf[0][j].v;
@@ -696,11 +949,17 @@ NPTT_HD void solve_frozen(const Dual<V> (&A)[M][M], const Dual<V> (&b)[M], const
     }
     diagM[j] = dg + reg.v;
     bvec[j] = s;
-    bv[j] = s.v;
 #pragma unroll
     for (int i = 0; i < M; ++i) Qv[i][j] = Qf[i][j].v;
   }
-  pcg<T>(Qv, reg.v, diagM, bv, n_cg, xc);
+}
+
+// The right-hand side of the linear solve's tangent at its solution xc:
+// dbvec - (dQf^T Qf xc + Qf^T dQf xc + dreg xc).
+template <typename V, int M>
+NPTT_HD void frozen_tangent_rhs(const Dual<V> (&Qf)[M][M], const Dual<V>& reg,
+                                const Dual<V> (&bvec)[M], const V (&xc)[M], V (&rt)[M]) {
+  V Qx[M], dQx[M];
 #pragma unroll
   for (int i = 0; i < M; ++i) {
     Qx[i] = Qf[i][0].v * xc[0];
@@ -721,9 +980,28 @@ NPTT_HD void solve_frozen(const Dual<V> (&A)[M][M], const Dual<V> (&b)[M], const
     }
     rt[j] = bvec[j].d - ((s1 + s2) + reg.d * xc[j]);
   }
+}
+
+// solve_frozen on dual numbers, with the tangent lax.custom_linear_solve
+// gives the JAX package: the primal PCG on the values, then ONE tangent
+// PCG with the same iteration count and the primal preconditioner,
+//   dx_C = PCG(dbvec - (dQf^T Qf x_C + Qf^T dQf x_C + dreg x_C)).
+// Pushing the tangent through the CG iterations would differentiate the
+// truncated iteration instead.
+template <int NS, typename T, typename V, int M>
+NPTT_HD void solve_frozen(const Dual<V> (&A)[M][M], const Dual<V> (&b)[M], const T* cm,
+                          const T* us, int n_cg, Dual<V> (&x)[M]) {
+  Dual<V> Qf[M][M], reg, bvec[M], xd[M];
+  V Qv[M][M], diagM[M], bv[M], xc[M], rt[M], dxc[M];
+  frozen_normal_eqs_dual<T, V, M, NS>(A, b, cm, us, Qf, Qv, reg, diagM, bvec);
+#pragma unroll
+  for (int j = 0; j < M; ++j) bv[j] = bvec[j].v;
+  pcg<T>(Qv, reg.v, diagM, bv, n_cg, xc);
+  frozen_tangent_rhs<V, M>(Qf, reg, bvec, xc, rt);
   pcg<T>(Qv, reg.v, diagM, rt, n_cg, dxc);
 #pragma unroll
-  for (int i = 0; i < M; ++i) x[i] = cm[i] * (cm[i] * Dual<V>(xc[i], dxc[i]));
+  for (int i = 0; i < M; ++i) xd[i] = Dual<V>(xc[i], dxc[i]);
+  frozen_impulses<T, Dual<V>, M, NS>(cm, us, xd, x);
 }
 
 // Complementarity violation of an in-box iterate, max over rows with an
@@ -870,13 +1148,15 @@ NPTT_HD void classify_rows(const S (&x)[M], const T (&lo)[M], const T (&hi)[M], 
   }
 }
 
-// The frozen-class planning step x' = f(x, u; cmask) (planner assembly).
-template <typename T, typename S, int NB, int NQ, int NA, int M>
-NPTT_HD void frozen_step(const T* __restrict__ P, const int* __restrict__ I, const S* q,
-                         const S* v, const S* u, const T* cm, int n_cg, S* qn, S* vn) {
+// The inputs of the frozen solve at (q, v, u): q' = q + dt v, v* = v +
+// dt qdd, and the planner assembly's A, b and MJ = M^-1 J^T.
+template <typename T, typename S, int NB, int NQ, int NA, int M, int NS>
+NPTT_HD void frozen_inputs(const T* __restrict__ P, const int* __restrict__ I, const S* q,
+                           const S* v, const S* u, S* qn, S (&vs)[NQ], S (&A)[M][M], S (&b)[M],
+                           S (&MJ)[NQ][M]) {
   using L = StepLayout<NB, NQ, NA>;
   const T dt = P[L::kDt];
-  S R[NB][9], p[NB][3], qdd[NQ], vs[NQ], Mm[NQ][NQ], Mi[NQ][NQ], A[M][M], b[M], MJ[NQ][M], x[M];
+  S R[NB][9], p[NB][3], qdd[NQ], Mm[NQ][NQ], Mi[NQ][NQ];
   T lo[M], hi[M];
   forward_dynamics<T, S, NB, NQ, NA>(P, I, q, v, u, R, p, qdd);
 #pragma unroll
@@ -886,8 +1166,17 @@ NPTT_HD void frozen_step(const T* __restrict__ P, const int* __restrict__ I, con
   }
   mass_matrix<T, S, NB, NQ, NA>(P, I, R, p, Mm);
   inv_spd<T>(Mm, Mi);
-  constraint_rows<T, S, NB, NQ, NA, M, true>(P, I, q, vs, Mi, A, b, lo, hi, MJ);
-  solve_frozen<T>(A, b, cm, n_cg, x);
+  constraint_rows<T, S, NB, NQ, NA, M, NS, true>(P, I, q, vs, R, p, Mi, A, b, lo, hi, MJ);
+}
+
+// The frozen-class planning step x' = f(x, u; cmask, us) (planner assembly).
+template <typename T, typename S, int NB, int NQ, int NA, int M, int NS>
+NPTT_HD void frozen_step(const T* __restrict__ P, const int* __restrict__ I, const S* q,
+                         const S* v, const S* u, const T* cm, const T* us, int n_cg, S* qn,
+                         S* vn) {
+  S vs[NQ], A[M][M], b[M], MJ[NQ][M], x[M];
+  frozen_inputs<T, S, NB, NQ, NA, M, NS>(P, I, q, v, u, qn, vs, A, b, MJ);
+  solve_frozen<NS, T>(A, b, cm, us, n_cg, x);
 #pragma unroll
   for (int d = 0; d < NQ; ++d) {
     S s = MJ[d][0] * x[0];
@@ -913,7 +1202,7 @@ NPTT_HD void class_step(const T* __restrict__ P, const int* __restrict__ I, cons
   }
   mass_matrix<T, S, NB, NQ, NA>(P, I, R, p, Mm);
   inv_spd<T>(Mm, Mi);
-  constraint_rows<T, S, NB, NQ, NA, M, false>(P, I, q, vs, Mi, A, b, lo, hi, MJ);
+  constraint_rows<T, S, NB, NQ, NA, M, 0, false>(P, I, q, vs, R, p, Mi, A, b, lo, hi, MJ);
   direct_boxed_solve_lane<T>(A, b, lo, hi, x);
 #pragma unroll
   for (int d = 0; d < NQ; ++d) {

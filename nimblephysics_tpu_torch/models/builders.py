@@ -1,7 +1,7 @@
-"""Programmatic builders for the contact-free benchmark worlds.
+"""Programmatic builders for the benchmark worlds.
 
-PyTorch counterpart of ``pendulum``, ``inverted_double_pendulum`` and
-``cartpole`` in ``nimblephysics_tpu/models/builders.py``. The leaves are
+PyTorch counterpart of ``pendulum``, ``inverted_double_pendulum``,
+``cartpole`` and ``jump_worm`` in ``nimblephysics_tpu/models/builders.py``. The leaves are
 computed in float64 exactly as the JAX package computes them and then cast
 to ``dtype`` on ``device``.
 """
@@ -120,3 +120,38 @@ def cartpole(
         ),
     ]
     return build_model(joints, dt=dt, actuated=(0,), dtype=dtype, device=device)
+
+
+def jump_worm(
+    dt: float = 0.001, dtype: Optional[torch.dtype] = None, device="cuda",
+) -> Model:
+    """A 2D root (translational2d in x and y) carrying a box, and two
+    revolute links limited to [0, pi], over a floor halfspace (top surface
+    y = -0.575); the two link joints are the actions."""
+    joints = [
+        dict(
+            type="translational2d", name="root_joint", body_name="root",
+            parent=-1, axes=[[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]],
+            mass=1.0, tau_lower=0.0, tau_upper=0.0,
+        ),
+        dict(
+            type="revolute", name="pole1_joint", body_name="pole1", parent=0,
+            axes=[[0.0, 0.0, 1.0]], T_cj=_tf([0.0, -0.125, 0.0]),
+            mass=1.0, tau_lower=-100.0, tau_upper=100.0,
+            q_lower=0.0, q_upper=np.pi,
+        ),
+        dict(
+            type="revolute", name="pole2_joint", body_name="pole2", parent=1,
+            axes=[[0.0, 0.0, 1.0]], T_pj=_tf([0.0, 0.125, 0.0]),
+            T_cj=_tf([0.0, -0.125, 0.0]),
+            mass=1.0, tau_lower=-100.0, tau_upper=100.0,
+            q_lower=0.0, q_upper=np.pi,
+        ),
+    ]
+    shapes = (
+        dict(kind="box", body_index=0, params=[0.1, 0.1, 0.1, 0.0]),
+        # floor box center (0, -0.7, 0), height 0.25: top surface y = -0.575
+        dict(kind="halfspace", body_index=-1, params=[0.0, 1.0, 0.0, -0.575]),
+    )
+    return build_model(joints, dt=dt, shapes=shapes, actuated=(2, 3), dtype=dtype,
+                       device=device)

@@ -13,13 +13,31 @@ import numpy as np
 import torch
 
 from nimblephysics_tpu_torch._device import resolve_device
-from nimblephysics_tpu_torch.models.model import JOINT_NDOF, LEAF_NAMES, Model
+from nimblephysics_tpu_torch.models.model import JOINT_NDOF, LEAF_NAMES, Model, make_shape
 from nimblephysics_tpu_torch.ops.lie import Transform
 
 STATIC_KEYS = ("joint_types", "parents", "joint_names", "body_names",
                "actuated", "dof_names", "shapes", "servo_dofs", "mimic", "loops")
 # constraint topology the port cannot carry yet: must be empty when given
-UNPORTED_KEYS = ("shapes", "servo_dofs", "mimic", "loops")
+UNPORTED_KEYS = ("servo_dofs", "mimic", "loops")
+SHAPE_FIELDS = ("kind", "body_index", "offset", "params", "friction", "restitution")
+
+
+def _shape(spec, device, dtype):
+    """A port ShapeSpec from a mapping of make_shape's arguments or from any
+    object with the fields of SHAPE_FIELDS (a JAX ShapeSpec among them: its
+    arrays are read through numpy)."""
+    if isinstance(spec, Mapping):
+        fields = dict(spec)
+    else:
+        fields = {f: getattr(spec, f) for f in SHAPE_FIELDS}
+    off = fields.get("offset")
+    if off is not None:
+        fields["offset"] = Transform(np.asarray(off.R), np.asarray(off.p))
+    for f in ("params", "friction", "restitution"):
+        if f in fields:
+            fields[f] = np.asarray(fields[f])
+    return make_shape(dtype=dtype, device=device, **fields)
 
 
 def model_from_numpy(
@@ -35,9 +53,11 @@ def model_from_numpy(
     ``models.model.LEAF_NAMES`` to an array, the joint position limits
     ``q_lower``/``q_upper`` and the Coulomb friction among them (the
     constraint rows of ops/contact.py). ``dtype`` None keeps the leaves'
-    own floating type. Collision shapes, servos, mimic couplings and loop
-    closures are not ported yet (ROADMAP M4): ``static`` may name them
-    only empty, and custom joints are refused by their joint type.
+    own floating type. ``static["shapes"]`` carries the collision shapes,
+    each a mapping of ``make_shape``'s arguments or an object with the
+    fields of SHAPE_FIELDS. Servos, mimic couplings and loop closures are
+    not ported yet (ROADMAP M4): ``static`` may name them only empty, and
+    custom joints are refused by their joint type.
     """
     device = resolve_device(device)
     missing = [n for n in LEAF_NAMES if n not in leaves]
@@ -82,4 +102,5 @@ def model_from_numpy(
         gravity=t["gravity"], dt=t["dt"],
         actuated=tuple(int(a) for a in static.get("actuated", range(nq))),
         dof_names=tuple(static.get("dof_names", ())),
+        shapes=tuple(_shape(sp, device, t["mass"].dtype) for sp in static.get("shapes", ())),
     )

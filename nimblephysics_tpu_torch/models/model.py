@@ -1,11 +1,12 @@
 """Model and State: the world as data.
 
-PyTorch counterpart of ``nimblephysics_tpu/models/model.py`` for
-shape-free models (joint limits and Coulomb joint friction are the only
-constraint rows). ``Model`` holds the static topology as plain Python
-fields (joint types, parents, names, the actuated dofs) and every numeric
-parameter as a tensor; all tensors of one model lie on one device and have
-one dtype.
+PyTorch counterpart of ``nimblephysics_tpu/models/model.py``: chains of
+joints with joint limits, Coulomb joint friction and collision shapes
+(``ShapeSpec``; the narrow phase of ops/collide.py covers box against
+halfspace). ``Model`` holds the static topology as plain Python fields
+(joint types, parents, names, the actuated dofs, each shape's kind and
+body) and every numeric parameter as a tensor; all tensors of one model
+lie on one device and have one dtype.
 
 Bodies and joints are 1:1: body i's parent joint is joint i, and
 ``parents[i]`` is the parent body index (-1 = world), with parents[i] < i.
@@ -43,6 +44,44 @@ JOINT_NDOF = {
     "constant_curve_incompressible": 3,
 }
 
+SHAPE_KINDS = ("box", "sphere", "capsule", "halfspace", "convex", "heightmap",
+               "cylinder", "cone", "trimesh", "pointcloud", "linesegment")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShapeSpec:
+    """One collision shape on a body (``body_index`` -1: static world
+    geometry such as a floor), with its friction and restitution.
+
+    params by kind, as in the JAX package: box [sx, sy, sz, 0] full
+    extents; halfspace [nx, ny, nz, offset], the plane n.x = offset in the
+    shape frame with the solid below; the other kinds' narrow phase is not
+    ported yet (ops/collide.py raises naming ROADMAP M4)."""
+
+    kind: str
+    body_index: int
+    offset: Transform
+    params: torch.Tensor            # (4,)
+    friction: torch.Tensor          # ()
+    restitution: torch.Tensor       # ()
+
+
+def make_shape(kind: str, body_index: int, offset=None, params=(0.0, 0.0, 0.0, 0.0),
+               friction=1.0, restitution=0.0, dtype=None, device="cpu") -> ShapeSpec:
+    """A ShapeSpec from numbers or arrays (``offset`` a Transform of arrays,
+    None for the identity), its tensors in ``dtype`` on ``device``."""
+    if kind not in SHAPE_KINDS:
+        raise ValueError(f"unknown shape kind {kind!r}")
+    dtype = dtype or torch.get_default_dtype()
+
+    def arr(x):
+        return torch.as_tensor(np.array(x, dtype=np.float64), dtype=dtype, device=device)
+
+    R, p = (np.eye(3), np.zeros(3)) if offset is None else (offset.R, offset.p)
+    return ShapeSpec(kind=kind, body_index=int(body_index), offset=Transform(arr(R), arr(p)),
+                     params=arr(params), friction=arr(friction), restitution=arr(restitution))
+
+
 # Numeric leaves of a Model, in a fixed order (models/convert.py uses it).
 LEAF_NAMES = (
     "T_pj.R", "T_pj.p", "T_cj.R", "T_cj.p", "axes", "mass", "com", "moment",
@@ -68,7 +107,7 @@ class State(NamedTuple):
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Model:
-    """A shape-free world: static topology plus tensor parameters."""
+    """A world: static topology plus tensor parameters."""
 
     joint_types: Tuple[str, ...]
     parents: Tuple[int, ...]
@@ -93,10 +132,9 @@ class Model:
     actuated: Tuple[int, ...] = ()
     dof_names: Tuple[str, ...] = ()
     # Constraint topology read by ops/contact.lcp_dim. The port builds no
-    # collision shapes, servos, mimic couplings or loop closures yet
-    # (ROADMAP M4): these stay empty, and ops/collide.py and
-    # ops/contact.py refuse a model that has any.
-    shapes: Tuple[Any, ...] = ()
+    # servos, mimic couplings or loop closures yet (ROADMAP M4): these stay
+    # empty, and ops/contact.py refuses a model that has any.
+    shapes: Tuple[ShapeSpec, ...] = ()
     servo_dofs: Tuple[int, ...] = ()
     mimic: Tuple[Tuple[int, int, float, float], ...] = ()
     loops: Tuple[Tuple[str, int, int], ...] = ()
@@ -163,17 +201,20 @@ def build_model(
     joints: Sequence[dict],
     gravity=(0.0, -9.81, 0.0),
     dt=0.002,
+    shapes: Sequence[dict] = (),
     actuated: Optional[Sequence[int]] = None,
     dtype: Optional[torch.dtype] = None,
     device="cuda",
 ) -> Model:
-    """Assemble a shape-free Model from a list of per-joint dicts.
+    """Assemble a Model from a list of per-joint dicts.
 
     Each dict: {type, name, parent (body index, -1 = world), body_name,
     T_pj, T_cj (Transform of numpy arrays, or None), axes, mass, com,
     moment, damping, stiffness, rest, q_lower, q_upper, tau_lower,
     tau_upper}. Missing entries get the defaults of the JAX package (mass 1,
-    moment I, no limits). ``dtype`` None means torch's default dtype.
+    moment I, no limits). ``shapes``: one dict of ``make_shape``'s keyword
+    arguments per collision shape. ``dtype`` None means torch's default
+    dtype.
     """
     device = resolve_device(device)
     dtype = dtype or torch.get_default_dtype()
@@ -252,6 +293,7 @@ def build_model(
         dt=arr(dt),
         actuated=tuple(int(a) for a in actuated),
         dof_names=tuple(dof_names),
+        shapes=tuple(make_shape(dtype=dtype, device=device, **sh) for sh in shapes),
     )
 
 

@@ -1,12 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` into one shared library with
-a plain C interface (no PyTorch headers, so it builds in seconds), which is
-loaded with ctypes. The library goes to ``_build/<hash of the sources and
-flags>/``: a changed source gets a new directory, so a stale library is
-never loaded, and the file is renamed into place when complete, so no lock
-file is needed. Nothing is built at import time; the first kernel launch
-builds.
+Every ``csrc/*.cu`` is compiled by its own ``nvcc -c``, all started
+together, and one more ``nvcc`` links the objects into one shared library
+with a plain C interface (no PyTorch headers), which is loaded with ctypes.
+The library goes to ``_build/<hash of the sources and flags>/``: a changed
+source gets a new directory, so a stale library is never loaded, and the
+file is renamed into place when complete, so no lock file is needed.
+Nothing is built at import time; the first kernel launch builds.
 """
 
 from __future__ import annotations
@@ -28,8 +28,9 @@ BUILD_ROOT = PKG_DIR / "_build"
 LIB_NAME = "libnptt_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 NVCC_TIMEOUT_S = 900
 
 _P = ctypes.c_void_p
@@ -40,9 +41,11 @@ _LL = ctypes.c_longlong
 SIGNATURES = {
     "nptt_riccati": [_I, _I, _I, _LL, _I] + [_P] * 8,
     "nptt_linearize": [_I, _I, _I, _I, _LL] + [_P] * 7,
-    "nptt_rollout": [_I, _I, _I, _I, _I, _LL, _LL, _I, _I] + [_P] * 14,
-    "nptt_linearize_split": [_I, _I, _I, _I, _I, _LL, _I] + [_P] * 8,
+    "nptt_rollout": [_I, _I, _I, _I, _I, _I, _LL, _LL, _I, _I] + [_P] * 15,
+    "nptt_linearize_split": [_I, _I, _I, _I, _I, _LL, _I] + [_P] * 9,
     "nptt_rollout_classes": [_I, _I, _I, _I, _I, _LL, _I] + [_P] * 6,
+    "nptt_linearize_vjp": [_I, _I, _I, _I, _I, _I, _LL, _I] + [_P] * 10,
+    "nptt_pgs": [_I, _I, _LL, _I] + [_P] * 9,
 }
 
 
@@ -55,7 +58,7 @@ def source_hash() -> str:
     for p in sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -76,24 +79,47 @@ def _nvcc() -> str:
 
 
 def build() -> tuple:
-    """Build the library if it is missing. Returns (path, seconds spent in
-    nvcc, 0.0 when the library was already there)."""
+    """Build the library if it is missing: one ``nvcc -c`` per source, run
+    in parallel, then the link. Returns (path, seconds spent building, 0.0
+    when the library was already there)."""
     lib = library_path()
     if lib.exists():
         return lib, 0.0
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sources() if p.suffix == ".cu"]]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=NVCC_TIMEOUT_S)
+    jobs = []
+    for src in (p for p in sources() if p.suffix == ".cu"):
+        obj = lib.parent / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        try:
+            out, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+            out += f"\nnvcc timed out after {NVCC_TIMEOUT_S} s"
+            proc.returncode = -1
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    tmp = lib.with_name(f"{LIB_NAME}.{tag}")
+    if not failed:
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *[str(obj) for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(proc.stderr)
     seconds = time.perf_counter() - t0
-    (lib.parent / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-8000:]}")
+    (lib.parent / "nvcc.log").write_text("\n".join(log))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(f[-4000:] for f in failed))
     os.replace(tmp, lib)
     return lib, seconds
 

@@ -1,10 +1,17 @@
-"""Contact slots for shape-free models.
+"""Narrow-phase collision with a static contact-slot topology.
 
-PyTorch counterpart of ``ContactSlots``, ``total_slots`` and
-``detect_contacts`` in ``nimblephysics_tpu/ops/collide.py``, for models
-without collision shapes: they have no contact slots, so the constraint
-rows come from joint limits and Coulomb friction alone. The narrow-phase
-pair functions are ROADMAP M4; a model with shapes raises.
+PyTorch counterpart of ``nimblephysics_tpu/ops/collide.py``: every pair of
+collision shapes that can touch is enumerated once from the model's
+static topology, each contributing a fixed number of contact slots, and
+each slot's (point, normal, depth, active) is computed from the body
+transforms, batched over their leading dimensions. The normal points from
+body B into body A; depth > 0 means penetrating.
+
+Ported pair: box against halfspace (8 corner slots, the jump worm's
+floor). The slot table of the reference is kept whole, so the static
+topology (``enumerate_pairs``, ``total_slots``) of any model matches the
+JAX package; the narrow phase of every other pair raises naming ROADMAP
+queue A, M4.
 """
 
 from __future__ import annotations
@@ -13,39 +20,171 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
-from nimblephysics_tpu_torch.models.model import Model
+from nimblephysics_tpu_torch.models.model import Model, ShapeSpec
+from nimblephysics_tpu_torch.ops.lie import Transform
+
+# Round shapes without a dedicated narrow phase for some partner kind
+# degrade to their bounding capsule (params share the [r, h] z-axis
+# convention), as in the reference.
+_CAPSULE_FALLBACK_KINDS = ("cylinder", "cone")
+
+_SLOTS = {
+    ("sphere", "halfspace"): 1, ("box", "halfspace"): 8, ("capsule", "halfspace"): 2,
+    ("sphere", "sphere"): 1, ("sphere", "box"): 1, ("box", "box"): 25,
+    ("capsule", "box"): 2, ("capsule", "capsule"): 1, ("sphere", "capsule"): 1,
+    ("convex", "halfspace"): 6, ("sphere", "convex"): 1, ("convex", "convex"): 8,
+    ("convex", "box"): 8, ("sphere", "heightmap"): 1, ("box", "heightmap"): 8,
+    ("capsule", "heightmap"): 2, ("convex", "heightmap"): 6, ("cylinder", "halfspace"): 8,
+    ("sphere", "cylinder"): 1, ("cone", "halfspace"): 5, ("sphere", "cone"): 1,
+    ("trimesh", "halfspace"): 6, ("sphere", "trimesh"): 1, ("trimesh", "trimesh"): 8,
+    ("trimesh", "box"): 8, ("pointcloud", "halfspace"): 6, ("sphere", "pointcloud"): 1,
+    ("pointcloud", "box"): 4, ("linesegment", "halfspace"): 4, ("sphere", "linesegment"): 1,
+}
 
 
 class ContactSlots(NamedTuple):
-    """Fixed-size contact buffers (n_slots, ...)."""
+    """Fixed-size contact buffers (..., K, ...)."""
 
-    point: torch.Tensor        # (K, 3) world contact point
-    normal: torch.Tensor       # (K, 3) world normal, B -> A
-    depth: torch.Tensor        # (K,) penetration depth (>0 = contact)
-    active: torch.Tensor       # (K,) bool
+    point: torch.Tensor        # (..., K, 3) world contact point
+    normal: torch.Tensor       # (..., K, 3) world normal, B -> A
+    depth: torch.Tensor        # (..., K) penetration depth (>0 = contact)
+    active: torch.Tensor       # (..., K) bool
     body_a: Tuple[int, ...]    # static body indices (-1 = world/static)
     body_b: Tuple[int, ...]
     friction: torch.Tensor     # (K,) combined friction coefficient
     restitution: torch.Tensor  # (K,) combined restitution
 
 
-def _no_shapes(model: Model) -> None:
-    if model.shapes:
-        raise NotImplementedError(
-            "collision shapes are not ported yet (ROADMAP queue A, M4: the "
-            "narrow-phase pair functions of ops/collide.py)")
+def _box_corners(params: torch.Tensor) -> torch.Tensor:
+    """(8, 3) corner offsets for the full extents params[:3]."""
+    half = params[:3] / 2.0
+    signs = torch.tensor([[sx, sy, sz] for sx in (-1.0, 1.0) for sy in (-1.0, 1.0)
+                          for sz in (-1.0, 1.0)], dtype=params.dtype, device=params.device)
+    return signs * half
+
+
+def _num_slots_table(kind_a: str, kind_b: str) -> int:
+    return _SLOTS.get((kind_a, kind_b), 0)
+
+
+def _capsule_fallback(kind_a: str, kind_b: str) -> Tuple[str, str]:
+    """Effective kinds after the bounding-capsule fallback, or the pair
+    unchanged when a dedicated routine exists."""
+    if _num_slots_table(kind_a, kind_b) > 0:
+        return kind_a, kind_b
+    fa = "capsule" if kind_a in _CAPSULE_FALLBACK_KINDS else kind_a
+    fb = "capsule" if kind_b in _CAPSULE_FALLBACK_KINDS else kind_b
+    return fa, fb
+
+
+def _num_slots(kind_a: str, kind_b: str) -> int:
+    return _num_slots_table(*_capsule_fallback(kind_a, kind_b))
+
+
+def enumerate_pairs(model: Model) -> List[Tuple[int, int, int]]:
+    """Static list of (shape index a, shape index b, slots). Shapes on the
+    same body, two static shapes and parent-child pairs do not collide; a
+    symmetric pair is kept in one direction."""
+    out = []
+    shapes = model.shapes
+    for i in range(len(shapes)):
+        for j in range(len(shapes)):
+            if i == j:
+                continue
+            a, b = shapes[i], shapes[j]
+            if a.body_index == b.body_index:
+                continue
+            if a.body_index < 0 and b.body_index < 0:
+                continue
+            if a.body_index >= 0 and b.body_index >= 0:
+                if model.parents[a.body_index] == b.body_index:
+                    continue
+                if model.parents[b.body_index] == a.body_index:
+                    continue
+            n = _num_slots(a.kind, b.kind)
+            if n == 0:
+                continue
+            if _num_slots(b.kind, a.kind) > 0 and j < i:
+                continue
+            out.append((i, j, n))
+    return out
 
 
 def total_slots(model: Model) -> int:
-    _no_shapes(model)
-    return 0
+    return sum(n for _, _, n in enumerate_pairs(model))
+
+
+def _shape_world_transform(model: Model, shape: ShapeSpec, T_wb: List[Transform]) -> Transform:
+    off = shape.offset
+    if shape.body_index < 0:
+        return off
+    return T_wb[shape.body_index].compose(off)
+
+
+def _halfspace_world(pb: torch.Tensor, Tb: Transform):
+    """Halfspace params [nx, ny, nz, offset] in the shape frame -> the world
+    plane {x : n.x = d}, solid below."""
+    n_w = Tb.rotate(pb[:3])
+    d_w = pb[3] + (n_w * Tb.p).sum(-1)
+    return n_w, d_w
+
+
+def _box_halfspace(pa, pb, Ta: Transform, Tb: Transform):
+    n, d = _halfspace_world(pb, Tb)
+    corners = _box_corners(pa)
+    pts, ns, ds = [], [], []
+    for k in range(8):
+        p_w = Ta.apply(corners[k])
+        pts.append(p_w)
+        ns.append(n.expand(p_w.shape))
+        ds.append(d - (n * p_w).sum(-1))
+    return pts, ns, ds
+
+
+def _narrow_phase(sa: ShapeSpec, sb: ShapeSpec, Ta: Transform, Tb: Transform):
+    kinds = _capsule_fallback(sa.kind, sb.kind)
+    if kinds == ("box", "halfspace"):
+        return _box_halfspace(sa.params, sb.params, Ta, Tb)
+    raise NotImplementedError(
+        f"the {kinds[0]}/{kinds[1]} narrow phase is not ported yet (ROADMAP queue A, M4: "
+        "ops/collide.py pair functions beyond box/halfspace)")
 
 
 def detect_contacts(model: Model, T_wb: List) -> ContactSlots:
-    """Every contact slot from the body transforms: none for a shape-free
-    model."""
-    _no_shapes(model)
-    z3 = model.mass.new_zeros((0, 3))
-    z = model.mass.new_zeros((0,))
-    return ContactSlots(z3, z3, z, torch.zeros((0,), dtype=torch.bool, device=z.device),
-                        (), (), z, z)
+    """Fill every contact slot from the body transforms (leading batch
+    dimensions of the transforms carry over)."""
+    points, normals, depths, fric, rest = [], [], [], [], []
+    bodies_a, bodies_b = [], []
+    for ia, ib, n in enumerate_pairs(model):
+        sa, sb = model.shapes[ia], model.shapes[ib]
+        Ta = _shape_world_transform(model, sa, T_wb)
+        Tb = _shape_world_transform(model, sb, T_wb)
+        mu = torch.sqrt(torch.clamp(sa.friction * sb.friction, min=0.0))
+        e = torch.maximum(sa.restitution, sb.restitution)
+        ps, ns, ds = _narrow_phase(sa, sb, Ta, Tb)
+        for k in range(n):
+            points.append(ps[k])
+            normals.append(ns[k])
+            depths.append(ds[k])
+            bodies_a.append(sa.body_index)
+            bodies_b.append(sb.body_index)
+            fric.append(mu)
+            rest.append(e)
+    if not points:
+        z = model.mass.new_zeros((0,))
+        batch = T_wb[0].p.shape[:-1] if T_wb else ()
+        z3b = model.mass.new_zeros(batch + (0, 3))
+        zb = model.mass.new_zeros(batch + (0,))
+        return ContactSlots(z3b, z3b, zb, zb > 0.0, (), (), z, z)
+    batch = torch.broadcast_shapes(*(p.shape[:-1] for p in points))
+    depth = torch.stack([d.expand(batch) for d in depths], dim=-1)
+    return ContactSlots(
+        point=torch.stack([p.expand(batch + (3,)) for p in points], dim=-2),
+        normal=torch.stack([nn.expand(batch + (3,)) for nn in normals], dim=-2),
+        depth=depth,
+        active=depth > 0.0,
+        body_a=tuple(bodies_a),
+        body_b=tuple(bodies_b),
+        friction=torch.stack(fric),
+        restitution=torch.stack(rest),
+    )

@@ -1,18 +1,21 @@
-"""The constrained timestep for joint limits and Coulomb joint friction.
+"""The constrained timestep: collision, boxed LCP, impulse application.
 
 PyTorch counterpart of ``nimblephysics_tpu/ops/contact.py``:
 
-    qdd  = ABA(q, v, tau)                      unconstrained forward dynamics
-    v*   = v + dt qdd                          pre-constraint velocity
-    x    = BoxedLCP(J M^-1 J^T + cfm I, b)     impulses
+    qdd  = ABA(q, v, tau)                         unconstrained forward dynamics
+    v*   = v + dt qdd                             pre-constraint velocity
+    x    = BoxedLCP(J M^-1 J^T + cfm I, -J v* + bounce)   impulses
     v'   = v* + M^-1 J^T x
-    q'   = integrate(q, v)                     pre-step velocity
+    q'   = integrate(q, v)                        pre-step velocity
 
-States carry leading batch dimensions. The port's models carry no
-collision shapes, servos, mimic couplings or loop closures yet, so the LCP
-rows come from joint position limits and Coulomb joint friction alone and
-``contact_step`` takes the direct active-set solve; the rest is ROADMAP
-queue A, M4.
+States carry leading batch dimensions. The LCP rows are the contact rows
+(a normal and two friction rows per contact slot, the friction rows
+coupled to their normal impulse), the joint-limit rows and the Coulomb
+joint-friction rows. ``contact_step`` solves a model with contact slots by
+projected Gauss-Seidel (``method="gs"``, 60 sweeps, the CUDA kernel K7 on
+CUDA tensors) and a limits-only model by the direct active-set solve.
+Servo, mimic and loop-closure rows and the staged accuracy cascade are
+ROADMAP queue A, M4.
 """
 
 from __future__ import annotations
@@ -29,8 +32,11 @@ from nimblephysics_tpu_torch.ops import lcp as lcp_mod
 from nimblephysics_tpu_torch.ops.collide import ContactSlots, detect_contacts, total_slots
 from nimblephysics_tpu_torch.ops.linalg_small import solve_spd
 
-# Reference constants: ContactConstraint.cpp:46-48
+# Reference constants: ContactConstraint.cpp:46-48, DART_RESTITUTION_*
 CFM = 1e-5
+RESTITUTION_THRESHOLD = 1e-3
+BOUNCING_VELOCITY_THRESHOLD = 1e-1
+MAX_BOUNCING_VELOCITY = 1e2
 _BIG = lcp_mod._BIG
 
 
@@ -72,6 +78,8 @@ def loop_rows(model: Model) -> int:
 
 
 def lcp_dim(model: Model) -> int:
+    """Rows of the padded boxed LCP: 3 per contact slot, 2 per limited dof,
+    1 per Coulomb dof (and the unported servo, mimic and loop rows)."""
     return (3 * total_slots(model) + 2 * len(limited_dofs(model))
             + len(coulomb_dofs(model)) + len(model.servo_dofs) + len(model.mimic)
             + loop_rows(model))
@@ -87,6 +95,67 @@ def lcp_findex(model: Model) -> Tuple[int, ...]:
     fi.extend([-1] * (len(model.servo_dofs) + len(model.mimic)))
     fi.extend([-1] * loop_rows(model))
     return tuple(fi)
+
+
+def _tangent_basis(n: torch.Tensor):
+    """ODE-style tangent basis (the reference's
+    getTangentBasisMatrixODE): the first friction direction is z x n,
+    falling back to x x n, branch-free; n (..., 3) -> (t1, t2)."""
+    z = torch.zeros_like(n) + torch.tensor([0.0, 0.0, 1.0], dtype=n.dtype, device=n.device)
+    x = torch.zeros_like(n) + torch.tensor([1.0, 0.0, 0.0], dtype=n.dtype, device=n.device)
+    t_z = torch.linalg.cross(z, n)
+    t_x = torch.linalg.cross(x, n)
+    use_z = ((t_z * t_z).sum(-1) > 1e-12)[..., None]
+    t = torch.where(use_z, t_z, t_x)
+    t = t / torch.sqrt(torch.clamp((t * t).sum(-1, keepdim=True), min=1e-18))
+    return t, torch.linalg.cross(n, t)
+
+
+def _contact_rows(model: Model, q: torch.Tensor, v_star: torch.Tensor, kin,
+                  contacts: ContactSlots, planner: bool):
+    """J (..., 3K, nq), b, lo, hi, fscale (..., 3K) of the contact slots:
+    per slot the normal row and two friction rows. The full form gates
+    each slot on its penetration and adds the restitution bounce; the
+    planner form keeps every row (the frozen classes decide activity)."""
+    nq = model.nq
+    K = len(contacts.body_a)
+    batch = q.shape[:-1]
+    Jw = dyn.world_jacobian(model, kin)                         # (..., nb, 6, nq)
+    zero6 = q.new_zeros(batch + (6, nq))
+
+    def body_jac(bodies):
+        return torch.stack([Jw[..., b, :, :] if b >= 0 else zero6 for b in bodies], dim=-3)
+
+    p = contacts.point                                           # (..., K, 3)
+    Jp = dyn._point_rows(body_jac(contacts.body_a), p) - dyn._point_rows(
+        body_jac(contacts.body_b), p)                            # (..., K, 3, nq)
+    n = contacts.normal
+    t1, t2 = _tangent_basis(n)
+    dirs = torch.stack([n, t1, t2], dim=-2)                      # (..., K, 3, 3)
+    if planner:
+        act = q.new_ones(batch + (K,))
+    else:
+        act = contacts.active.to(q.dtype)
+    rows_c = act[..., None, None] * (dirs @ Jp)                  # (..., K, 3, nq)
+    rel_v = (rows_c @ v_star[..., None, :, None])[..., 0]        # (..., K, 3)
+    neg_vn = -rel_v[..., 0]
+    e = contacts.restitution
+    restitution_vel = torch.where(e > RESTITUTION_THRESHOLD, neg_vn * e,
+                                  torch.zeros_like(neg_vn))
+    bounce = torch.where(restitution_vel > BOUNCING_VELOCITY_THRESHOLD,
+                         torch.clamp(restitution_vel, max=MAX_BOUNCING_VELOCITY),
+                         torch.zeros_like(restitution_vel))
+    if planner:
+        bounce = torch.zeros_like(bounce)
+    b_c = torch.stack([act * (neg_vn + bounce), -act * rel_v[..., 1], -act * rel_v[..., 2]],
+                      dim=-1)
+    zero_k = torch.zeros_like(act)
+    hi_c = torch.stack([act * _BIG, zero_k, zero_k], dim=-1)
+    mu = contacts.friction * act
+    fs_c = torch.stack([zero_k, mu, mu], dim=-1)
+    return (rows_c.reshape(batch + (3 * K, nq)), b_c.reshape(batch + (3 * K,)),
+            q.new_zeros(batch + (3 * K,)), hi_c.reshape(batch + (3 * K,)),
+            fs_c.reshape(batch + (3 * K,)))
 
 
 class ContactSolveInfo(NamedTuple):
@@ -125,13 +194,12 @@ def build_constraint_system(
     the leading batch dimensions of q.
 
     ``planner=True`` builds the smooth planning variant of the frozen-class
-    path (ops/frozen_contact.py): every row is gated on (the frozen class
-    masks decide row activity), and the mass solve is the pivot-free SPD
-    solve. The limit rows come first (all lower rows, then all upper
-    rows), then the Coulomb rows."""
+    path (ops/frozen_contact.py): every row is gated on and the restitution
+    bounce is dropped (the frozen class masks decide row activity), and the
+    mass solve is the pivot-free SPD solve. The contact rows come first (a
+    normal and two friction rows per slot), then the limit rows (all lower
+    rows, then all upper rows), then the Coulomb rows."""
     _no_unported_rows(model)
-    if len(contacts.body_a):
-        raise NotImplementedError("contact rows are not ported yet (ROADMAP queue A, M4)")
     nq = model.nq
     dtype, device = q.dtype, q.device
     batch = q.shape[:-1]
@@ -140,6 +208,8 @@ def build_constraint_system(
     zeros = q.new_zeros(batch + (0,))
     J = q.new_zeros(batch + (0, nq))
     b, lo, hi, fscale = zeros, zeros, zeros, zeros
+    if len(contacts.body_a):
+        J, b, lo, hi, fscale = _contact_rows(model, q, v_star, kin, contacts, planner)
     if Ld:
         # lower limit active when q <= lo (impulse >= 0 on +e_d); upper when
         # q >= hi (row -e_d with impulse >= 0)
@@ -190,11 +260,14 @@ def contact_step(
     return_info: bool = False,
     servo_cmd: Optional[torch.Tensor] = None,
     accuracy: str = "standard",
+    kernels: bool = True,
 ):
-    """One constrained timestep. The limit/Coulomb-only LCP takes the direct
-    active-set solve (``lcp_iters`` rounds, 3 by default); ``x_warm`` is
-    accepted for the interface and unused by that method. ``accuracy``
-    other than "standard" is not ported yet."""
+    """One constrained timestep. A model with contact slots takes projected
+    Gauss-Seidel (``lcp_iters`` sweeps, 60 by default) from ``x_warm``
+    (zeros when None), through K7 on CUDA tensors when ``kernels``; a
+    limit/Coulomb-only LCP takes the direct active-set solve
+    (``lcp_iters`` rounds, 3 by default), for which ``x_warm`` is unused.
+    ``accuracy`` other than "standard" is not ported yet."""
     if accuracy != "standard":
         raise NotImplementedError(
             f"contact_step(accuracy={accuracy!r}) is not ported yet (ROADMAP "
@@ -210,14 +283,20 @@ def contact_step(
     if m == 0:
         out = State(integrate_positions(model, q, v), v_star)
         return (out, None) if return_info else out
-    lcp_iters = 3 if lcp_iters is None else lcp_iters
+    if total_slots(model) > 0:
+        method = "gs"
+        lcp_iters = 60 if lcp_iters is None else lcp_iters
+    else:
+        method = "direct"
+        lcp_iters = 3 if lcp_iters is None else lcp_iters
     contacts = detect_contacts(model, kin0.T_wb)
     J, A, b, lo, hi, fscale, Minv_Jt = build_constraint_system(
         model, q, v_star, kin0, contacts, servo_cmd)
     findex = lcp_findex(model)
     if x_warm is None:
         x_warm = torch.zeros_like(b)
-    x = lcp_mod.boxed_lcp(A, b, lo, hi, fscale, x_warm, findex, lcp_iters, "direct")
+    x = lcp_mod.boxed_lcp(A, b, lo, hi, fscale, x_warm, findex, lcp_iters, method,
+                          kernels=kernels)
     v_next = v_star + (Minv_Jt @ x[..., None])[..., 0]
     out = State(integrate_positions(model, q, v), v_next)
     if not return_info:

@@ -1,0 +1,58 @@
+"""K7: batched boxed-LCP projected Gauss-Seidel with friction coupling.
+
+Port of ``nimblephysics_tpu/ops/pallas_lcp.py :: pallas_pgs_batched``:
+``vmap(pgs_solve)`` over a batch of LCPs, a fixed number of sweeps, rows
+in order, friction rows bounded by +-fscale max(x[findex], 0).
+``pgs_batched`` launches the CUDA kernel of ``csrc/lcp.cu`` on CUDA
+tensors and runs ``pgs_batched_plain`` (``ops/lcp.py`` ``pgs_solve`` on
+the batch) on CPU tensors. The port's ``boxed_lcp(method="gs")`` calls it,
+so the pointwise classification of the contact replan
+(``frozen_contact.classify_points``) solves its LCPs here.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from nimblephysics_tpu_torch.ops import _build
+from nimblephysics_tpu_torch.ops.lcp import pgs_solve
+
+
+def pgs_batched_plain(A, b, lo, hi, fscale, x0, findex: Tuple[int, ...], iters: int = 60):
+    """``pgs_solve`` over the leading batch dimensions."""
+    return pgs_solve(A, b, lo, hi, fscale, x0, findex, iters=iters)
+
+
+def pgs_batched(A, b, lo, hi, fscale, x0, findex: Tuple[int, ...], iters: int = 60):
+    """Batched PGS: A (..., m, m), b/lo/hi/fscale/x0 (..., m), findex a
+    static tuple of m ints (-1 for uncoupled rows). The CUDA kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    name = "pgs_batched"
+    dev, dtype = _build.check_inputs(
+        name, dict(A=A, b=b, lo=lo, hi=hi, fscale=fscale, x0=x0))
+    m = b.shape[-1]
+    batch = b.shape[:-1]
+    for key, t in (("lo", lo), ("hi", hi), ("fscale", fscale), ("x0", x0)):
+        _build.check_shape(name, key, t, b.shape)
+    _build.check_shape(name, "A", A, batch + (m, m))
+    if len(findex) != m or any(not -1 <= f < m for f in findex):
+        raise ValueError(f"{name}: findex must hold {m} row indices or -1")
+    if dev.type == "cpu":
+        return pgs_batched_plain(A, b, lo, hi, fscale, x0, findex, iters)
+    n = b[..., 0].numel()
+    flat = [t.reshape(n, m).contiguous() for t in (b, lo, hi, fscale, x0)]
+    A_f = A.reshape(n, m, m).contiguous()
+    fi = torch.tensor(findex, dtype=torch.int32, device=dev)
+    x = torch.empty((n, m), dtype=dtype, device=dev)
+    lib = _build.load()
+    rc = lib.nptt_pgs(int(dtype == torch.float64), m, n, int(iters), A_f.data_ptr(),
+                      *(t.data_ptr() for t in flat), fi.data_ptr(), x.data_ptr(),
+                      _build.stream_ptr(dev))
+    _build.check(rc, name)
+    pgs_batched.launches += 1
+    return x.reshape(b.shape)
+
+
+pgs_batched.launches = 0

@@ -1,16 +1,20 @@
-"""K3 and K4: (fx, fu) of the planning step at every point of a batch of
-trajectories.
+"""K3, K4 and K5: (fx, fu) of the planning step at every point of a batch
+of trajectories.
 
 Port of ``nimblephysics_tpu/ops/pallas_linearize.py``: ``linearize_pallas``
-(K3, the contact-free step) and ``linearize_pallas_split`` (K4, the
-frozen-class contact step) with their helpers ``dyn_for_trace`` and
+(K3, the contact-free step), ``linearize_pallas_split`` (K4, the
+frozen-class contact step by forward mode) and ``linearize_pallas_vjp``
+(K5, the frozen-class step by row-VJPs of its v' half, with
+``linear_position_update``), with their helpers ``dyn_for_trace`` and
 ``dyn_frozen_for_trace`` (the JAX helper ``_tau_stack`` is
-``Model.action_to_tau`` here, which already stacks). ``linearize`` and
-``linearize_split`` launch the CUDA kernels of ``csrc/linearize.cu`` on
-CUDA tensors and run ``linearize_plain`` / ``linearize_split_plain``,
-``torch.func.jacfwd`` of the plain step vmapped over the points, on CPU
-tensors. The frozen step's solve carries the implicit tangent of a linear
-solve (ops/frozen_contact.py), as in the JAX package.
+``Model.action_to_tau`` here, which already stacks). ``linearize``,
+``linearize_split`` and ``linearize_vjp`` launch the CUDA kernels of
+``csrc/linearize.cu`` on CUDA tensors and run their plain versions,
+``torch.func.jacfwd`` (K3, K4) or ``torch.func.jacrev`` (K5) of the plain
+step vmapped over the points, on CPU tensors. The frozen step's solve
+carries the derivatives of a linear solve (ops/frozen_contact.py), as in
+the JAX package: forward mode and reverse mode agree only where its
+truncated PCG has converged.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 
 from nimblephysics_tpu_torch.models.model import Model, State
 from nimblephysics_tpu_torch.ops import _build, device_step
+from nimblephysics_tpu_torch.ops.collide import total_slots
 from nimblephysics_tpu_torch.ops.contact import lcp_dim
 from nimblephysics_tpu_torch.ops.frozen_contact import (
     FrozenClasses,
@@ -126,7 +131,7 @@ def linearize_split(model: Model, xs: torch.Tensor, u: torch.Tensor, classes,
     name = "linearize_split"
     cm, us = classes
     dev, dtype = _build.check_inputs(name, dict(xs=xs, u=u, cmask=cm, us=us),
-                                     contiguous=("xs", "u", "cmask"))
+                                     contiguous=("xs", "u", "cmask", "us"))
     if xs.dim() != 3 or u.dim() != 3:
         raise ValueError(f"{name}: xs and u must be (B, T, nx) and (B, T, na)")
     B, T, nx = xs.shape
@@ -141,21 +146,113 @@ def linearize_split(model: Model, xs: torch.Tensor, u: torch.Tensor, classes,
                          f"inputs are {dtype} on {dev}")
     if dev.type == "cpu":
         return linearize_split_plain(model, xs, u, classes, cg_iters)
-    device_step.check_contact_model(name, model)
+    device_step.check_frozen_model(name, model)
     n_cg = m + 6 if cg_iters is None else int(cg_iters)
     P, I = device_step.pack_model(model)
     fx = torch.empty((B, T, nx, nx), dtype=dtype, device=dev)
     fu = torch.empty((B, T, nx, na), dtype=dtype, device=dev)
     lib = _build.load()
-    # us enters the frozen solve only through gov, which is zero for the
-    # device's uncoupled rows: the kernel does not read it
     rc = lib.nptt_linearize_split(
         int(dtype == torch.float64), model.num_bodies, model.nq, na, m, B * T, n_cg,
         P.data_ptr(), I.data_ptr(), xs.data_ptr(), u.data_ptr(), cm.data_ptr(),
-        fx.data_ptr(), fu.data_ptr(), _build.stream_ptr(dev))
+        us.data_ptr(), fx.data_ptr(), fu.data_ptr(), _build.stream_ptr(dev))
     _build.check(rc, name)
     linearize_split.launches += 1
     return fx, fu
 
 
 linearize_split.launches = 0
+
+
+def linear_position_update(model: Model) -> bool:
+    """True when every joint integrates its positions linearly (q' = q +
+    dt v): every joint type but the exp-map ball and free retractions. K5
+    takes the q' rows of the Jacobian analytically under it."""
+    return all(t not in ("ball", "free") for t in model.joint_types)
+
+
+def _analytic_top(model: Model, B: int, T: int, dtype, device):
+    """The q' rows of (fx, fu) under a linear position update: [I, dt I]
+    and 0."""
+    nq, na = model.nq, model.num_actions
+    eye = torch.eye(nq, dtype=dtype, device=device)
+    top = torch.cat([eye, model.dt.to(dtype) * eye], dim=-1)
+    return (top.expand(B, T, nq, 2 * nq),
+            torch.zeros((B, T, nq, na), dtype=dtype, device=device))
+
+
+_VJP_CHUNK = 16384
+
+
+def linearize_vjp_plain(model: Model, xs: torch.Tensor, u: torch.Tensor, classes,
+                        cg_iters: Optional[int] = None):
+    """fx (B, T, nx, nx), fu (B, T, nx, na) of the frozen-class step: the
+    q' rows analytic, the v' rows by jacrev of the v' half of the plain
+    frozen step (reverse mode through the frozen solve's transposed linear
+    solve); classes = (cmask, us), each (B, T, m)."""
+    B, T, nx = xs.shape
+    na, nq = u.shape[-1], model.nq
+    cm, us = classes
+    m = cm.shape[-1]
+    dyn = dyn_frozen_for_trace(model, cg_iters)
+    jac = torch.func.vmap(torch.func.jacrev(
+        lambda x, uu, c, s: dyn(x, uu, c, s)[nq:], argnums=(0, 1)))
+    flat = (xs.reshape(B * T, nx), u.reshape(B * T, na), cm.reshape(B * T, m),
+            us.reshape(B * T, m))
+    # in chunks of points: the reverse pass over all B T points at once
+    # would hold its (points, nq, m, m) intermediates together
+    rows = [jac(*(a[i:i + _VJP_CHUNK] for a in flat)) for i in range(0, B * T, _VJP_CHUNK)]
+    fx_bot = torch.cat([r[0] for r in rows])
+    fu_bot = torch.cat([r[1] for r in rows])
+    fx_top, fu_top = _analytic_top(model, B, T, xs.dtype, xs.device)
+    return (torch.cat([fx_top, fx_bot.reshape(B, T, nq, nx)], dim=2),
+            torch.cat([fu_top, fu_bot.reshape(B, T, nq, na)], dim=2))
+
+
+def linearize_vjp(model: Model, xs: torch.Tensor, u: torch.Tensor, classes,
+                  cg_iters: Optional[int] = None):
+    """(fx, fu) of the frozen-class step at every point by row-VJPs of its
+    v' half (xs (B, T, nx) pre-step states, u (B, T, na), classes =
+    (cmask, us) each (B, T, m)); the model must pass
+    ``linear_position_update``. The CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    name = "linearize_vjp"
+    cm, us = classes
+    dev, dtype = _build.check_inputs(name, dict(xs=xs, u=u, cmask=cm, us=us),
+                                     contiguous=("xs", "u", "cmask", "us"))
+    if xs.dim() != 3 or u.dim() != 3:
+        raise ValueError(f"{name}: xs and u must be (B, T, nx) and (B, T, na)")
+    if not linear_position_update(model):
+        raise ValueError(f"{name}: the row-VJP linearize needs linear position updates")
+    B, T, nx = xs.shape
+    na = u.shape[-1]
+    m = lcp_dim(model)
+    _build.check_shape(name, "xs", xs, (B, T, 2 * model.nq))
+    _build.check_shape(name, "u", u, (B, T, model.num_actions))
+    _build.check_shape(name, "cmask", cm, (B, T, m))
+    _build.check_shape(name, "us", us, (B, T, m))
+    if model.device != dev or model.dtype != dtype:
+        raise ValueError(f"{name}: model is {model.dtype} on {model.device}, "
+                         f"inputs are {dtype} on {dev}")
+    if dev.type == "cpu":
+        return linearize_vjp_plain(model, xs, u, classes, cg_iters)
+    device_step.check_frozen_model(name, model)
+    n_cg = m + 6 if cg_iters is None else int(cg_iters)
+    P, I = device_step.pack_model(model)
+    fx = torch.empty((B, T, nx, nx), dtype=dtype, device=dev)
+    fu = torch.empty((B, T, nx, na), dtype=dtype, device=dev)
+    # per point: x_C, R (cm x_C) and the nq adjoint solutions (csrc/linearize.cu
+    # VjpScratch)
+    scratch = torch.empty((B * T, (2 + model.nq) * m), dtype=dtype, device=dev)
+    lib = _build.load()
+    rc = lib.nptt_linearize_vjp(
+        int(dtype == torch.float64), model.num_bodies, model.nq, na, m,
+        total_slots(model), B * T, n_cg, P.data_ptr(), I.data_ptr(),
+        xs.data_ptr(), u.data_ptr(), cm.data_ptr(), us.data_ptr(), scratch.data_ptr(),
+        fx.data_ptr(), fu.data_ptr(), _build.stream_ptr(dev))
+    _build.check(rc, name)
+    linearize_vjp.launches += 1
+    return fx, fu
+
+
+linearize_vjp.launches = 0

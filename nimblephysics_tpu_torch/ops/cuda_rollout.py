@@ -6,7 +6,8 @@ and ``rollout_classes_pallas``. ``rollout_gains`` and ``rollout_classes``
 launch the CUDA kernels of ``csrc/rollout.cu`` on CUDA tensors and run
 ``rollout_gains_plain`` / ``rollout_classes_plain``, loops over t with the
 same arithmetic, on CPU tensors. On the card the cost must be data: a
-``QuadraticCost`` and a ``QuadraticFinalCost`` (trajectory/costs.py).
+``QuadraticCost`` and a ``QuadraticFinalCost`` (trajectory/costs.py), their
+targets included.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from nimblephysics_tpu_torch.models.model import Model
 from nimblephysics_tpu_torch.ops import _build, device_step
+from nimblephysics_tpu_torch.ops.collide import total_slots
 from nimblephysics_tpu_torch.ops.contact import lcp_dim
 from nimblephysics_tpu_torch.ops.cuda_linearize import dyn_for_trace, dyn_frozen_for_trace
 from nimblephysics_tpu_torch.ops.frozen_contact import FrozenClasses, step_with_classes_for_trace
@@ -80,7 +82,7 @@ def rollout_gains(model: Model, running_cost: Callable, final_cost: Callable,
     if classes is not None:
         tensors.update(cmask=classes[0], us=classes[1])
     dev, dtype = _build.check_inputs(
-        name, tensors, contiguous=("x0", "xs_ref", "u_ref", "K", "k", "alphas", "cmask"))
+        name, tensors, contiguous=("x0", "xs_ref", "u_ref", "K", "k", "alphas", "cmask", "us"))
     if u_ref.dim() != 3 or alphas.dim() != 1:
         raise ValueError(f"{name}: u_ref must be (B, T, na) and alphas (A,)")
     B, T, na = u_ref.shape
@@ -102,29 +104,30 @@ def rollout_gains(model: Model, running_cost: Callable, final_cost: Callable,
         return rollout_gains_plain(model, running_cost, final_cost, x0, xs_ref,
                                    u_ref, K, k, alphas, classes, cg_iters)
     if classes is not None:
-        device_step.check_contact_model(name, model)
+        device_step.check_frozen_model(name, model)
     n_cg = m + 6 if cg_iters is None else int(cg_iters)
     if not (isinstance(running_cost, QuadraticCost)
             and isinstance(final_cost, QuadraticFinalCost)):
         raise TypeError(
             f"{name}: on the card the cost must be a QuadraticCost and a "
             "QuadraticFinalCost (ROADMAP queue B, K2: other costs on the card)")
-    w = torch.cat([running_cost.wq, running_cost.wv, running_cost.wu,
-                   final_cost.wx]).to(device=dev, dtype=dtype).contiguous()
-    if w.shape[0] != 2 * model.nq + na + nx:
+    w = torch.cat([running_cost.wq, running_cost.wv, running_cost.wu, final_cost.wx,
+                   running_cost.x_goal, final_cost.x_goal]).to(device=dev, dtype=dtype).contiguous()
+    if w.shape[0] != 2 * model.nq + na + 3 * nx:
         raise ValueError(f"{name}: cost weights do not match the model")
     P, I = device_step.pack_model(model)
     xs = torch.empty((A, B, T + 1, nx), dtype=dtype, device=dev)
     us = torch.empty((A, B, T, na), dtype=dtype, device=dev)
     costs = torch.empty((A, B), dtype=dtype, device=dev)
     lib = _build.load()
-    # the class masks (B, T, m); us enters the frozen solve only through
-    # gov, which is zero for the device's uncoupled rows
-    cm_ptr = classes[0].data_ptr() if classes is not None else 0
+    # the class masks (B, T, m)
+    cm_ptr, us_ptr = (0, 0) if classes is None else (classes[0].data_ptr(),
+                                                     classes[1].data_ptr())
+    ns = total_slots(model) if classes is not None else 0
     rc = lib.nptt_rollout(
-        int(dtype == torch.float64), model.num_bodies, model.nq, na, m, A, B, T, n_cg,
+        int(dtype == torch.float64), model.num_bodies, model.nq, na, m, ns, A, B, T, n_cg,
         P.data_ptr(), I.data_ptr(), w.data_ptr(), x0.data_ptr(), xs_ref.data_ptr(),
-        u_ref.data_ptr(), K.data_ptr(), k.data_ptr(), alphas.data_ptr(), cm_ptr,
+        u_ref.data_ptr(), K.data_ptr(), k.data_ptr(), alphas.data_ptr(), cm_ptr, us_ptr,
         xs.data_ptr(), us.data_ptr(), costs.data_ptr(), _build.stream_ptr(dev))
     _build.check(rc, name)
     rollout_gains.launches += 1

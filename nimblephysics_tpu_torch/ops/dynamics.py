@@ -1,5 +1,6 @@
 """Articulated-body dynamics: forward kinematics, velocity kinematics, ABA
-forward dynamics, CRBA mass matrix and RNEA inverse dynamics.
+forward dynamics, CRBA mass matrix, RNEA inverse dynamics and the world
+and point Jacobians of the contact rows.
 
 PyTorch counterpart of ``nimblephysics_tpu/ops/dynamics.py``. Topology is
 static Python data, so the loops over bodies unroll into straight-line
@@ -245,3 +246,49 @@ def mass_matrix(
     if not rows:
         return q.new_zeros(batch + (nq, nq))
     return torch.cat(rows, dim=-2)
+
+
+def world_jacobian(model: Model, kin: Kinematics) -> torch.Tensor:
+    """Stacked world-frame spatial Jacobians, (..., nb, 6, nq).
+
+    Column d (a dof of ancestor joint k) of body b's Jacobian is
+    Ad(T_wk) S_k[:, d]; the reference point of the spatial velocity is the
+    world origin, so a world point x moves at v + omega x x. Each body's
+    block is concatenated over the static dof layout, as in the
+    reference."""
+    nb = model.num_bodies
+    batch = kin.T_wb[0].p.shape[:-1]
+    cols_w = []
+    for i in range(nb):
+        Si = kin.S[i]                                          # (6, nd)
+        T = kin.T_wb[i]
+        T_col = Transform(T.R.unsqueeze(-3), T.p.unsqueeze(-2))
+        cols_w.append(lie.Ad_apply(T_col, Si.transpose(-1, -2).expand(
+            batch + Si.shape[::-1])).transpose(-1, -2))        # (..., 6, nd)
+    Js = []
+    for b in range(nb):
+        ancestors, k = set(), b
+        while k >= 0:
+            ancestors.add(k)
+            k = model.parents[k]
+        blocks = [cols_w[k] if k in ancestors
+                  else cols_w[k].new_zeros(cols_w[k].shape)
+                  for k in range(nb) if kin.S[k].shape[1] > 0]
+        Js.append(torch.cat(blocks, dim=-1) if blocks
+                  else kin.T_wb[0].p.new_zeros(batch + (6, model.nq)))
+    return torch.stack(Js, dim=-3)
+
+
+def point_jacobian(model: Model, kin: Kinematics, body_index: int,
+                   point_w: torch.Tensor) -> torch.Tensor:
+    """(..., 3, nq) Jacobian of the world-frame velocity of a world point
+    (..., 3) rigidly attached to a body."""
+    Jw = world_jacobian(model, kin)[..., body_index, :, :]
+    return _point_rows(Jw, point_w)
+
+
+def _point_rows(Jw: torch.Tensor, point_w: torch.Tensor) -> torch.Tensor:
+    """v + omega x p per column of a spatial Jacobian (..., 6, nq)."""
+    w_cols, v_cols = Jw[..., :3, :], Jw[..., 3:, :]
+    p = point_w.unsqueeze(-2).expand(w_cols.transpose(-1, -2).shape)
+    return v_cols + lie.cross(w_cols.transpose(-1, -2), p).transpose(-1, -2)

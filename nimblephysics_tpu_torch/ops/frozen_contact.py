@@ -10,8 +10,7 @@ collapses to one linear solve,
 a step that is smooth in (q, v, tau). The mode sequence comes from one
 full-LCP rollout per replan (``rollout_classes``, or its kernel form
 ``ops/cuda_rollout.rollout_classes``). States carry leading batch
-dimensions. ``planner_reduce_contacts`` needs collision shapes and is
-ROADMAP queue A, M4.
+dimensions. ``planner_reduce_contacts`` is ROADMAP queue A, M5.
 """
 
 from __future__ import annotations
@@ -84,12 +83,16 @@ def _pcg(Qf, reg, diagM, bb, n_cg: int):
 
 
 class _FrozenPCG(torch.autograd.Function):
-    """x = PCG(Qf^T Qf + reg I, bvec) with the implicit tangent of a linear
-    solve, as ``lax.custom_linear_solve`` gives it to the JAX package:
-    dx = PCG(dbvec - (dQf^T Qf x + Qf^T dQf x + dreg x)), run with the same
-    iteration count and the primal Jacobi preconditioner. Forward mode
-    through the CG iterations would give the derivative of the truncated
-    iteration instead, another number in f32 and at a small n_cg."""
+    """x = PCG(Qf^T Qf + reg I, bvec) with the derivatives of a linear
+    solve, as ``lax.custom_linear_solve(..., symmetric=True)`` gives them to
+    the JAX package. Forward mode: dx = PCG(dbvec - (dQf^T Qf x + Qf^T dQf x
+    + dreg x)), run with the same iteration count and the primal Jacobi
+    preconditioner. Reverse mode, its transpose: the same truncated PCG on
+    the cotangent, lam = PCG(xbar), then bvec_bar = lam and the closure
+    cotangent -(d(Qf^T Qf p + reg p)/d(Qf, reg) at p = x)^T lam; diagM is
+    the solver's, not the problem's, and gets none. Differentiating through
+    the CG iterations would give the derivative of the truncated iteration
+    instead, another number in f32 and at a small n_cg."""
 
     generate_vmap_rule = True
 
@@ -102,6 +105,7 @@ class _FrozenPCG(torch.autograd.Function):
         Qf, reg, diagM, _, n_cg = inputs
         ctx.n_cg = n_cg
         ctx.save_for_forward(Qf, reg, diagM, output)
+        ctx.save_for_backward(Qf, reg, diagM, output)
 
     @staticmethod
     def jvp(ctx, dQf, dreg, _ddiagM, dbvec, _dn):
@@ -118,9 +122,13 @@ class _FrozenPCG(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "reverse mode through the frozen solve is not ported yet (ROADMAP "
-            "queue A, M7: gradient oracles)")
+        Qf, reg, diagM, x = ctx.saved_tensors
+        lam = _pcg(Qf, reg, diagM, grad, ctx.n_cg)
+        Qx = (Qf @ x[..., None])[..., 0]
+        Ql = (Qf @ lam[..., None])[..., 0]
+        gQf = -(Qx[..., :, None] * lam[..., None, :] + Ql[..., :, None] * x[..., None, :])
+        greg = -(lam * x).sum(-1, keepdim=True)
+        return gQf, greg, None, lam, None
 
 
 def solve_frozen(A, b, classes: FrozenClasses, gov: torch.Tensor,
@@ -176,12 +184,14 @@ def frozen_contact_step(
 
 
 def classify_points(model: Model, xs_flat: torch.Tensor, taus: torch.Tensor,
-                    x_warm: Optional[torch.Tensor] = None):
+                    x_warm: Optional[torch.Tensor] = None, kernels: bool = True):
     """Pointwise mode classification: the full boxed LCP solved
-    independently at every trajectory point (any leading batch axes);
-    returns (FrozenClasses, impulses)."""
+    independently at every trajectory point (any leading batch axes), from
+    ``x_warm`` (zeros when None); returns (FrozenClasses, impulses). A
+    model with contact slots solves by PGS, on CUDA tensors through the
+    kernel K7 when ``kernels``."""
     _, info = contact_step(model, State.from_flat(xs_flat), taus, x_warm=x_warm,
-                           return_info=True)
+                           return_info=True, kernels=kernels)
     return classes_from_info(info), info.impulses
 
 

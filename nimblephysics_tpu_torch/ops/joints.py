@@ -2,7 +2,8 @@
 explicit position integration.
 
 PyTorch counterpart of ``nimblephysics_tpu/ops/joints.py`` for the joint
-types of this slice: ``weld``, ``revolute`` and ``prismatic``. ``q`` and
+types ported so far: ``weld``, ``revolute``, ``prismatic`` and
+``translational2d`` (a translation along two axes, the jump worm's root). ``q`` and
 ``v`` carry leading batch dimensions, ``axes`` (3, 3) and ``T_cj`` are the
 model's per-joint leaves.
 
@@ -17,13 +18,13 @@ import torch
 from nimblephysics_tpu_torch.ops import lie
 from nimblephysics_tpu_torch.ops.lie import Transform
 
-SUPPORTED = ("weld", "revolute", "prismatic")
+SUPPORTED = ("weld", "revolute", "prismatic", "translational2d")
 
 
 def _unsupported(jtype: str) -> NotImplementedError:
     return NotImplementedError(
         f"joint type {jtype!r} is not ported yet (ROADMAP queue A, M1: "
-        "ops/joints.py beyond weld/revolute/prismatic)"
+        "ops/joints.py beyond weld/revolute/prismatic/translational2d)"
     )
 
 
@@ -38,6 +39,8 @@ def joint_transform(jtype: str, q: torch.Tensor, axes: torch.Tensor) -> Transfor
         return Transform(lie.expm_so3(axes[0] * q[..., 0:1]), zero3)
     if jtype == "prismatic":
         return Transform(eye, axes[0] * q[..., 0:1])
+    if jtype == "translational2d":
+        return Transform(eye, axes[0] * q[..., 0:1] + axes[1] * q[..., 1:2])
     raise _unsupported(jtype)
 
 
@@ -50,6 +53,8 @@ def joint_subspace(jtype: str, q: torch.Tensor, axes: torch.Tensor) -> torch.Ten
         return torch.cat([axes[0], zero3])[:, None]
     if jtype == "prismatic":
         return torch.cat([zero3, axes[0]])[:, None]
+    if jtype == "translational2d":
+        return torch.stack([torch.cat([zero3, axes[0]]), torch.cat([zero3, axes[1]])], dim=1)
     raise _unsupported(jtype)
 
 

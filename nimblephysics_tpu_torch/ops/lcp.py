@@ -16,8 +16,10 @@ Ported: ``pgs_solve``, ``direct_boxed_solve`` (pseudoinverse rounds, PGS
 polish, exact polish), ``direct_boxed_solve_lane`` (the form the
 class-rollout kernel runs, ``csrc/step.cuh``), ``_classify`` /
 ``classify_lane``, ``lcp_residual`` and ``boxed_lcp`` forward with
-``method="direct"``. The implicit active-set derivative of ``boxed_lcp``
-and the ``gs``/``jacobi``/``staged`` methods are ROADMAP queue A, M4.
+``method="direct"`` and ``method="gs"`` (``pgs_solve``; the CUDA kernel K7,
+``ops/cuda_lcp.pgs_batched``, on CUDA tensors). The implicit active-set
+derivative of ``boxed_lcp`` (``_boxed_lcp_jvp``) and the
+``jacobi``/``staged`` methods are ROADMAP queue A, M4.
 """
 
 from __future__ import annotations
@@ -238,14 +240,14 @@ def lcp_residual(A, x, b, lo_const, hi_const, fscale, findex: Tuple[int, ...]):
     return torch.clamp(torch.amax(r + oob, dim=-1), min=0.0)
 
 
-class _DirectLCP(torch.autograd.Function):
-    """The direct solve as a function with no derivative: the implicit
-    active-set rule is not ported yet, and autograd through the rounds
-    would give the derivative of the iteration instead."""
+class _ForwardOnlyLCP(torch.autograd.Function):
+    """A boxed-LCP solve as a function with no derivative: the implicit
+    active-set rule is not ported yet, and autograd through the solver's
+    iterations would give the derivative of the iteration instead."""
 
     @staticmethod
-    def forward(A, b, lo, hi, rounds):
-        return direct_boxed_solve(A, b, lo, hi, rounds=rounds)
+    def forward(solve, *args):
+        return solve(*args)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -265,11 +267,24 @@ class _DirectLCP(torch.autograd.Function):
 
 
 def boxed_lcp(A, b, lo_const, hi_const, fscale, x0, findex: Tuple[int, ...],
-              iters: int = 60, method: str = "gs"):
-    """Solve the boxed LCP. Only ``method="direct"`` (no friction coupling)
-    is ported, forward only."""
-    if method != "direct":
-        raise NotImplementedError(
-            f"boxed_lcp(method={method!r}) is not ported yet (ROADMAP queue "
-            "A, M4: PGS/gs, jacobi and staged for frictional contact)")
-    return _DirectLCP.apply(A, b, lo_const, hi_const, min(iters, 4))
+              iters: int = 60, method: str = "gs", kernels: bool = True):
+    """Solve the boxed LCP, forward only: ``method="gs"`` runs ``iters``
+    projected Gauss-Seidel sweeps from x0 with friction coupling (on CUDA
+    tensors the kernel K7 when ``kernels``, else ``pgs_solve``);
+    ``"direct"`` the direct active-set solve (no friction coupling,
+    ``min(iters, 4)`` rounds)."""
+    if method == "direct":
+        return _ForwardOnlyLCP.apply(
+            lambda *a: direct_boxed_solve(*a[:4], rounds=a[4]), A, b, lo_const, hi_const,
+            min(iters, 4))
+    if method == "gs":
+        if kernels and b.is_cuda:
+            from nimblephysics_tpu_torch.ops.cuda_lcp import pgs_batched as solve
+        else:
+            solve = pgs_solve
+        return _ForwardOnlyLCP.apply(
+            lambda *a: solve(*a[:6], findex, iters=a[6]), A, b, lo_const, hi_const, fscale,
+            x0, iters)
+    raise NotImplementedError(
+        f"boxed_lcp(method={method!r}) is not ported yet (ROADMAP queue A, M4: jacobi "
+        "and staged)")

@@ -1,7 +1,8 @@
 """SO(3)/SE(3) helpers that the joints and the dynamics need.
 
 PyTorch counterpart of ``nimblephysics_tpu/ops/lie.py`` (``hat``,
-``expm_so3``, ``Transform`` and the ``Ad*`` helpers). Every function takes
+``expm_so3``, ``Transform`` and the ``Ad*`` helpers, ``Ad_apply`` among
+them). Every function takes
 leading batch dimensions and is free of data-dependent control flow, so it
 also runs under ``torch.func`` transforms.
 
@@ -134,6 +135,13 @@ def ad_dual(V: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
     w, v = V[..., :3], V[..., 3:]
     n, f = F[..., :3], F[..., 3:]
     return torch.cat([cross(w, n) + cross(v, f), cross(w, f)], dim=-1)
+
+
+def Ad_apply(T: Transform, V: torch.Tensor) -> torch.Tensor:
+    """Ad(T) @ V in vector form: (R w; p^ R w + R v)."""
+    w, v = V[..., :3], V[..., 3:]
+    Rw = T.rotate(w)
+    return torch.cat([Rw, cross(T.p, Rw) + T.rotate(v)], dim=-1)
 
 
 def Ad_inv_apply(T: Transform, V: torch.Tensor) -> torch.Tensor:

@@ -8,14 +8,17 @@ PyTorch counterpart of ``nimblephysics_tpu/trajectory/ilqr.py``:
     end-to-end reference, with no kernel.
   * ``ilqr_solve_batch``: B worlds at once, the same iteration as
     ``vmap(ilqr_solve)``, with kernels where the JAX package runs its
-    Pallas kernels: linearize (K3, or K4 on frozen classes), the Riccati
-    backward (K1) and the line-search rollout (K2), the last also for the
-    first open-loop rollout.
-  * ``solve_contact_mpc`` (one world, plain) and ``solve_contact_mpc_batch``
-    (``class_refresh="rollout"``): one full-LCP rollout records each step's
-    LCP classes (K6 in the batch), iLQR runs on the smooth frozen-class
-    dynamics, and the winning trajectory is classified again pointwise for
-    the next replan's warm start.
+    Pallas kernels: linearize (K3; on frozen classes K5 where the JAX
+    package's "auto" takes it, else K4), the Riccati backward (K1) and the
+    line-search rollout (K2), the last also for the first open-loop
+    rollout.
+  * ``solve_contact_mpc`` (one world, plain) and ``solve_contact_mpc_batch``:
+    the per-step LCP classes come from one full-LCP rollout
+    (``class_refresh="rollout"``, K6 in the batch) or from the pointwise
+    fixed point (``"pointwise"``: a frozen-class rollout on K2, then every
+    (world, step) point classified by its own LCP, K7 in the batch); iLQR
+    runs on the smooth frozen-class dynamics, and the winning trajectory is
+    classified again pointwise for the next replan's warm start.
 
 The cost derivatives (lx, lu, lxx, luu, lux, Vx_T, Vxx_T) come from
 ``torch.func`` outside any kernel. Forward-only, like the JAX solver's
@@ -36,10 +39,13 @@ from nimblephysics_tpu_torch.ops.contact import lcp_dim
 from nimblephysics_tpu_torch.ops.cuda_linearize import (
     dyn_for_trace,
     dyn_frozen_for_trace,
+    linear_position_update,
     linearize,
     linearize_plain,
     linearize_split,
     linearize_split_plain,
+    linearize_vjp,
+    linearize_vjp_plain,
 )
 from nimblephysics_tpu_torch.ops.cuda_riccati import riccati_backward, riccati_backward_plain
 from nimblephysics_tpu_torch.ops.cuda_rollout import (
@@ -65,11 +71,10 @@ class ILQRConfig:
     # backward pass: "sequential" only; "parallel" (the associative-scan
     # LQR of the JAX package) is not ported yet
     riccati: str = "sequential"
-    # linearize sweep of ilqr_solve_batch: "auto" and "split" take K3 on the
-    # contact-free step and K4 on frozen classes (the JAX package's "auto"
-    # also takes K4 for the models this port covers: nq < 4 or no linear
-    # position update would send it to K5); "jvp", "vjp", "chain" and "xla"
-    # are not ported yet
+    # linearize sweep of ilqr_solve_batch: K3 on the contact-free step; on
+    # frozen classes "split" takes K4, "vjp" K5, and "auto" K5 where every
+    # joint integrates linearly and nq >= 4, else K4 (the JAX package's
+    # rule); "jvp", "chain" and "xla" are not ported yet
     linearize: str = "auto"
     # PCG depth of the frozen-class solve in the planner (K2, K4); None is
     # m + 6
@@ -92,8 +97,8 @@ class ILQRSolution(NamedTuple):
     k: torch.Tensor             # (..., T, na) feedforward terms
 
 
-_UNPORTED_LINEARIZE = {"jvp": "queue B, K3 classes=", "vjp": "queue B, K5",
-                       "chain": "queue B, K8", "xla": "queue B"}
+_UNPORTED_LINEARIZE = {"jvp": "queue B, K3 classes=", "chain": "queue B, K8",
+                       "xla": "queue B"}
 
 
 def _check(model: Model, config: ILQRConfig, classes, dtype, device):
@@ -102,7 +107,7 @@ def _check(model: Model, config: ILQRConfig, classes, dtype, device):
     if config.riccati != "sequential":
         raise NotImplementedError(
             f"riccati={config.riccati!r} is not ported yet (ROADMAP queue A, M3)")
-    if config.linearize not in ("auto", "split"):
+    if config.linearize not in ("auto", "split", "vjp"):
         raise NotImplementedError(
             f"linearize={config.linearize!r} is not ported yet (ROADMAP "
             f"{_UNPORTED_LINEARIZE.get(config.linearize, 'queue B')})")
@@ -173,12 +178,14 @@ def ilqr_solve_batch(
     cl = _check(model, config, classes, dtype, device)
     nx = x0_flat.shape[-1]
     cg = config.planner_cg_iters
+    use_vjp = config.linearize == "vjp" or (
+        config.linearize == "auto" and linear_position_update(model) and model.nq >= 4)
     if config.kernels:
-        lin_free, lin_frozen, ric, roll_fn = (linearize, linearize_split, riccati_backward,
-                                              rollout_gains)
+        lin_free, ric, roll_fn = linearize, riccati_backward, rollout_gains
+        lin_frozen = linearize_vjp if use_vjp else linearize_split
     else:
-        lin_free, lin_frozen, ric, roll_fn = (linearize_plain, linearize_split_plain,
-                                              riccati_backward_plain, rollout_gains_plain)
+        lin_free, ric, roll_fn = linearize_plain, riccati_backward_plain, rollout_gains_plain
+        lin_frozen = linearize_vjp_plain if use_vjp else linearize_split_plain
 
     def lin(model, xs, u):
         if cl is None:
@@ -366,40 +373,67 @@ def solve_contact_mpc_batch(
     outer_iters: int = 2,
     classes=None,
     class_refresh: str = "rollout",
+    refresh_fixed_point: int = 2,
 ):
     """Batched contact-model MPC replans on the frozen-mode fast path:
     ``solve_contact_mpc`` over B worlds with ``ilqr_solve_batch`` doing the
-    inner iLQR. The mode sequence of each world comes from one full-LCP
-    rollout of its plan (``class_refresh="rollout"``: K6 when
-    ``fused_class_rollout_ok``); the returned classes are those of the
+    inner iLQR. Returns (ILQRSolution, FrozenClasses): the classes of the
     winning trajectory ``sol.x`` under ``sol.u``, classified pointwise, to
-    warm-start the next replan. Returns (ILQRSolution, FrozenClasses).
+    warm-start the next replan.
 
-    ``class_refresh="pointwise"`` (and with it the JAX package's
-    ``refresh_fixed_point`` argument) is not ported yet. On CUDA tensors
-    with ``config.kernels`` a model that fails ``fused_class_rollout_ok``
-    raises rather than taking the plain scan."""
-    if class_refresh == "pointwise":
-        raise NotImplementedError(
-            "class_refresh='pointwise' is not ported yet (ROADMAP queue A, M5)")
-    if class_refresh != "rollout":
+    The mode sequence of each world is derived from its plan, when
+    ``classes`` is None (a warm start passes the previous replan's classes,
+    which the first inner solve then takes as they are):
+
+      * ``class_refresh="rollout"``: one full-LCP rollout per world (K6 when
+        ``fused_class_rollout_ok``);
+      * ``"pointwise"``: the fixed-point refresh, ``refresh_fixed_point``
+        times from no clamping row: roll the plan out on the frozen-class
+        step (K2 with one alpha and zero gains), then classify every
+        (world, step) point by its own full LCP (``classify_points``, K7
+        for a model with contact slots).
+
+    On CUDA tensors with ``config.kernels`` a model that fails
+    ``fused_class_rollout_ok`` raises under "rollout" rather than taking
+    the plain scan."""
+    if class_refresh not in ("rollout", "pointwise"):
         raise ValueError(f"unknown class_refresh {class_refresh!r}")
     B, T, na = u_init.shape
     m = lcp_dim(model)
     x0_flat = x0_flat.contiguous()
 
-    def classes_of(u):
-        if m == 0:
-            z = u.new_zeros((B, T, 0))
-            return FrozenClasses(cmask=z, us=z)
+    def rollout_refresh(u):
         if frozen_contact.fused_class_rollout_ok(model):
             roll = rollout_classes if config.kernels else rollout_classes_plain
             return roll(model, x0_flat, u)[1]
         if config.kernels and x0_flat.is_cuda:
             raise NotImplementedError(
                 "the class-rollout kernel needs fused_class_rollout_ok(model) "
-                "(ROADMAP queue A, M4/M5: contact slots, loops, servos)")
+                "(ROADMAP queue A, M4/M5: contact slots, loops, servos); "
+                "class_refresh='pointwise' takes such models")
         return frozen_contact.rollout_classes(model, State.from_flat(x0_flat), u)[2]
+
+    def pointwise_refresh(u):
+        roll = rollout_gains if config.kernels else rollout_gains_plain
+        nx = x0_flat.shape[-1]
+        u = u.contiguous()
+        z = u.new_zeros((B, T, m))
+        cl = FrozenClasses(cmask=z, us=z)
+        for _ in range(refresh_fixed_point):
+            xss, _, _ = roll(model, running_cost, final_cost, x0_flat,
+                             u.new_zeros(B, T + 1, nx), u, u.new_zeros(B, T, na, nx),
+                             u.new_zeros(B, T, na), u.new_ones(1),
+                             classes=(cl.cmask, cl.us), cg_iters=config.planner_cg_iters)
+            cl, _ = frozen_contact.classify_points(model, xss[0][:, :-1],
+                                                   model.action_to_tau(u),
+                                                   kernels=config.kernels)
+        return cl
+
+    def classes_of(u):
+        if m == 0:
+            z = u.new_zeros((B, T, 0))
+            return FrozenClasses(cmask=z, us=z)
+        return pointwise_refresh(u) if class_refresh == "pointwise" else rollout_refresh(u)
 
     u, sol = u_init, None
     for _ in range(outer_iters):
@@ -410,6 +444,7 @@ def solve_contact_mpc_batch(
         u = sol.u
     if m > 0:
         cl_out, _ = frozen_contact.classify_points(model, sol.x[:, :-1],
-                                                   model.action_to_tau(sol.u))
+                                                   model.action_to_tau(sol.u),
+                                                   kernels=config.kernels)
         return sol, cl_out
     return sol, classes_of(u)

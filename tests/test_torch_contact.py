@@ -178,7 +178,7 @@ def test_boxed_lcp_direct_has_no_derivative_yet():
         x.sum().backward()
     with pytest.raises(NotImplementedError, match="M4"):
         tl.boxed_lcp(*[a.detach() for a in args], torch.zeros(N_SYS, 4), torch.zeros(N_SYS, 4),
-                     (-1,) * 4, 60, "gs")
+                     (-1,) * 4, 60, "jacobi")
 
 
 # ---------------------------------------------- the narrowed-limit cartpole

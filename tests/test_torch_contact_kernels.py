@@ -269,9 +269,9 @@ def test_solve_contact_mpc_one_world(case, mpc):
 def test_contact_options_not_ported_raise(case, mpc):
     run_t, fin_t = mpc["costs"]
     args = (case["mt"], t64(case["x0"]), torch.zeros(B, T, 1, dtype=torch.float64), run_t, fin_t)
-    with pytest.raises(NotImplementedError, match="M5"):
-        solve_contact_mpc_batch(*args, class_refresh="pointwise")
-    with pytest.raises(NotImplementedError, match="K5"):
-        solve_contact_mpc_batch(*args, ILQRConfig(linearize="vjp"))
+    with pytest.raises(ValueError, match="class_refresh"):
+        solve_contact_mpc_batch(*args, class_refresh="scan")
+    with pytest.raises(NotImplementedError, match="K3"):
+        solve_contact_mpc_batch(*args, ILQRConfig(linearize="jvp"))
     with pytest.raises(NotImplementedError, match="M4"):
         ilqr_solve_batch(*args)

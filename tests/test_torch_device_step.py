@@ -5,7 +5,10 @@ f64, and its operations by kind against ``device_step.step_op_kinds``, the
 count the kernels' least-work bounds use. Models: pendulum, the inverted
 double pendulum (a weld behind two revolutes) and cartpole, at points from
 numpy with a fixed seed. Also: the packed model follows in-place edits of
-the Model's leaves."""
+the Model's leaves. Then the constrained steps on the narrowed-limit
+cartpole (K2 with classes, K4, K6) and on the jump worm (a translational2d
+root, 8 box-corner contact slots with friction coupling: K2 with classes,
+K5, and K7's thread body)."""
 
 import functools
 import pathlib
@@ -258,7 +261,7 @@ void run(const double* P, const int* I, const double* w, const std::vector<doubl
   constexpr int NX = 2 * NQ, K = NX + NA, E = NX + NA + M;
   using nptt::C;
   using nptt::DC;
-  std::vector<double> xs(n * NX), us(n * NA), cms(n * M);
+  std::vector<double> xs(n * NX), us(n * NA), cms(n * M), zs(n * M, 0.0);
   for (int p = 0; p < n; ++p) {
     for (int i = 0; i < NX; ++i) xs[p * NX + i] = pts[p * E + i];
     for (int a = 0; a < NA; ++a) us[p * NA + a] = pts[p * E + NX + a];
@@ -269,24 +272,28 @@ void run(const double* P, const int* I, const double* w, const std::vector<doubl
     double cmo[M];
     for (int i = 0; i < NQ; ++i) { q[i] = C(xs[i]); v[i] = C(xs[NQ + i]); }
     for (int a = 0; a < NA; ++a) u[a] = C(us[a]);
-    nptt::frozen_step<double, C, NB, NQ, NA, M>(P, I, q, v, u, cms.data(), n_cg, qn, vn);
+    nptt::frozen_step<double, C, NB, NQ, NA, M, 0>(P, I, q, v, u, cms.data(), zs.data(), n_cg, qn,
+                                                  vn);
     print_ops();
     nptt::class_step<double, C, NB, NQ, NA, M>(P, I, q, v, u, qn, vn, cmo);
     print_ops();
     DC qd[NQ], vd[NQ], ud[NA], qnd[NQ], vnd[NQ];
     for (int i = 0; i < NQ; ++i) { qd[i] = DC(C(xs[i]), C(1.0)); vd[i] = DC(C(xs[NQ + i])); }
     for (int a = 0; a < NA; ++a) ud[a] = DC(C(us[a]));
-    nptt::frozen_step<double, DC, NB, NQ, NA, M>(P, I, qd, vd, ud, cms.data(), n_cg, qnd, vnd);
+    nptt::frozen_step<double, DC, NB, NQ, NA, M, 0>(P, I, qd, vd, ud, cms.data(), zs.data(), n_cg,
+                                                   qnd, vnd);
     print_ops();
   }
   std::vector<double> fx(n * NX * NX), fu(n * NX * NA);
   for (long long t = 0; t < (long long)n * K; ++t)
-    nptt::linearize_split_thread<double, NB, NQ, NA, M>(t, n_cg, P, I, xs.data(), us.data(),
-                                                         cms.data(), fx.data(), fu.data());
+    nptt::linearize_split_thread<double, NB, NQ, NA, M, 0>(t, n_cg, P, I, xs.data(), us.data(),
+                                                            cms.data(), zs.data(), fx.data(),
+                                                            fu.data());
   for (int p = 0; p < n; ++p) {
     double qo[NQ], vo[NQ], qc[NQ], vc[NQ], cmo[M];
-    nptt::frozen_step<double, double, NB, NQ, NA, M>(P, I, &xs[p * NX], &xs[p * NX + NQ],
-                                                     &us[p * NA], &cms[p * M], n_cg, qo, vo);
+    nptt::frozen_step<double, double, NB, NQ, NA, M, 0>(P, I, &xs[p * NX], &xs[p * NX + NQ],
+                                                        &us[p * NA], &cms[p * M], &zs[p * M], n_cg,
+                                                        qo, vo);
     nptt::class_step<double, double, NB, NQ, NA, M>(P, I, &xs[p * NX], &xs[p * NX + NQ],
                                                     &us[p * NA], qc, vc, cmo);
     for (int i = 0; i < NQ; ++i) printf("%.17g ", qo[i]);
@@ -303,9 +310,10 @@ void run(const double* P, const int* I, const double* w, const std::vector<doubl
       kf(n * NA, 0.0), xs2((n + 1) * NX), us2(n * NA);
   double alpha = 1.0, cost = 0.0;
   nptt::classes_thread<double, NB, NQ, NA, M>(0, 1, n, P, I, xs.data(), us.data(), out.data());
-  nptt::rollout_thread<double, NB, NQ, NA, M>(0, 1, n, n_cg, P, I, w, xs.data(), xs_ref.data(),
-                                               us.data(), Kg.data(), kf.data(), &alpha,
-                                               cms.data(), xs2.data(), us2.data(), &cost);
+  nptt::rollout_thread<double, NB, NQ, NA, M, 0>(0, 1, n, n_cg, P, I, w, xs.data(),
+                                                  xs_ref.data(), us.data(), Kg.data(), kf.data(),
+                                                  &alpha, cms.data(), zs.data(), xs2.data(),
+                                                  us2.data(), &cost);
   for (int t = 0; t < n; ++t) {
     for (int e = 0; e < NX + M; ++e) printf("%.17g ", out[t * (NX + M) + e]);
     for (int i = 0; i < NX; ++i) printf("%.17g ", xs2[(t + 1) * NX + i]);
@@ -317,13 +325,13 @@ void run(const double* P, const int* I, const double* w, const std::vector<doubl
 int main() {
   int nb, nq, na, m, n, nr, ni, n_cg;
   if (scanf("%d %d %d %d %d %d %d %d", &nb, &nq, &na, &m, &n, &nr, &ni, &n_cg) != 8) return 2;
-  std::vector<double> P(nr), w(4 * nq + na), pts(n * (2 * nq + na + m));
+  std::vector<double> P(nr), w(8 * nq + na), pts(n * (2 * nq + na + m));
   std::vector<int> I(ni);
   for (auto& x : P) if (scanf("%lf", &x) != 1) return 2;
   for (auto& x : I) if (scanf("%d", &x) != 1) return 2;
   for (auto& x : w) if (scanf("%lf", &x) != 1) return 2;
   for (auto& x : pts) if (scanf("%lf", &x) != 1) return 2;
-#define RUN(NB, NQ, NA, M) \
+#define RUN(NB, NQ, NA, M, NS) \
   if (nb == NB && nq == NQ && na == NA && m == M) { run<NB, NQ, NA, M>(P.data(), I.data(), w.data(), pts, n, n_cg); return 0; }
   NPTT_CONTACT_SHAPES(RUN)
   return 3;
@@ -380,7 +388,8 @@ def run_contact(exe, n_cg):
     model = limited_cartpole()
     x, u, cm = contact_points()
     P, I = device_step.pack_model(model)
-    w = np.concatenate([np.full(2, 0.1), np.zeros(2), np.full(1, 1e-3), np.full(4, 10.0)])
+    w = np.concatenate([np.full(2, 0.1), np.zeros(2), np.full(1, 1e-3), np.full(4, 10.0),
+                        np.zeros(8)])
     head = (model.num_bodies, model.nq, model.num_actions, 4, x.shape[0], P.numel(), I.numel(),
             n_cg)
     text = "\n".join([" ".join(str(v) for v in head),
@@ -504,3 +513,333 @@ def test_pack_model_appends_constraint_rows():
                 q_upper=torch.tensor([1.0], dtype=torch.float64), servo_dofs=(0,)))
     with pytest.raises(NotImplementedError, match="fused_class_rollout_ok"):
         device_step.check_contact_model("k", relax_limits(limited_cartpole()))
+
+
+# The jump worm's device code: the contact-free step, frozen_step with
+# contact rows and friction coupling (K2's step), K5's two thread bodies
+# (linearize_vjp_primal, then linearize_vjp_column over the directions),
+# K2's thread body with a target cost, all built for
+# the host. Reads "nb nq na m ns n nr ni n_cg", the packed reals and ints,
+# the cost weights and targets (8 nq + na), then n points (x, u, cmask,
+# us); writes the operation counts by kind of device_step, of frozen_step,
+# of K5's primal thread body and of its column thread bodies for one point
+# on the counting scalar; then per point
+# device_step's and frozen_step's (q', v') and K5's (fx, fu); then K2's
+# trajectory of n steps from the first point (the points' u and classes,
+# zero gains) and its cost.
+WORM_MAIN = CONTACT_MAIN[:CONTACT_MAIN.index("static void print_ops()")].replace(
+    '#include "rollout.cu"', '#include "rollout.cu"\n#include "lcp.cu"') + r"""
+static void print_ops() {
+  for (int k = 0; k < 8; ++k) printf("%lld ", nptt::g_ops[k]);
+  printf("\n");
+  for (int k = 0; k < 8; ++k) nptt::g_ops[k] = 0;
+}
+
+template <int NB, int NQ, int NA, int M, int NS>
+void run(const double* P, const int* I, const double* w, const std::vector<double>& pts, int n,
+         int n_cg) {
+  constexpr int NX = 2 * NQ, E = NX + NA + 2 * M;
+  using nptt::C;
+  std::vector<double> xs(n * NX), us(n * NA), cms(n * M), ucl(n * M);
+  for (int p = 0; p < n; ++p) {
+    for (int i = 0; i < NX; ++i) xs[p * NX + i] = pts[p * E + i];
+    for (int a = 0; a < NA; ++a) us[p * NA + a] = pts[p * E + NX + a];
+    for (int r = 0; r < M; ++r) cms[p * M + r] = pts[p * E + NX + NA + r];
+    for (int r = 0; r < M; ++r) ucl[p * M + r] = pts[p * E + NX + NA + M + r];
+  }
+  {
+    C q[NQ], v[NQ], u[NA], qn[NQ], vn[NQ];
+    for (int i = 0; i < NQ; ++i) { q[i] = C(xs[i]); v[i] = C(xs[NQ + i]); }
+    for (int a = 0; a < NA; ++a) u[a] = C(us[a]);
+    nptt::device_step<double, C, NB, NQ, NA>(P, I, q, v, u, qn, vn);
+    print_ops();
+    nptt::frozen_step<double, C, NB, NQ, NA, M, NS>(P, I, q, v, u, cms.data(), ucl.data(), n_cg,
+                                                    qn, vn);
+    print_ops();
+    constexpr int K = NX + NA, SK = nptt::VjpScratch<NQ, M>::kSize;
+    std::vector<C> fxc(NX * NX), fuc(NX * NA), scc(SK);
+    nptt::linearize_vjp_primal<double, C, NB, NQ, NA, M, NS>(0, n_cg, P, I, xs.data(), us.data(),
+                                                             cms.data(), ucl.data(), scc.data());
+    print_ops();
+    for (long long t = 0; t < K; ++t)
+      nptt::linearize_vjp_column<double, C, NB, NQ, NA, M, NS>(
+          t, P, I, xs.data(), us.data(), cms.data(), ucl.data(), scc.data(), fxc.data(),
+          fuc.data());
+    print_ops();
+  }
+  constexpr int K = NX + NA, SK = nptt::VjpScratch<NQ, M>::kSize;
+  std::vector<double> fx(n * NX * NX), fu(n * NX * NA), sc(n * SK);
+  for (long long p = 0; p < n; ++p)
+    nptt::linearize_vjp_primal<double, double, NB, NQ, NA, M, NS>(
+        p, n_cg, P, I, xs.data(), us.data(), cms.data(), ucl.data(), sc.data());
+  for (long long t = 0; t < (long long)n * K; ++t)
+    nptt::linearize_vjp_column<double, double, NB, NQ, NA, M, NS>(
+        t, P, I, xs.data(), us.data(), cms.data(), ucl.data(), sc.data(), fx.data(), fu.data());
+  for (int p = 0; p < n; ++p) {
+    double qo[NQ], vo[NQ], qf[NQ], vf[NQ];
+    nptt::device_step<double, double, NB, NQ, NA>(P, I, &xs[p * NX], &xs[p * NX + NQ],
+                                                  &us[p * NA], qo, vo);
+    nptt::frozen_step<double, double, NB, NQ, NA, M, NS>(P, I, &xs[p * NX], &xs[p * NX + NQ],
+                                                         &us[p * NA], &cms[p * M], &ucl[p * M],
+                                                         n_cg, qf, vf);
+    for (int i = 0; i < NQ; ++i) printf("%.17g ", qo[i]);
+    for (int i = 0; i < NQ; ++i) printf("%.17g ", vo[i]);
+    for (int i = 0; i < NQ; ++i) printf("%.17g ", qf[i]);
+    for (int i = 0; i < NQ; ++i) printf("%.17g ", vf[i]);
+    for (int i = 0; i < NX * NX; ++i) printf("%.17g ", fx[p * NX * NX + i]);
+    for (int i = 0; i < NX * NA; ++i) printf("%.17g ", fu[p * NX * NA + i]);
+    printf("\n");
+  }
+  std::vector<double> xs_ref((n + 1) * NX, 0.0), Kg(n * NA * NX, 0.0), kf(n * NA, 0.0),
+      xs2((n + 1) * NX), us2(n * NA);
+  double alpha = 1.0, cost = 0.0;
+  nptt::rollout_thread<double, NB, NQ, NA, M, NS>(0, 1, n, n_cg, P, I, w, xs.data(),
+                                                   xs_ref.data(), us.data(), Kg.data(),
+                                                   kf.data(), &alpha, cms.data(), ucl.data(),
+                                                   xs2.data(), us2.data(), &cost);
+  for (int t = 0; t < n; ++t) {
+    for (int i = 0; i < NX; ++i) printf("%.17g ", xs2[(t + 1) * NX + i]);
+    printf("\n");
+  }
+  printf("%.17g\n", cost);
+}
+
+// K7's thread body: after the worm's input, "m n iters", findex, then n
+// LCPs (A row-major, b, lo, hi, fscale, x0); writes each solution.
+template <int M>
+void run_pgs() {
+  int m, n, iters;
+  if (scanf("%d %d %d", &m, &n, &iters) != 3 || m != M) return;
+  std::vector<int> fi(M);
+  for (auto& f : fi) if (scanf("%d", &f) != 1) return;
+  std::vector<double> buf(M * M + 5 * M), out(M);
+  for (int k = 0; k < n; ++k) {
+    for (auto& x : buf) if (scanf("%lf", &x) != 1) return;
+    const double* b = buf.data() + M * M;
+    nptt::pgs_lcp<double, M>(buf.data(), 1, b, b + M, b + 2 * M, b + 3 * M, b + 4 * M,
+                             fi.data(), iters, out.data());
+    for (int i = 0; i < M; ++i) printf("%.17g ", out[i]);
+    printf("\n");
+  }
+}
+
+int main() {
+  int nb, nq, na, m, ns, n, nr, ni, n_cg;
+  if (scanf("%d %d %d %d %d %d %d %d %d", &nb, &nq, &na, &m, &ns, &n, &nr, &ni, &n_cg) != 9)
+    return 2;
+  std::vector<double> P(nr), w(8 * nq + na), pts(n * (2 * nq + na + 2 * m));
+  std::vector<int> I(ni);
+  for (auto& x : P) if (scanf("%lf", &x) != 1) return 2;
+  for (auto& x : I) if (scanf("%d", &x) != 1) return 2;
+  for (auto& x : w) if (scanf("%lf", &x) != 1) return 2;
+  for (auto& x : pts) if (scanf("%lf", &x) != 1) return 2;
+#define RUN(NB, NQ, NA, M, NS) \
+  if (nb == NB && nq == NQ && na == NA && m == M && ns == NS) { \
+    run<NB, NQ, NA, M, NS>(P.data(), I.data(), w.data(), pts, n, n_cg); run_pgs<M>(); return 0; }
+  NPTT_WORM_SHAPES(RUN)
+  return 3;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def worm_exe(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed: the device step cannot be built for the host")
+    d = tmp_path_factory.mktemp("worm_step")
+    (d / "worm_main.cpp").write_text(WORM_MAIN)
+    exe = d / "worm_main"
+    subprocess.run(["g++", "-std=c++17", "-O0", "-I", str(CSRC), str(d / "worm_main.cpp"),
+                    "-o", str(exe)], check=True, capture_output=True, timeout=300)
+    return exe
+
+
+def worm_points(sliding, n=6, seed=7):
+    """Worm states 3 mm into the floor, moving down, links near their lower
+    limits, strong pushes; with ``sliding`` the root also slides (x velocity
+    up to 1.5 m/s), so friction rows ride the cone (UPPER); the classes come
+    from the port's classify_points."""
+    from nimblephysics_tpu_torch.ops import frozen_contact as tf
+
+    model = builders.jump_worm(dtype=torch.float64, device="cpu")
+    rng = np.random.default_rng(seed)
+    q = 0.01 * rng.standard_normal((n, 4))
+    q[:, 1] += -0.528
+    q[:, 2:] = 0.5 * np.abs(q[:, 2:])
+    v = 0.05 * rng.standard_normal((n, 4))
+    v[:, 1] = -0.4
+    v[:, 0] = rng.uniform(-1.5, 1.5, n) if sliding else 0.0
+    x = np.concatenate([q, v], axis=1)
+    u = 20.0 * rng.standard_normal((n, 2))
+    cl, _ = tf.classify_points(model, torch.tensor(x), model.action_to_tau(torch.tensor(u)))
+    return model, x, u, cl.cmask.numpy(), cl.us.numpy()
+
+
+WORM_W = np.concatenate([[0.0, 2.0, 0.0, 0.0], np.zeros(4), np.full(2, 1e-5),
+                         [0.0, 20.0] + [0.0] * 6, [0.0, -0.4] + [0.0] * 6,
+                         [0.0, -0.4] + [0.0] * 6])
+
+
+@functools.lru_cache(maxsize=None)
+def run_worm(exe, n_cg, sliding):
+    """(model, x, u, cmask, us, operation counts of device_step, frozen_step
+    and K5's thread bodies for one point, one row per point, K2's trajectory and cost,
+    the PGS LCPs and K7's thread body's solutions)."""
+    from nimblephysics_tpu_torch.ops import contact as tc
+    from nimblephysics_tpu_torch.ops import dynamics as td
+    from nimblephysics_tpu_torch.ops.collide import detect_contacts
+
+    model, x, u, cm, us = worm_points(sliding)
+    P, I = device_step.pack_model(model)
+    m = tc.lcp_dim(model)
+    n = x.shape[0]
+    xt, ut = torch.tensor(x), torch.tensor(u)
+    q, v = xt[:, :4], xt[:, 4:]
+    kin = td.forward_kinematics(model, q)
+    v_star = v + model.dt * td.aba(model, q, v, model.action_to_tau(ut), kin=kin)
+    _, A, b, lo, hi, fs, _ = tc.build_constraint_system(model, q, v_star, kin,
+                                                        detect_contacts(model, kin.T_wb))
+    x0 = 0.01 * np.random.default_rng(2).standard_normal(b.shape)
+    lcps = np.concatenate([A.reshape(n, -1).numpy(), b.numpy(), lo.numpy(), hi.numpy(),
+                           fs.numpy(), x0], axis=1)
+    head = (model.num_bodies, model.nq, model.num_actions, m, 8, n, P.numel(), I.numel(), n_cg)
+    text = "\n".join([" ".join(str(v) for v in head),
+                      " ".join(repr(v) for v in P.tolist()),
+                      " ".join(str(v) for v in I.tolist()),
+                      " ".join(repr(float(v)) for v in WORM_W),
+                      " ".join(repr(float(v)) for v in
+                               np.concatenate([x, u, cm, us], axis=1).ravel()),
+                      f"{m} {n} 60", " ".join(str(f) for f in tc.lcp_findex(model)),
+                      " ".join(repr(float(v)) for v in lcps.ravel())])
+    out = subprocess.run([str(exe)], input=text, capture_output=True, text=True,
+                         check=True, timeout=120).stdout.splitlines()
+    counts = [dict(zip(KINDS, (int(c) for c in line.split()))) for line in out[:4]]
+    rows = np.array([[float(t) for t in line.split()] for line in out[4:4 + n]])
+    traj = np.array([[float(t) for t in line.split()] for line in out[4 + n:4 + 2 * n]])
+    cost = float(out[4 + 2 * n])
+    pgs = np.array([[float(t) for t in line.split()] for line in out[5 + 2 * n:5 + 3 * n]])
+    return (model, x, u, cm, us, counts, rows, traj, cost,
+            (A, b, lo, hi, fs, torch.tensor(x0)), pgs)
+
+
+# PCG depth: bench.py's 12 on points where the root does not slide, and 1
+# and 2 on sliding points. Where friction rows ride the cone, the coupled
+# normal equations are badly conditioned, and from a few PCG iterations on
+# any two summation orders differ there by up to ~1e-9 relative in f64:
+# the JAX package's own frozen step and the port's plain one do at 12
+# iterations (7 of 28 rows clamping), as do this host build and the plain
+# version; at 1 and 2 iterations all three agree to rounding.
+WORM_CASES = ((12, False), (1, True), (2, True))
+
+
+@pytest.mark.parametrize("n_cg,sliding", WORM_CASES)
+def test_worm_steps_match_plain(worm_exe, n_cg, sliding):
+    from nimblephysics_tpu_torch.ops.cuda_linearize import dyn_frozen_for_trace
+
+    model, x, u, cm, us, _, rows, _, _, _, _ = run_worm(worm_exe, n_cg, sliding)
+    xt, ut = torch.tensor(x), torch.tensor(u)
+    np.testing.assert_allclose(rows[:, :8], dyn_for_trace(model)(xt, ut).numpy(),
+                               rtol=1e-12, atol=1e-12)
+    frozen = dyn_frozen_for_trace(model, n_cg)(xt, ut, torch.tensor(cm), torch.tensor(us))
+    np.testing.assert_allclose(rows[:, 8:16], frozen.numpy(), rtol=1e-12, atol=1e-12)
+    assert cm[:, :24].any() and ((us != 0).any() == sliding)
+
+
+@pytest.mark.parametrize("n_cg,sliding", WORM_CASES)
+def test_linearize_vjp_thread_matches_jacrev(worm_exe, n_cg, sliding):
+    """K5's thread body against jacrev of the plain frozen step's v' half
+    (linearize_vjp_plain), the q' rows [I, dt I] and 0 exactly."""
+    from nimblephysics_tpu_torch.ops.cuda_linearize import linearize_vjp_plain
+
+    model, x, u, cm, us, _, rows, _, _, _, _ = run_worm(worm_exe, n_cg, sliding)
+    n = x.shape[0]
+    fx, fu = linearize_vjp_plain(model, torch.tensor(x)[:, None], torch.tensor(u)[:, None],
+                                 (torch.tensor(cm)[:, None], torch.tensor(us)[:, None]), n_cg)
+    np.testing.assert_allclose(rows[:, 16:80], fx.reshape(n, -1).numpy(), rtol=1e-11,
+                               atol=1e-11)
+    np.testing.assert_allclose(rows[:, 80:96], fu.reshape(n, -1).numpy(), rtol=1e-11,
+                               atol=1e-11)
+
+
+def test_worm_rollout_thread_matches_plain(worm_exe):
+    """K2's thread body on the worm with bench.py's target cost."""
+    from nimblephysics_tpu_torch.ops.cuda_rollout import rollout_gains_plain
+    from nimblephysics_tpu_torch.trajectory.costs import QuadraticCost, QuadraticFinalCost
+
+    model, x, u, cm, us, _, _, traj, cost, _, _ = run_worm(worm_exe, 2, True)
+    n = x.shape[0]
+    goal = torch.tensor(WORM_W[-8:])
+    rc = QuadraticCost(model, wq=torch.tensor(WORM_W[:4]), wu=1e-5, x_goal=goal)
+    fc = QuadraticFinalCost(model, wx=torch.tensor(WORM_W[10:18]), x_goal=goal)
+    xs2, _, c2 = rollout_gains_plain(
+        model, rc, fc, torch.tensor(x[:1]), torch.zeros(1, n + 1, 8, dtype=torch.float64),
+        torch.tensor(u)[None], torch.zeros(1, n, 2, 8, dtype=torch.float64),
+        torch.zeros(1, n, 2, dtype=torch.float64), torch.ones(1, dtype=torch.float64),
+        classes=(torch.tensor(cm)[None], torch.tensor(us)[None]), cg_iters=2)
+    np.testing.assert_allclose(traj, xs2[0, 0, 1:].numpy(), rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(cost, float(c2[0, 0]), rtol=1e-12)
+
+
+def test_pgs_thread_matches_plain(worm_exe):
+    """K7's thread body (pgs_lcp) against pgs_batched_plain on the worm's
+    friction-coupled LCPs from a warm start."""
+    from nimblephysics_tpu_torch.ops.contact import lcp_findex
+    from nimblephysics_tpu_torch.ops.cuda_lcp import pgs_batched_plain
+
+    model, *_, lcps, pgs = run_worm(worm_exe, 2, True)
+    want = pgs_batched_plain(*lcps, lcp_findex(model), 60)
+    np.testing.assert_allclose(pgs, want.numpy(), rtol=1e-12, atol=1e-14)
+    assert np.abs(pgs).max() > 1e-3
+
+
+@pytest.mark.parametrize("n_cg", (12, 2))
+def test_worm_op_counts_match_code(worm_exe, n_cg):
+    """The closed forms behind the worm kernels' bounds: device_step and
+    frozen_step kind by kind (two-dof joint, contact rows, friction
+    coupling), K5's primal thread body kind by kind and its column thread
+    bodies in total; K5's bound counts the primal once and nq sweeps, each
+    less than one of the kernel's columns."""
+    model, *_ = run_worm(worm_exe, n_cg, False)
+    counts = run_worm(worm_exe, n_cg, False)[5]
+    step = device_step.step_op_kinds(model)
+    assert counts[0] == {k: step.get(k, 0) for k in KINDS}
+    frozen = device_step.frozen_step_op_kinds(model, n_cg)
+    assert counts[1] == {k: frozen.get(k, 0) for k in KINDS}
+    primal, values, tangent, qx, m = device_step._vjp_parts(model, n_cg)
+    assert counts[2] == {k: primal.get(k, 0) for k in KINDS}
+    k_dirs = 2 * model.nq + model.num_actions
+    assert sum(counts[3].values()) == k_dirs * (values + tangent + model.nq * 4 * m)
+    assert sum(counts[2].values()) + sum(counts[3].values()) == \
+        device_step.vjp_point_ops(model, n_cg)
+    least = device_step.vjp_point_least_ops(model, n_cg)
+    assert least == sum(counts[2].values()) + qx + model.nq * (tangent + 4 * m)
+    assert qx < values and sum(counts[2].values()) < least < device_step.vjp_point_ops(model, n_cg)
+
+
+def test_pack_model_carries_the_worm_slots():
+    """The packed worm: a two-dof body with its second axis and subspace
+    column, the limit rows, then per slot its corner in the body frame, the
+    floor's normal and offset, the friction coefficient and its body; the
+    frozen kernels take it and the class-rollout kernel refuses it."""
+    from nimblephysics_tpu_torch.ops.collide import _box_corners
+
+    model = builders.jump_worm(dtype=torch.float64, device="cpu")
+    P, I = device_step.pack_model(model)
+    nb, nq, na = 3, 4, 2
+    k_size = nb * 78 + 3 * nq + 2 * na + 4
+    np.testing.assert_array_equal(P[69:72].numpy(), [0.0, 1.0, 0.0])        # axis 1
+    np.testing.assert_array_equal(P[72:78].numpy(), [0, 0, 0, 0, 1.0, 0])   # S column 1
+    np.testing.assert_array_equal(P[k_size:k_size + 4].numpy(), [0.0, 0.0, np.pi, np.pi])
+    slots = P[k_size + 4:].reshape(8, 8).numpy()
+    np.testing.assert_array_equal(slots[:, :3], _box_corners(model.shapes[0].params).numpy())
+    np.testing.assert_array_equal(slots[:, 3:], np.tile([0, 1.0, 0, -0.575, 1.0], (8, 1)))
+    assert I[-8:].tolist() == [0] * 8 and I[2 * nb:3 * nb].tolist() == [0, 2, 3]
+    assert device_step.check_frozen_model("k", model) == 28
+    with pytest.raises(NotImplementedError, match="fused_class_rollout_ok"):
+        device_step.check_contact_model("k", model)
+    sphere = model.replace(shapes=(model.shapes[0].__class__(
+        kind="sphere", body_index=0, offset=model.shapes[0].offset,
+        params=model.shapes[0].params, friction=model.shapes[0].friction,
+        restitution=model.shapes[0].restitution), model.shapes[1]))
+    with pytest.raises(NotImplementedError, match="M4"):
+        device_step.check_frozen_model("k", sphere)

@@ -86,7 +86,7 @@ def test_unported_options_raise(case):
     args = (case["mt"], t64(case["x0"]), t64(case["u0"]), run_t, fin_t)
     with pytest.raises(NotImplementedError, match="parallel"):
         ilqr_solve_batch(*args, ILQRConfig(riccati="parallel"))
-    for linearize, item in (("jvp", "K3"), ("vjp", "K5"), ("chain", "K8")):
+    for linearize, item in (("jvp", "K3"), ("xla", "queue B"), ("chain", "K8")):
         with pytest.raises(NotImplementedError, match=item):
             ilqr_solve_batch(*args, ILQRConfig(linearize=linearize))
     with pytest.raises(NotImplementedError, match="K2"):

@@ -22,10 +22,12 @@ def jax_leaves(model) -> dict:
 
 
 def jax_static(model) -> dict:
-    assert not model.shapes and not model.custom_specs and not model.loops
+    """The static topology, the collision shapes among it (JAX ShapeSpecs,
+    which model_from_numpy reads through numpy)."""
+    assert not model.custom_specs and not model.loops
     return dict(joint_types=model.joint_types, parents=model.parents,
                 joint_names=model.joint_names, body_names=model.body_names,
-                actuated=model.actuated, dof_names=model.dof_names)
+                actuated=model.actuated, dof_names=model.dof_names, shapes=model.shapes)
 
 
 def to_port(model, dtype=None):

@@ -19,13 +19,19 @@ and holding each one against its plain PyTorch version:
     jump_worm_contact_b2048 row, ``solve_contact_mpc_batch(class_refresh=
     "pointwise")`` (B=2048, H=100, 4 iterations, 4 alphas, PCG depth 12):
     kernels K7 (batched PGS inside the classification), K5 (row-VJP
-    linearize), K2 on frozen classes with contact rows and K1.
+    linearize), K2 on frozen classes with contact rows and K1; the same
+    replan with ``ILQRConfig(linearize="jvp")``, whose linearize is K3's
+    classes= form (K4's kernel at PCG depth m + 6), and with
+    ``linearize="chain"``, whose linearize is K8 (``ops/lane_chain.py``
+    ``chained_linearize_vjp``, K5's kernel); and K9 (``ops/lane_chain.py``
+    ``chained_step_rollout``, K2's kernel at one alpha with zero gains) at
+    the worm's full width.
 
 Phases:
 
   1. environment: torch, the card, its power limit (nvidia-smi);
-  2. build: one nvcc per source, all started together, and a link
-     (skipped when already built);
+  2. build: one nvcc call for every source (skipped when already built),
+     its time and ptxas's registers and spills;
   3. K1-K3 against their plain versions at B=512, T=100, in f64
      (rel 1e-9) and f32 (rel 2e-4), and the Riccati kernel's second
      instance, (nx, na) = (6, 3); then each kernel at the contact-free
@@ -80,7 +86,25 @@ Phases:
      JAX package refreshes only when classes is None), no world above its
      initial cost, the share of points with a clamping contact row (> 0),
      three timed warm replans and one profiled;
- 11. a JSON line with every kernel's numbers, then the result line.
+ 11. K3 with classes= (K4's kernel at PCG depth m + 6) against its plain
+     version (linearize_split_plain at m + 6) on the narrowed cartpole at
+     B=512 (f64 rel 1e-9, f32 rel 2e-4); the worm's K4 instance on the 256
+     sliding points at PCG depths 1 and 2 with no row excused; a model
+     without a kernel instance raises in each new wrapper; K3 with
+     classes= on the worm's inputs (phase 8's rules) in f64 at B=64 and
+     in f32 at B=2048, timed there; then the worm replan with
+     linearize="jvp" in f32 at B=2048, warm from phase 10's cold replan,
+     with launch counts (K3 4, K5 0), then three warm replans timed as in
+     phase 10;
+ 12. K8 on the 256 sliding points at PCG depths 1 and 2, no row excused;
+     K9 against its plain version in f64 at B=512 on the worm's inputs with
+     some controls 40 times larger (beyond the +-100 limits), phase 8's
+     rules; K9's own path, one call at B=2048 in f32 (launch count 1),
+     then K9 and K8 there in f32, timed; the worm replan with
+     linearize="chain": f64 at B=256 from cold, kernel path against phase
+     9's plain path (the plain path of "chain" runs the same functions)
+     under phase 9's rules (K8 4, K5 0), then f32 as "jvp" in phase 11;
+ 13. a JSON line with every kernel's numbers, then the result line.
 
 Exits non-zero without CUDA, and on any failure. Imports nothing of JAX.
 """
@@ -119,6 +143,12 @@ from nimblephysics_tpu_torch.ops.cuda_linearize import (
     linearize_vjp_plain,
 )
 from nimblephysics_tpu_torch.ops.frozen_contact import classify_points
+from nimblephysics_tpu_torch.ops.lane_chain import (
+    chained_linearize_vjp,
+    chained_linearize_vjp_plain,
+    chained_step_rollout,
+    chained_step_rollout_plain,
+)
 from nimblephysics_tpu_torch.ops.cuda_riccati import riccati_backward, riccati_backward_plain
 from nimblephysics_tpu_torch.ops.cuda_rollout import (
     rollout_classes,
@@ -172,6 +202,8 @@ WORM_LCP_ITERS = 60
 # sliding worm points whose friction rows ride the cone, and the PCG depths
 # at which K2 and K5 are held to their plain versions there with no excuse
 WORM_COUPLED_B, COUPLED_CG = 256, (1, 2)
+# K3 with classes= in f64 on the worm's own inputs (phase 11)
+WORM_B_SLICE = 64
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12, "float64": 34e12}  # non-tensor-core FP32 / FP64
 
@@ -192,7 +224,8 @@ PLAIN = {"riccati_backward": riccati_backward_plain, "linearize": linearize_plai
 WRAPPERS = {"riccati_backward": riccati_backward, "linearize": linearize,
             "rollout_gains": rollout_gains, "linearize_split": linearize_split,
             "rollout_classes": rollout_classes, "linearize_vjp": linearize_vjp,
-            "pgs_batched": pgs_batched}
+            "pgs_batched": pgs_batched, "chained_linearize_vjp": chained_linearize_vjp,
+            "chained_step_rollout": chained_step_rollout}
 _NONE = {name: 0 for name in WRAPPERS}
 EXPECTED_LAUNCHES = dict(_NONE, riccati_backward=ITERS, linearize=ITERS,
                          rollout_gains=ITERS + 1)
@@ -410,7 +443,7 @@ def solve(dev, dtype, use_kernels, x0_np, T):
 
 # kernels per wrapper launch where it is not 1: K5 runs its primal kernel,
 # then its column kernel
-KERNELS_PER_LAUNCH = {"linearize_vjp": 2}
+KERNELS_PER_LAUNCH = {"linearize_vjp": 2, "chained_linearize_vjp": 2}
 
 
 def kernel_launches():
@@ -723,11 +756,11 @@ def worm_x0(B):
     return np.concatenate([q, np.zeros_like(q)], axis=1)
 
 
-def worm_config(use_kernels=True):
+def worm_config(use_kernels=True, lin="auto"):
     """bench.py's contact budget: 4 iterations, 4 alphas, PCG depth 12,
-    linearize "auto" (K5 on the worm)."""
+    linearize "auto" (K5 on the worm) unless ``lin`` says otherwise."""
     return ILQRConfig(iters=WORM_ITERS, alphas=WORM_ALPHAS, planner_cg_iters=WORM_CG,
-                      kernels=use_kernels)
+                      kernels=use_kernels, linearize=lin)
 
 
 def worm_lcps(model, pre, u):
@@ -788,6 +821,31 @@ WORM_PLAIN = {"pgs_batched": pgs_batched_plain, "linearize_vjp": linearize_vjp_p
 WORM_COUNTER = {"pgs_batched": "pgs_batched", "linearize_vjp": "linearize_vjp",
                 "rollout_gains[worm]": "rollout_gains",
                 "riccati_backward[worm]": "riccati_backward"}
+
+
+def linearize_classes(model, xs, u, classes):
+    """K3's classes= form (K4 at the PCG depth m + 6)."""
+    return linearize(model, xs, u, classes=classes)
+
+
+def linearize_classes_plain(model, xs, u, classes):
+    return linearize_split_plain(model, xs, u, classes)
+
+
+# the kernels phases 11 and 12 add: K3 with classes, K8 and K9, each held as
+# the worm kernels are (compare_worm)
+SLICE_KERNELS = {"linearize[classes]": linearize_classes,
+                 "chained_linearize_vjp": chained_linearize_vjp,
+                 "chained_step_rollout": chained_step_rollout}
+SLICE_PLAIN = {"linearize[classes]": linearize_classes_plain,
+               "chained_linearize_vjp": chained_linearize_vjp_plain,
+               "chained_step_rollout": chained_step_rollout_plain}
+SLICE_COUNTER = {"linearize[classes]": "linearize",
+                 "chained_linearize_vjp": "chained_linearize_vjp",
+                 "chained_step_rollout": "chained_step_rollout"}
+# every kernel compare_worm holds to its plain version
+CHECKED = dict(WORM_KERNELS, **SLICE_KERNELS)
+CHECKED_PLAIN = dict(WORM_PLAIN, **SLICE_PLAIN)
 # per replan: warm classes skip the refresh (the JAX package's
 # solve_contact_mpc_batch refreshes only when classes is None), so K2 runs
 # the first rollout and one line search per iteration and K7 the final
@@ -796,6 +854,12 @@ WORM_COUNTER = {"pgs_batched": "pgs_batched", "linearize_vjp": "linearize_vjp",
 EXPECTED_WORM_WARM = dict(_NONE, riccati_backward=WORM_ITERS, rollout_gains=WORM_ITERS + 1,
                           linearize_vjp=WORM_ITERS, pgs_batched=1)
 EXPECTED_WORM_COLD = dict(EXPECTED_WORM_WARM, rollout_gains=WORM_ITERS + 3, pgs_batched=3)
+# linearize="jvp" takes K3's classes= form (K4 at depth m + 6), "chain" K8
+EXPECTED_JVP_WARM = dict(EXPECTED_WORM_WARM, linearize_vjp=0, linearize=WORM_ITERS)
+EXPECTED_CHAIN_COLD = dict(EXPECTED_WORM_COLD, linearize_vjp=0,
+                           chained_linearize_vjp=WORM_ITERS)
+EXPECTED_CHAIN_WARM = dict(EXPECTED_WORM_WARM, linearize_vjp=0,
+                           chained_linearize_vjp=WORM_ITERS)
 REPLACES.update({
     "pgs_batched": ("nimblephysics_tpu_torch/csrc/lcp.cu",
                     "nimblephysics_tpu/ops/pallas_lcp.py:96"),
@@ -805,6 +869,12 @@ REPLACES.update({
                             "nimblephysics_tpu/ops/pallas_rollout.py:371"),
     "riccati_backward[worm]": ("nimblephysics_tpu_torch/csrc/riccati.cu",
                                "nimblephysics_tpu/ops/pallas_riccati.py:329"),
+    "linearize[classes]": ("nimblephysics_tpu_torch/csrc/linearize.cu",
+                           "nimblephysics_tpu/ops/pallas_linearize.py:205"),
+    "chained_linearize_vjp": ("nimblephysics_tpu_torch/csrc/linearize.cu",
+                              "nimblephysics_tpu/ops/lane_chain.py:738"),
+    "chained_step_rollout": ("nimblephysics_tpu_torch/csrc/rollout.cu",
+                             "nimblephysics_tpu/ops/lane_chain.py:1023"),
 })
 
 
@@ -836,6 +906,26 @@ def worm_least_work(model, B, T, A, itemsize, n_lcp_iters=WORM_LCP_ITERS, cg=WOR
                                          + 4 * nx + 1)),
         "riccati_backward[worm]": (itemsize * (ric_in + n * (na * nx + na) + 2 * B) + B,
                                    n * riccati_step_ops(nx, na)),
+    }
+
+
+def slice_least_work(model, B, T, itemsize, cg=WORM_CG):
+    """(bytes, operations) of phases 11 and 12's kernels at the worm's
+    shapes, as worm_least_work. K3 with classes: K4's function at the PCG
+    depth m + 6 (contact_least_work). K8: K5's (its bound at PCG depth cg).
+    K9: x0, u and the classes read, xs and the cost written once; per
+    (world, t) one frozen step at depth cg and the running cost (the goal
+    subtracted, squared, weighted and summed over x and u)."""
+    nx, na, m = 2 * model.nq, model.num_actions, lcp_dim(model)
+    n = B * T
+    frozen, tangent = device_step.frozen_step_ops(model, m + 6)
+    frozen_cg, _ = device_step.frozen_step_ops(model, cg)
+    lin_bytes = itemsize * n * (nx + na + 2 * m + nx * nx + nx * na)
+    return {
+        "linearize[classes]": (lin_bytes, n * (frozen + (nx + na) * tangent)),
+        "chained_linearize_vjp": (lin_bytes, n * device_step.vjp_point_least_ops(model, cg)),
+        "chained_step_rollout": (itemsize * (B * nx + n * (na + 2 * m) + B * (T + 1) * nx + B),
+                                 n * (frozen_cg + 4 * nx + 3 * na)),
     }
 
 
@@ -898,9 +988,10 @@ def check_coupled_rows(dev):
                     raise AssertionError(f"{name} {dname} disagrees on the coupled rows")
 
 
-def worm_solve(dev, dtype, use_kernels, x0_np, classes=None, u0=None):
+def worm_solve(dev, dtype, use_kernels, x0_np, classes=None, u0=None, lin="auto"):
     """One solve_contact_mpc_batch(class_refresh="pointwise") on bench.py's
-    jump-worm task; returns (solution, returned classes, host seconds)."""
+    jump-worm task with ILQRConfig(linearize=lin); returns (solution,
+    returned classes, host seconds)."""
     model = worm_model(dev, dtype)
     rc, fc = worm_costs(model)
     x0 = torch.tensor(x0_np, dtype=dtype, device=dev)
@@ -908,7 +999,7 @@ def worm_solve(dev, dtype, use_kernels, x0_np, classes=None, u0=None):
         u0 = torch.zeros((x0.shape[0], H, 2), dtype=dtype, device=dev)
     sync()
     t0 = time.perf_counter()
-    sol, cl = solve_contact_mpc_batch(model, x0, u0, rc, fc, worm_config(use_kernels),
+    sol, cl = solve_contact_mpc_batch(model, x0, u0, rc, fc, worm_config(use_kernels, lin),
                                       outer_iters=1, classes=classes,
                                       class_refresh="pointwise")
     sync()
@@ -956,16 +1047,17 @@ def lcp_class_near(x, fs, findex):
     return near | (coupled & near_f)
 
 
-# The argument a rounding-level shift moves, per worm kernel: K7's b, K5's
-# states, K2's x0 (K1's inputs are no contact point's).
-WORM_SHIFTED = {"pgs_batched": 1, "linearize_vjp": 1, "rollout_gains[worm]": 3}
+# The argument a rounding-level shift moves, per worm kernel: K7's b, the
+# linearizes' states, K2's and K9's x0 (K1's inputs are no contact point's).
+WORM_SHIFTED = {"pgs_batched": 1, "linearize_vjp": 1, "rollout_gains[worm]": 3,
+                "linearize[classes]": 1, "chained_linearize_vjp": 1, "chained_step_rollout": 2}
 
 
 def _row_errors(name, outs, plains):
     """Per row (an LCP, a point or an (alpha, world) pair: the leading axes
     of K7's, K5's and K2's outputs), the max over the outputs of the max abs
     difference over that output's max |plain|."""
-    lead = 1 if name == "pgs_batched" else 2
+    lead = 1 if name in ("pgs_batched", "chained_step_rollout") else 2
     err = None
     for a, b in zip(outs, plains):
         scale = max(float(b.abs().max()), 1e-30)
@@ -993,7 +1085,7 @@ def worm_rows_within(name, args, kwargs, out_k, out_p, tol, label):
     for shift in (X0_SHIFT, -X0_SHIFT):
         a = list(args)
         a[i] = (a[i] + shift).contiguous()
-        o = WORM_PLAIN[name](*a, **kwargs)
+        o = CHECKED_PLAIN[name](*a, **kwargs)
         o = (o,) if isinstance(o, torch.Tensor) else o
         move = torch.maximum(move, _row_errors(name, o, out_p))
     excused = (~within & (move >= tol) & (move <= EXCUSE_MOVE_MAX)
@@ -1021,9 +1113,9 @@ def compare_worm(name, args, kwargs, label="", excuse=True):
     the rel err taken over the rows worm_rows_within does not excuse (none
     without ``excuse``); for K7 also the classes its impulses give (the
     count of differing rows is printed)."""
-    out_k = WORM_KERNELS[name](*args, **kwargs)
+    out_k = CHECKED[name](*args, **kwargs)
     sync()
-    out_p = WORM_PLAIN[name](*args, **kwargs)
+    out_p = CHECKED_PLAIN[name](*args, **kwargs)
     if isinstance(out_k, torch.Tensor):
         out_k, out_p = (out_k,), (out_p,)
     pairs = [(a, b) for a, b in zip(out_k, out_p) if a.dtype != torch.bool]
@@ -1054,6 +1146,206 @@ def compare_worm(name, args, kwargs, label="", excuse=True):
     return abs_err, rel_err
 
 
+def check_no_instance(dev):
+    """A model without a kernel instance raises on the card; no wrapper
+    falls back to its plain version: a pendulum with a joint limit."""
+    model = builders.pendulum(dtype=torch.float64, device=dev).replace(
+        q_lower=torch.tensor([-0.5], dtype=torch.float64, device=dev),
+        q_upper=torch.tensor([0.5], dtype=torch.float64, device=dev))
+    m = lcp_dim(model)
+    xs = torch.zeros((2, 3, 2), dtype=torch.float64, device=dev)
+    u = torch.zeros((2, 3, 1), dtype=torch.float64, device=dev)
+    cm = torch.ones((2, 3, m), dtype=torch.float64, device=dev)
+    calls = {"linearize[classes]": lambda: linearize(model, xs, u, classes=(cm, cm * 0)),
+             "chained_linearize_vjp": lambda: chained_linearize_vjp(model, xs, u, (cm, cm * 0)),
+             "chained_step_rollout": lambda: chained_step_rollout(
+                 model, lambda x, uu, t: (uu * uu).sum(-1), xs[:, 0].contiguous(), u,
+                 (cm, cm * 0))}
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            if "no kernel instance" not in str(e):
+                raise
+            log(f"  {name} on a {m}-row pendulum: raises ({e})")
+            continue
+        raise AssertionError(f"{name}: a model without a kernel instance did not raise")
+
+
+def slice_f64_replan(dev, lin, expected_cold, label, plain):
+    """The worm replan with ILQRConfig(linearize=lin) in f64 at
+    B=WORM_B_PATH from cold, the kernel path against ``plain`` = (x0,
+    solution) of the plain path (phase 9's where the plain path runs the
+    same functions), under phase 9's rules."""
+    x0_w, sol_p = plain
+    reset_counts()
+    sol_k, _, s_k = worm_solve(dev, torch.float64, True, x0_w, lin=lin)
+    check_counts(f"f64 worm {label} kernel path (cold)", expected_cold)
+    dc = float(((sol_k.cost - sol_p.cost).abs() / sol_p.cost.abs()).max())
+    log(f"  f64 {label}: kernel path {s_k:.3f} s; max rel cost diff {dc:.3e} against the plain "
+        f"path (tol {COST_RTOL_F64:.0e})")
+    u_agreement(f"f64 worm {label}", sol_k, sol_p,
+                lambda shift: worm_solve(dev, torch.float64, False, x0_w + shift, lin=lin)[0],
+                WORM_B_PATH, flat_end=True)
+    if not dc <= COST_RTOL_F64:
+        raise AssertionError(f"f64 worm {label}: kernel path and plain path disagree on the cost")
+    u0_w = torch.zeros((WORM_B_PATH, H, 2), dtype=torch.float64, device=dev)
+    check_solution(sol_k, worm_cost0(dev, torch.float64, x0_w, u0_w), f"f64 worm {label}")
+
+
+def slice_f32_replan(dev, lin, expected_warm, label, warm):
+    """The worm replan with ILQRConfig(linearize=lin) at full width in f32,
+    warm from ``warm`` = (u, classes) of phase 10's cold replan: launch
+    counts and no world above its initial cost on the first call, then
+    three warm calls timed as phase 10 times its own. Returns (the counts,
+    solves/s)."""
+    x0_wf = worm_x0(WORM_B)
+    cost0 = worm_cost0(dev, torch.float32, x0_wf, warm[0], warm[1])
+    reset_counts()
+    sol, cl, s1 = worm_solve(dev, torch.float32, True, x0_wf, classes=warm[1], u0=warm[0],
+                             lin=lin)
+    counts = check_counts(f"f32 worm {label}, warm", expected_warm)
+    check_solution(sol, cost0, f"f32 worm {label}, warm")
+    times, warm = [], (sol.u, cl)
+    for _ in range(3):
+        sol_t, cl_t, s = worm_solve(dev, torch.float32, True, x0_wf, classes=warm[1],
+                                    u0=warm[0], lin=lin)
+        times.append(s)
+        warm = (sol_t.u, cl_t)
+    rate = WORM_B / (sum(times) / len(times))
+    log(f"  f32 worm {label}: first warm {s1:.4f} s, warm {[round(t, 4) for t in times]} s "
+        f"-> {rate:.1f} solves/s, replan {1e3 * sum(times) / len(times):.2f} ms (B={WORM_B})")
+    return counts, rate
+
+
+def check_slice_kernel(name, args, kwargs, dname, label, excuse=True):
+    """compare_worm of a phase 11 or 12 kernel, which must pass TOL[dname];
+    returns the max abs err."""
+    abs_err, rel_err = compare_worm(name, args, kwargs, label, excuse=excuse)
+    ok = rel_err <= TOL[dname]
+    log(f"  {name:24s} {label}: max abs err {abs_err:.3e}, rel err {rel_err:.3e} (tol rel "
+        f"{TOL[dname]:.0e}{'' if excuse else ', no row excused'}) {'PASS' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} {label} disagrees with its plain version")
+    return abs_err
+
+
+def phase_11_12(dev, records, work, warm, plain, full_w):
+    """Phases 11 (K3 with classes=) and 12 (K8 and K9); adds their records
+    and least work, returns (launches per name on its path, solves/s of the
+    "jvp" and "chain" worm replans). ``warm``: (u, classes) of phase 10's
+    cold replan; ``plain``: (x0, solution) of phase 9's plain path;
+    ``full_w``: phase 8b's worm_kernel_inputs at B=WORM_B in f32."""
+    counts = {}
+    log(f"{elapsed()} phase 11: K3 with classes= (K4 at PCG depth m + 6) against its plain "
+        f"version: narrowed cartpole B={B_CHECK}, T={H}; the worm's sliding points")
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        model, pre, u, classes = contact_kernel_inputs(dev, B_CHECK, H, dtype)[
+            "linearize_split"][0]
+        out_k = linearize_classes(model, pre, u, classes)
+        sync()
+        abs_err, rel_err = rel_errors(out_k, linearize_classes_plain(model, pre, u, classes))
+        ok = rel_err <= TOL[dname]
+        log(f"  linearize[classes] cartpole {dname}: max abs err {abs_err:.3e}, rel err "
+            f"{rel_err:.3e} (tol rel {TOL[dname]:.0e}) {'PASS' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"linearize[classes] {dname} disagrees with its plain version")
+        # the worm's K4 instance at the cone points, PCG depths 1 and 2
+        model, x, uw, cm, us = worm_sliding_points(dev, dtype, WORM_COUPLED_B)
+        cl1 = (cm[:, None].contiguous(), us[:, None].contiguous())
+        x1, u1 = x[:, None].contiguous(), uw[:, None].contiguous()
+        for cg in COUPLED_CG:
+            out_k = linearize_split(model, x1, u1, cl1, cg)
+            sync()
+            abs_err, rel_err = rel_errors(out_k, linearize_split_plain(model, x1, u1, cl1, cg))
+            ok = rel_err <= TOL[dname]
+            log(f"  linearize_split[worm] {dname}, sliding points, PCG depth {cg}: max abs err "
+                f"{abs_err:.3e}, rel err {rel_err:.3e} (tol rel {TOL[dname]:.0e}, no row "
+                f"excused) {'PASS' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"linearize_split[worm] {dname} disagrees on the cone points")
+    check_no_instance(dev)
+    # K3 with classes= on the worm's own inputs at depth m + 6, f64
+    model, pre, u, classes, _ = worm_kernel_inputs(dev, WORM_B_SLICE, H, torch.float64)[
+        "linearize_vjp"][0]
+    check_slice_kernel("linearize[classes]", (model, pre, u, classes), {}, "float64",
+                       f"float64, B={WORM_B_SLICE}")
+    model, pre, u, classes, _ = full_w["linearize_vjp"][0]
+    args = (model, pre, u, classes)
+    abs_err = check_slice_kernel("linearize[classes]", args, {}, "float32",
+                                 f"float32, B={WORM_B}")
+    ms = time_ms(lambda: linearize_classes(*args), 3)
+    plain_ms = time_ms(lambda: linearize_classes_plain(*args), 1)
+    records["linearize[classes]"] = (abs_err, ms, plain_ms)
+    log(f"  linearize[classes] worm, f32, B={WORM_B}, T={H}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms")
+    counts_jvp, rate_jvp = slice_f32_replan(dev, "jvp", EXPECTED_JVP_WARM, 'linearize="jvp"',
+                                            warm)
+    counts["linearize[classes]"] = counts_jvp["linearize"]
+
+    log(f"{elapsed()} phase 12: K8 (chained_linearize_vjp) and K9 (chained_step_rollout) "
+        f"against their plain versions; the worm replan with linearize=\"chain\"")
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        model, x, uw, cm, us = worm_sliding_points(dev, dtype, WORM_COUPLED_B)
+        cl1 = (cm[:, None].contiguous(), us[:, None].contiguous())
+        x1, u1 = x[:, None].contiguous(), uw[:, None].contiguous()
+        for cg in COUPLED_CG:
+            check_slice_kernel("chained_linearize_vjp", (model, x1, u1, cl1),
+                               {"cg_iters": cg}, dname,
+                               f"{dname}, sliding points, PCG depth {cg}", excuse=False)
+    # K9 in f64 at the worm's kernel inputs, some controls beyond the limits
+    inputs = worm_kernel_inputs(dev, WORM_B_CHECK, H, torch.float64)
+    model, pre, u, classes, _ = inputs["linearize_vjp"][0]
+    x0 = pre[:, 0].contiguous()
+    u_far = u.clone()
+    u_far[:, ::7] *= 40.0
+    n_far = int((u_far.abs() > model.tau_upper[list(model.actuated)]).sum())
+    log(f"  K9 inputs: {n_far} of {u_far.numel()} controls beyond the torque limits")
+    if not n_far:
+        raise AssertionError("K9's check has no control beyond the limits")
+    rc, _ = worm_costs(model)
+    check_slice_kernel("chained_step_rollout", (model, rc, x0, u_far.contiguous(), classes),
+                       {"cg_iters": WORM_CG}, "float64", f"float64, B={WORM_B_CHECK}")
+    del inputs
+    # K9's own path: one call at full width, f32
+    model, pre, u, classes, _ = full_w["linearize_vjp"][0]
+    rc, _ = worm_costs(model)
+    args9 = (model, rc, pre[:, 0].contiguous(), u, classes)
+    kw9 = {"cg_iters": WORM_CG}
+    reset_counts()
+    xs9, cost9 = chained_step_rollout(*args9, **kw9)
+    sync()
+    c9 = check_counts("chained_step_rollout path", dict(_NONE, chained_step_rollout=1))
+    counts["chained_step_rollout"] = c9["chained_step_rollout"]
+    if not (bool(torch.isfinite(xs9).all()) and bool(torch.isfinite(cost9).all())):
+        raise AssertionError("chained_step_rollout: non-finite output at full width")
+    abs_err = check_slice_kernel("chained_step_rollout", args9, kw9, "float32",
+                                 f"float32, B={WORM_B}")
+    ms = time_ms(lambda: chained_step_rollout(*args9, **kw9), 3)
+    plain_ms = time_ms(lambda: chained_step_rollout_plain(*args9, **kw9), 1)
+    records["chained_step_rollout"] = (abs_err, ms, plain_ms)
+    log(f"  chained_step_rollout f32, B={WORM_B}, T={H}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms")
+    args8 = full_w["linearize_vjp"][0]
+    abs_err = check_slice_kernel("chained_linearize_vjp", args8[:4], {"cg_iters": WORM_CG},
+                                 "float32", f"float32, B={WORM_B}")
+    ms = time_ms(lambda: chained_linearize_vjp(*args8[:4], cg_iters=WORM_CG), 3)
+    plain_ms = time_ms(lambda: chained_linearize_vjp_plain(*args8[:4], WORM_CG), 1)
+    records["chained_linearize_vjp"] = (abs_err, ms, plain_ms)
+    log(f"  chained_linearize_vjp f32, B={WORM_B}, T={H}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms")
+    # the plain path of "chain" runs chained_linearize_vjp_plain, which is
+    # linearize_vjp_plain: phase 9's plain path, the same functions
+    slice_f64_replan(dev, "chain", EXPECTED_CHAIN_COLD, 'linearize="chain"', plain)
+    counts_chain, rate_chain = slice_f32_replan(dev, "chain", EXPECTED_CHAIN_WARM,
+                                                'linearize="chain"', warm)
+    counts["chained_linearize_vjp"] = counts_chain["chained_linearize_vjp"]
+    work.update(slice_least_work(worm_model(dev, torch.float32), WORM_B, H, 4))
+    return counts, {"jvp": rate_jvp, "chain": rate_chain}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr, flush=True)
@@ -1073,7 +1365,7 @@ def main() -> int:
     log(f"{elapsed()} phase 2: build")
     path, nvcc_s = _build.build()
     _build.load()
-    log(f"build: one nvcc per source in parallel and a link, {nvcc_s:.1f} s "
+    log(f"build: one nvcc call, {nvcc_s:.1f} s "
         f"({'built now' if nvcc_s else 'already built'}) -> {path}")
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -1263,7 +1555,6 @@ def main() -> int:
         log(f"  {name:24s} max abs err {abs_err:.3e} (rel {rel_err:.3e}); "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     work.update(worm_least_work(full_w["linearize_vjp"][0][0], WORM_B, H, len(WORM_ALPHAS), 4))
-    del full_w
 
     log(f"{elapsed()} phase 9: the worm replan in f64, kernel path against plain path, "
         f"B={WORM_B_PATH}, H={H}, pointwise refresh from cold")
@@ -1272,6 +1563,7 @@ def main() -> int:
     sol_k, cl_k, s_k = worm_solve(dev, torch.float64, True, x0_w)
     check_counts("f64 worm kernel path (cold)", EXPECTED_WORM_COLD)
     sol_p, cl_p, s_p = worm_solve(dev, torch.float64, False, x0_w)
+    sol_p_w = sol_p
     dc = float(((sol_k.cost - sol_p.cost).abs() / sol_p.cost.abs()).max())
     log(f"  f64: kernel path {s_k:.3f} s, plain path {s_p:.3f} s; max rel cost diff {dc:.3e} "
         f"(tol {COST_RTOL_F64:.0e}); returned classes differ at "
@@ -1323,8 +1615,12 @@ def main() -> int:
         model_w, x0_wt, warm[0], rc_w, fc_w, worm_config(), outer_iters=1, classes=warm[1],
         class_refresh="pointwise"))
 
+    slice_counts, slice_rates = phase_11_12(dev, records, work, (sol_w.u, cl_w),
+                                            (x0_w, sol_p_w), full_w)
+    del full_w
+
     out = []
-    for name in list(KERNELS) + list(CONTACT_KERNELS) + list(WORM_KERNELS):
+    for name in list(KERNELS) + list(CONTACT_KERNELS) + list(WORM_KERNELS) + list(SLICE_KERNELS):
         b, ops = work[name]
         t_bytes = b / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS["float32"] * 1e3
@@ -1333,8 +1629,10 @@ def main() -> int:
             launches = counts[name]
         elif name in CONTACT_KERNELS:
             launches = counts_c[CONTACT_COUNTER[name]]
-        else:
+        elif name in WORM_KERNELS:
             launches = counts_w[WORM_COUNTER[name]]
+        else:
+            launches = slice_counts[name]
         out.append({
             "name": name, "route": "cuda", "source": REPLACES[name][0],
             "replaces": REPLACES[name][1], "launches": launches,
@@ -1347,8 +1645,9 @@ def main() -> int:
             f"({t_ops:.5f} ms)")
     log(f"{elapsed()} done: contact-free {rate:.1f} solves/s (B={B_FULL}); contact "
         f"{contact_rates[False]:.1f} (stock limits) and {contact_rates[True]:.1f} (narrowed) "
-        f"solves/s (B={B_CONTACT}); worm {worm_rate:.1f} solves/s (B={WORM_B}); build "
-        f"{nvcc_s:.1f} s")
+        f"solves/s (B={B_CONTACT}); worm {worm_rate:.1f} solves/s (B={WORM_B}), with "
+        f"linearize=\"jvp\" {slice_rates['jvp']:.1f}, with \"chain\" "
+        f"{slice_rates['chain']:.1f}; build {nvcc_s:.1f} s")
     log(smi)
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -65,26 +65,27 @@ template <typename T, int NB, int NQ, int NA>
 NPTT_HD void linearize_thread(long long tid, const T* __restrict__ P, const int* __restrict__ I,
                               const T* __restrict__ xs, const T* __restrict__ u,
                               T* __restrict__ fx, T* __restrict__ fu) {
+  using L = StepLayout<NB, NQ, NA>;
   constexpr int NX = 2 * NQ, K = NX + NA;
   const long long n = tid / K;
   const int k = (int)(tid % K);
   Dual<T> q[NQ], v[NQ], ua[NA], qn[NQ], vn[NQ];
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
   for (int i = 0; i < NQ; ++i) {
     q[i] = Dual<T>(xs[n * NX + i], T(k == i ? 1 : 0));
     v[i] = Dual<T>(xs[n * NX + NQ + i], T(k == NQ + i ? 1 : 0));
   }
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NA))
   for (int a = 0; a < NA; ++a) ua[a] = Dual<T>(u[n * NA + a], T(k == NX + a ? 1 : 0));
   device_step<T, Dual<T>, NB, NQ, NA>(P, I, q, v, ua, qn, vn);
   if (k < NX) {
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
     for (int i = 0; i < NQ; ++i) {
       fx[(n * NX + i) * NX + k] = qn[i].d;
       fx[(n * NX + NQ + i) * NX + k] = vn[i].d;
     }
   } else {
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
     for (int i = 0; i < NQ; ++i) {
       fu[(n * NX + i) * NA + (k - NX)] = qn[i].d;
       fu[(n * NX + NQ + i) * NA + (k - NX)] = vn[i].d;
@@ -98,27 +99,28 @@ NPTT_HD void linearize_split_thread(long long tid, int n_cg, const T* __restrict
                                     const T* __restrict__ u, const T* __restrict__ cm,
                                     const T* __restrict__ ucl, T* __restrict__ fx,
                                     T* __restrict__ fu) {
+  using L = StepLayout<NB, NQ, NA>;
   constexpr int NX = 2 * NQ, K = NX + NA;
   const long long n = tid / K;
   const int k = (int)(tid % K);
   Dual<T> q[NQ], v[NQ], ua[NA], qn[NQ], vn[NQ];
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
   for (int i = 0; i < NQ; ++i) {
     q[i] = Dual<T>(xs[n * NX + i], T(k == i ? 1 : 0));
     v[i] = Dual<T>(xs[n * NX + NQ + i], T(k == NQ + i ? 1 : 0));
   }
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NA))
   for (int a = 0; a < NA; ++a) ua[a] = Dual<T>(u[n * NA + a], T(k == NX + a ? 1 : 0));
   frozen_step<T, Dual<T>, NB, NQ, NA, M, NS>(P, I, q, v, ua, cm + n * M, ucl + n * M, n_cg, qn,
                                               vn);
   if (k < NX) {
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
     for (int i = 0; i < NQ; ++i) {
       fx[(n * NX + i) * NX + k] = qn[i].d;
       fx[(n * NX + NQ + i) * NX + k] = vn[i].d;
     }
   } else {
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
     for (int i = 0; i < NQ; ++i) {
       fu[(n * NX + i) * NA + (k - NX)] = qn[i].d;
       fu[(n * NX + NQ + i) * NA + (k - NX)] = vn[i].d;
@@ -141,6 +143,7 @@ NPTT_HD void linearize_vjp_primal(long long n, int n_cg, const T* __restrict__ P
                                   const int* __restrict__ I, const T* __restrict__ xs,
                                   const T* __restrict__ u, const T* __restrict__ cm_all,
                                   const T* __restrict__ us_all, R* __restrict__ scratch) {
+  using L = StepLayout<NB, NQ, NA>;
   using SC = VjpScratch<NQ, M>;
   constexpr int NX = 2 * NQ;
   const T* cm = cm_all + n * M;
@@ -148,30 +151,31 @@ NPTT_HD void linearize_vjp_primal(long long n, int n_cg, const T* __restrict__ P
   R* sc = scratch + n * SC::kSize;
   R x[NX], ua[NA], qn[NQ], vs[NQ], A[M][M], b[M], MJ[NQ][M], Qf[M][M], reg, diagM[M], bvec[M],
       xc[M], xr[M];
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NX))
   for (int i = 0; i < NX; ++i) x[i] = R(xs[n * NX + i]);
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NA))
   for (int a = 0; a < NA; ++a) ua[a] = R(u[n * NA + a]);
   frozen_inputs<T, R, NB, NQ, NA, M, NS>(P, I, x, x + NQ, ua, qn, vs, A, b, MJ);
   frozen_normal_eqs<T, R, M, NS>(A, b, cm, us, Qf, reg, diagM, bvec);
   pcg<T>(Qf, reg, diagM, bvec, n_cg, xc);
   frozen_impulses<T, R, M, NS>(cm, us, xc, xr);
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int i = 0; i < M; ++i) {
     sc[SC::kXc + i] = xc[i];
     sc[SC::kXr + i] = xr[i];
   }
+#pragma unroll (row_unroll(M, NQ))
   for (int k = 0; k < NQ; ++k) {
     // cm * R^T MJ^T e_k: R^T y = cm * (y + the coupled rows' us y)
     R xbar[M], lam[M];
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
     for (int j = 0; j < M; ++j) {
       R y = MJ[k][j];
       if (j < 3 * NS && j % 3 == 0) y = (y + us[j + 1] * MJ[k][j + 1]) + us[j + 2] * MJ[k][j + 2];
       xbar[j] = cm[j] * (cm[j] * y);
     }
     pcg<T>(Qf, reg, diagM, xbar, n_cg, lam);
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
     for (int j = 0; j < M; ++j) sc[SC::kLam + k * M + j] = lam[j];
   }
 }
@@ -187,6 +191,7 @@ NPTT_HD void linearize_vjp_column(long long tid, const T* __restrict__ P,
                                   const T* __restrict__ u, const T* __restrict__ cm_all,
                                   const T* __restrict__ us_all, const R* __restrict__ scratch,
                                   R* __restrict__ fx, R* __restrict__ fu) {
+  using L = StepLayout<NB, NQ, NA>;
   using SC = VjpScratch<NQ, M>;
   constexpr int NX = 2 * NQ, K = NX + NA;
   const long long n = tid / K;
@@ -197,24 +202,24 @@ NPTT_HD void linearize_vjp_column(long long tid, const T* __restrict__ P,
   Dual<R> q[NQ], v[NQ], uu[NA], qn[NQ], vs[NQ], A[M][M], b[M], MJ[NQ][M], Qf[M][M], reg,
       bvec[M];
   R Qv[M][M], diagM[M], xc[M], rt[M];
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
   for (int i = 0; i < NQ; ++i) {
     q[i] = Dual<R>(R(xs[n * NX + i]), R(T(d == i ? 1 : 0)));
     v[i] = Dual<R>(R(xs[n * NX + NQ + i]), R(T(d == NQ + i ? 1 : 0)));
   }
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NA))
   for (int a = 0; a < NA; ++a) uu[a] = Dual<R>(R(u[n * NA + a]), R(T(d == NX + a ? 1 : 0)));
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int i = 0; i < M; ++i) xc[i] = sc[SC::kXc + i];
   frozen_inputs<T, Dual<R>, NB, NQ, NA, M, NS>(P, I, q, v, uu, qn, vs, A, b, MJ);
   frozen_normal_eqs_dual<T, R, M, NS>(A, b, cm, us, Qf, Qv, reg, diagM, bvec);
   frozen_tangent_rhs<R, M>(Qf, reg, bvec, xc, rt);
-#pragma unroll
+#pragma unroll (row_unroll(M, NQ))
   for (int k = 0; k < NQ; ++k) {
     R g = vs[k].d;
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
     for (int i = 0; i < M; ++i) g = g + MJ[k][i].d * sc[SC::kXr + i];
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
     for (int j = 0; j < M; ++j) g = g + sc[SC::kLam + k * M + j] * rt[j];
     if (d < NX)
       fx[(n * NX + NQ + k) * NX + d] = g;
@@ -223,12 +228,12 @@ NPTT_HD void linearize_vjp_column(long long tid, const T* __restrict__ P,
   }
   if (d == 0) {
     const T dt = P[StepLayout<NB, NQ, NA>::kDt];
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
     for (int i = 0; i < NQ; ++i) {
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NX))
       for (int j = 0; j < NX; ++j)
         fx[(n * NX + i) * NX + j] = R(j == i ? T(1) : (j == NQ + i ? dt : T(0)));
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NA))
       for (int a = 0; a < NA; ++a) fu[(n * NX + i) * NA + a] = R(T(0));
     }
   }
@@ -357,6 +362,7 @@ extern "C" int nptt_linearize_split(int is_double, int nb, int nq, int na, int m
                      : nptt::launch_linearize_split<float, NB, NQ, NA, M, NS>(                  \
                            n_points, n_cg, P, I, xs, u, cm, ucl, fx, fu, s);
   NPTT_CONTACT_SHAPES(NPTT_SPLIT_CASE)
+  NPTT_WORM_SHAPES(NPTT_SPLIT_CASE)
 #undef NPTT_SPLIT_CASE
   return -1;
 }

@@ -57,7 +57,7 @@ NPTT_HD void rollout_thread(long long l, long long B, int Tn, int n_cg, const T*
   const T* gr = wf + NX;
   const T* gf = gr + NX;
   T x[NX];
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NX))
   for (int i = 0; i < NX; ++i) {
     x[i] = x0[b * NX + i];
     xs[l * (Tn + 1) * NX + i] = x[i];
@@ -66,12 +66,12 @@ NPTT_HD void rollout_thread(long long l, long long B, int Tn, int n_cg, const T*
   for (int t = 0; t < Tn; ++t) {
     const long long bt = b * Tn + t;
     T dx[NX], u[NA];
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NX))
     for (int i = 0; i < NX; ++i) dx[i] = x[i] - xs_ref[(b * (Tn + 1) + t) * NX + i];
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NA))
     for (int j = 0; j < NA; ++j) {
       T Kdx = T(0);
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NX))
       for (int i = 0; i < NX; ++i) Kdx = Kdx + K[(bt * NA + j) * NX + i] * dx[i];
       T uj = u_ref[bt * NA + j] + (alpha * k[bt * NA + j] + Kdx);
       const T lo = P[L::kAct + 2 * j], hi = P[L::kAct + 2 * j + 1];
@@ -80,13 +80,13 @@ NPTT_HD void rollout_thread(long long l, long long B, int Tn, int n_cg, const T*
       us[(l * Tn + t) * NA + j] = uj;
     }
     T cq = T(0), cv = T(0), cu = T(0);
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
     for (int i = 0; i < NQ; ++i) {
       const T dq = x[i] - gr[i], dv = x[NQ + i] - gr[NQ + i];
       cq = cq + wq[i] * (dq * dq);
       cv = cv + wv[i] * (dv * dv);
     }
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NA))
     for (int j = 0; j < NA; ++j) cu = cu + wu[j] * (u[j] * u[j]);
     cost = cost + (cq + cv + cu);
     T qn[NQ], vn[NQ];
@@ -95,16 +95,16 @@ NPTT_HD void rollout_thread(long long l, long long B, int Tn, int n_cg, const T*
     else
       frozen_step<T, T, NB, NQ, NA, M, NS>(P, I, x, x + NQ, u, cm + bt * M, ucl + bt * M, n_cg,
                                            qn, vn);
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
     for (int i = 0; i < NQ; ++i) {
       x[i] = qn[i];
       x[NQ + i] = vn[i];
     }
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NX))
     for (int i = 0; i < NX; ++i) xs[(l * (Tn + 1) + t + 1) * NX + i] = x[i];
   }
   T cf = T(0);
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NX))
   for (int i = 0; i < NX; ++i) {
     const T dx = x[i] - gf[i];
     cf = cf + wf[i] * (dx * dx);
@@ -116,23 +116,24 @@ template <typename T, int NB, int NQ, int NA, int M>
 NPTT_HD void classes_thread(long long b, long long B, int Tn, const T* __restrict__ P,
                             const int* __restrict__ I, const T* __restrict__ x0,
                             const T* __restrict__ u_tb, T* __restrict__ out) {
+  using L = StepLayout<NB, NQ, NA>;
   constexpr int NX = 2 * NQ, E = NX + M;
   T x[NX];
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NX))
   for (int i = 0; i < NX; ++i) x[i] = x0[b * NX + i];
   for (int t = 0; t < Tn; ++t) {
     T u[NA], qn[NQ], vn[NQ], cm[M];
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NA))
     for (int a = 0; a < NA; ++a) u[a] = u_tb[((long long)t * NA + a) * B + b];
     class_step<T, T, NB, NQ, NA, M>(P, I, x, x + NQ, u, qn, vn, cm);
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
     for (int i = 0; i < NQ; ++i) {
       x[i] = qn[i];
       x[NQ + i] = vn[i];
     }
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NX))
     for (int i = 0; i < NX; ++i) out[((long long)t * E + i) * B + b] = x[i];
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
     for (int r = 0; r < M; ++r) out[((long long)t * E + NX + r) * B + b] = cm[r];
   }
 }

@@ -6,12 +6,12 @@
 // lanevmap.py), which traced the step once and re-emitted it with the world
 // batch on the TPU's lanes: here the step is written once by hand, templated
 // on the scalar type S (T, or Dual<T> for the linearize kernels) and on the
-// compile-time body, dof and action counts, so every per-body array is
-// unrolled into registers. Joint types and parents are read at run time
-// from the packed model; they are the same for every thread, so the
-// branches never diverge, and run-time indices are resolved by unrolled
-// selects instead of indexing (which would spill the arrays to local
-// memory).
+// compile-time body, dof and action counts. On small models (StepLayout::
+// kUnroll) the loops over bodies and dofs unroll, so every per-body array
+// lives in registers; on larger ones they stay rolled. Joint types and
+// parents are read at run time from the packed model; they are the same for
+// every thread, so the branches never diverge, and run-time indices are
+// resolved by selects instead of indexing where the loops unroll.
 //
 // The packed model (written by nimblephysics_tpu_torch/ops/device_step.py):
 //   reals, per body (kBody = 78): T_pj R(9) p(3) | T_cj^-1 R(9) p(3) |
@@ -54,28 +54,47 @@ struct StepLayout {
   static constexpr int kSize = kDt + 1;
   static constexpr int iParent = 0, iType = NB, iDof = 2 * NB, iActDof = 3 * NB;
   static constexpr int kInts = 3 * NB + NA;
+  // Whether the loops over bodies, dofs, actions and 3- or 6-vectors, in
+  // the step and in the kernels' thread bodies, unroll (unroll_by): for
+  // models of up to 2 bodies and 2 dofs, whose arrays then live in
+  // registers; not above that, where unrolled they hold the jump worm's K4
+  // and K5 at 255 registers and slow them (scripts/torch_unroll_variants.py,
+  // PERF.md section 6). The loops over a body's ancestors run to NB and
+  // skip pp >= i, so that every such loop has a compile-time trip count:
+  // bounded by i under a plain #pragma unroll, inside the rolled loop over
+  // the bodies, mass_matrix's gave a K5 with wrong f64 results on the card
+  // (nvcc 12.9; right under -G, wrong under -Xptxas -O0; ROADMAP queue C).
+  static constexpr bool kUnroll = NB <= 2 && NQ <= 2;
 };
 
+// The unroll count of a loop of `trips` iterations: all of them where
+// `full`, else none (1). Each #pragma names its own loop's trip count, at
+// least 2 (a count of 1 disables unrolling, and would keep a one-trip
+// loop, such as one over the cartpole's single action, as a loop): a count
+// of 64 everywhere left the cartpole's K6 3.1x slower than a plain #pragma
+// unroll (scripts/torch_unroll_variants.py, PERF.md section 6).
+NPTT_HD constexpr int unroll_by(bool full, int trips) { return full ? (trips > 2 ? trips : 2) : 1; }
+
 // out = R x, R row-major 3x3
-template <typename M, typename X, typename O>
+template <bool U, typename M, typename X, typename O>
 NPTT_HD void mv3(const M* R, const X* x, O* out) {
-#pragma unroll
+#pragma unroll (unroll_by(U, 3))
   for (int i = 0; i < 3; ++i) out[i] = R[3 * i] * x[0] + R[3 * i + 1] * x[1] + R[3 * i + 2] * x[2];
 }
 
 // out = R^T x
-template <typename M, typename X, typename O>
+template <bool U, typename M, typename X, typename O>
 NPTT_HD void mtv3(const M* R, const X* x, O* out) {
-#pragma unroll
+#pragma unroll (unroll_by(U, 3))
   for (int i = 0; i < 3; ++i) out[i] = R[i] * x[0] + R[3 + i] * x[1] + R[6 + i] * x[2];
 }
 
 // out = A B, 3x3 row-major
-template <typename MA, typename MB, typename O>
+template <bool U, typename MA, typename MB, typename O>
 NPTT_HD void mm3(const MA* A, const MB* B, O* out) {
-#pragma unroll
+#pragma unroll (unroll_by(U, 3))
   for (int i = 0; i < 3; ++i)
-#pragma unroll
+#pragma unroll (unroll_by(U, 3))
     for (int j = 0; j < 3; ++j)
       out[3 * i + j] = A[3 * i] * B[j] + A[3 * i + 1] * B[3 + j] + A[3 * i + 2] * B[6 + j];
 }
@@ -88,21 +107,21 @@ NPTT_HD void cross3(const A* a, const B* b, O* out) {
 }
 
 // Ad(T^-1) V = (R^T w; R^T (v - p x w)) — parent-frame motion into the child frame
-template <typename S, typename X>
+template <bool U, typename S, typename X>
 NPTT_HD void ad_inv_apply(const S* R, const S* p, const X* V, S* out) {
   S pxw[3], d[3];
   cross3(p, V, pxw);
   for (int i = 0; i < 3; ++i) d[i] = V[3 + i] - pxw[i];
-  mtv3(R, V, out);
-  mtv3(R, d, out + 3);
+  mtv3<U>(R, V, out);
+  mtv3<U>(R, d, out + 3);
 }
 
 // Ad(T^-1)^T F = (R n + p x (R f); R f) — child-frame force into the parent frame
-template <typename S>
+template <bool U, typename S>
 NPTT_HD void ad_dual_apply(const S* R, const S* p, const S* F, S* out) {
   S Rn[3], Rf[3], pxRf[3];
-  mv3(R, F, Rn);
-  mv3(R, F + 3, Rf);
+  mv3<U>(R, F, Rn);
+  mv3<U>(R, F + 3, Rf);
   cross3(p, Rf, pxRf);
   for (int i = 0; i < 3; ++i) {
     out[i] = Rn[i] + pxRf[i];
@@ -131,19 +150,19 @@ NPTT_HD void ad_dual(const S* V, const S* F, S* out) {
 }
 
 // out = M x for a 6x6 row-major M
-template <typename M, typename X, typename O>
+template <bool U, typename M, typename X, typename O>
 NPTT_HD void mv6(const M* A, const X* x, O* out) {
-#pragma unroll
+#pragma unroll (unroll_by(U, 6))
   for (int i = 0; i < 6; ++i) {
     O s = A[6 * i] * x[0];
-#pragma unroll
+#pragma unroll (unroll_by(U, 5))
     for (int j = 1; j < 6; ++j) s = s + A[6 * i + j] * x[j];
     out[i] = s;
   }
 }
 
 // Rodrigues' formula with the Taylor branch of ops/lie.py below theta^2 = 1e-8.
-template <typename T, typename S>
+template <typename T, bool U, typename S>
 NPTT_HD void expm_so3(const S* w, S* R) {
   S th2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
   S A, B;
@@ -157,7 +176,7 @@ NPTT_HD void expm_so3(const S* w, S* R) {
   }
   S W[9] = {S(T(0)), -w[2], w[1], w[2], S(T(0)), -w[0], -w[1], w[0], S(T(0))};
   S W2[9];
-  mm3(W, W, W2);
+  mm3<U>(W, W, W2);
   for (int k = 0; k < 9; ++k) R[k] = A * W[k] + B * W2[k];
   R[0] = R[0] + T(1);
   R[4] = R[4] + T(1);
@@ -167,37 +186,37 @@ NPTT_HD void expm_so3(const S* w, S* R) {
 // Pivot-free Gauss-Jordan inverse of an SPD matrix on the augmented rows
 // [A | I] (ops/linalg_small.py inv_spd): prow = row_k (1 / pivot),
 // row_i -= row_i[k] prow.
-template <typename T, typename S, int N>
+template <typename T, bool U, typename S, int N>
 NPTT_HD void inv_spd(const S (&A)[N][N], S (&Ai)[N][N]) {
   S rows[N][2 * N];
-#pragma unroll
+#pragma unroll (unroll_by(U, N))
   for (int k = 0; k < N; ++k)
-#pragma unroll
+#pragma unroll (unroll_by(U, N))
     for (int j = 0; j < N; ++j) {
       rows[k][j] = A[k][j];
       rows[k][N + j] = S(T(k == j ? 1 : 0));
     }
-#pragma unroll
+#pragma unroll (unroll_by(U, N))
   for (int k = 0; k < N; ++k) {
     const S inv = T(1) / rows[k][k];
     S prow[2 * N];
-#pragma unroll
+#pragma unroll (unroll_by(U, 2 * N))
     for (int j = 0; j < 2 * N; ++j) prow[j] = rows[k][j] * inv;
-#pragma unroll
+#pragma unroll (unroll_by(U, N))
     for (int i = 0; i < N; ++i) {
       if (i == k) {
-#pragma unroll
+#pragma unroll (unroll_by(U, 2 * N))
         for (int j = 0; j < 2 * N; ++j) rows[i][j] = prow[j];
       } else {
         const S f = rows[i][k];
-#pragma unroll
+#pragma unroll (unroll_by(U, 2 * N))
         for (int j = 0; j < 2 * N; ++j) rows[i][j] = rows[i][j] - f * prow[j];
       }
     }
   }
-#pragma unroll
+#pragma unroll (unroll_by(U, N))
   for (int i = 0; i < N; ++i)
-#pragma unroll
+#pragma unroll (unroll_by(U, N))
     for (int j = 0; j < N; ++j) Ai[i][j] = rows[i][N + j];
 }
 
@@ -214,16 +233,16 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
 
   // generalized force: action on the actuated dofs, implicit spring, damping
   S tau[NQ];
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
   for (int d = 0; d < NQ; ++d) tau[d] = S(T(0));
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NA))
   for (int a = 0; a < NA; ++a) {
     const int da = I[L::iActDof + a];
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
     for (int d = 0; d < NQ; ++d)
       if (d == da) tau[d] = u[a];
   }
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
   for (int d = 0; d < NQ; ++d) {
     const T damp = P[L::kDof + 3 * d], stiff = P[L::kDof + 3 * d + 1], rest = P[L::kDof + 3 * d + 2];
     tau[d] = tau[d] + (-stiff) * (q[d] - rest + v[d] * dt) + (-damp) * v[d];
@@ -231,13 +250,13 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
 
   // forward sweep: kinematics, velocities, bias forces
   S V[NB][6], c[NB][6], pA[NB][6], IA[NB][36];
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NB))
   for (int i = 0; i < NB; ++i) {
     const T* Bp = P + i * L::kBody;
     const int jt = I[L::iType + i], dof = I[L::iDof + i], par = I[L::iParent + i];
     const int nd = joint_ndof(jt);
     S qi = S(T(0)), vi = S(T(0)), qj = S(T(0)), vj = S(T(0));
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
     for (int d = 0; d < NQ; ++d) {
       if (d == dof) {
         qi = q[d];
@@ -253,7 +272,7 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
     for (int k = 0; k < 3; ++k) pq[k] = S(T(0));
     if (jt == kRevolute) {
       S w[3] = {Bp[L::kAxis] * qi, Bp[L::kAxis + 1] * qi, Bp[L::kAxis + 2] * qi};
-      expm_so3<T>(w, Rq);
+      expm_so3<T, L::kUnroll>(w, Rq);
     } else if (jt == kPrismatic) {
       for (int k = 0; k < 3; ++k) pq[k] = Bp[L::kAxis + k] * qi;
     } else if (jt == kTranslational2d) {
@@ -261,11 +280,11 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
     }
     // T_pc = T_pj o Q(q) o T_cj^-1
     S RA[9], pAq[3], tmp[3];
-    mm3(Bp + L::kRpj, Rq, RA);
-    mv3(Bp + L::kRpj, pq, tmp);
+    mm3<L::kUnroll>(Bp + L::kRpj, Rq, RA);
+    mv3<L::kUnroll>(Bp + L::kRpj, pq, tmp);
     for (int k = 0; k < 3; ++k) pAq[k] = tmp[k] + Bp[L::kPpj + k];
-    mm3(RA, Bp + L::kRci, R[i]);
-    mv3(RA, Bp + L::kPci, tmp);
+    mm3<L::kUnroll>(RA, Bp + L::kRci, R[i]);
+    mv3<L::kUnroll>(RA, Bp + L::kPci, tmp);
     for (int k = 0; k < 3; ++k) p[i][k] = tmp[k] + pAq[k];
 
     S vJ[6], Vpar[6];
@@ -274,20 +293,21 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
       if (nd == 2) vJ[k] = vJ[k] + Bp[L::kS1 + k] * vj;
       Vpar[k] = S(T(0));
     }
-#pragma unroll
-    for (int pp = 0; pp < i; ++pp)
-      if (pp == par) ad_inv_apply(R[i], p[i], V[pp], Vpar);
+    // pp < NB, not pp < i: see StepLayout::kUnroll
+#pragma unroll (unroll_by(L::kUnroll, NB))
+    for (int pp = 0; pp < NB; ++pp)
+      if (pp < i && pp == par) ad_inv_apply<L::kUnroll>(R[i], p[i], V[pp], Vpar);
     for (int k = 0; k < 6; ++k) V[i][k] = Vpar[k] + vJ[k];
     ad_motion(V[i], vJ, c[i]);
     S IV[6];
-    mv6(Bp + L::kI, V[i], IV);
+    mv6<L::kUnroll>(Bp + L::kI, V[i], IV);
     ad_dual(V[i], IV, pA[i]);
     for (int k = 0; k < 36; ++k) IA[i][k] = S(Bp[L::kI + k]);
   }
 
   // backward sweep: articulated inertias and bias forces
   S U[NB][2][6], Dinv[NB][2][2], uu[NB][2];
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NB))
   for (int i = NB - 1; i >= 0; --i) {
     const T* Sv = P + i * L::kBody + L::kS;
     const T* Sv1 = P + i * L::kBody + L::kS1;
@@ -295,7 +315,7 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
     const int nd = joint_ndof(I[L::iType + i]);
     S Ia[36], pa[6], Iac[6];
     if (nd == 1) {
-      mv6(IA[i], Sv, U[i][0]);
+      mv6<L::kUnroll>(IA[i], Sv, U[i][0]);
       S D = Sv[0] * U[i][0][0];
       S sp = Sv[0] * pA[i][0];
       for (int k = 1; k < 6; ++k) {
@@ -304,26 +324,26 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
       }
       Dinv[i][0][0] = T(1) / D;
       S te = S(T(0));
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
       for (int d = 0; d < NQ; ++d)
         if (d == dof) te = tau[d];
       uu[i][0] = te - sp;
       for (int r = 0; r < 6; ++r)
         for (int k = 0; k < 6; ++k)
           Ia[6 * r + k] = IA[i][6 * r + k] - (U[i][0][r] * Dinv[i][0][0]) * U[i][0][k];
-      mv6(Ia, c[i], Iac);
+      mv6<L::kUnroll>(Ia, c[i], Iac);
       S Du = Dinv[i][0][0] * uu[i][0];
       for (int k = 0; k < 6; ++k) pa[k] = pA[i][k] + Iac[k] + U[i][0][k] * Du;
     } else if (nd == 2) {
       // D = S^T IA S (2x2), u = tau - S^T pA, Ia = IA - U D^-1 U^T,
       // pa = pA + Ia c + U D^-1 u
-      mv6(IA[i], Sv, U[i][0]);
-      mv6(IA[i], Sv1, U[i][1]);
+      mv6<L::kUnroll>(IA[i], Sv, U[i][0]);
+      mv6<L::kUnroll>(IA[i], Sv1, U[i][1]);
       S D[2][2], sp[2], te[2] = {S(T(0)), S(T(0))};
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, 2))
       for (int a = 0; a < 2; ++a) {
         const T* Sa = a == 0 ? Sv : Sv1;
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, 2))
         for (int b = 0; b < 2; ++b) {
           D[a][b] = Sa[0] * U[i][b][0];
           for (int k = 1; k < 6; ++k) D[a][b] = D[a][b] + Sa[k] * U[i][b][k];
@@ -331,8 +351,8 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
         sp[a] = Sa[0] * pA[i][0];
         for (int k = 1; k < 6; ++k) sp[a] = sp[a] + Sa[k] * pA[i][k];
       }
-      inv_spd<T>(D, Dinv[i]);
-#pragma unroll
+      inv_spd<T, L::kUnroll>(D, Dinv[i]);
+#pragma unroll (unroll_by(L::kUnroll, NQ))
       for (int d = 0; d < NQ; ++d) {
         if (d == dof) te[0] = tau[d];
         if (d == dof + 1) te[1] = tau[d];
@@ -345,7 +365,7 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
       for (int r = 0; r < 6; ++r)
         for (int k = 0; k < 6; ++k)
           Ia[6 * r + k] = IA[i][6 * r + k] - (UD[r][0] * U[i][0][k] + UD[r][1] * U[i][1][k]);
-      mv6(Ia, c[i], Iac);
+      mv6<L::kUnroll>(Ia, c[i], Iac);
       S Du[2];
       for (int a = 0; a < 2; ++a) Du[a] = Dinv[i][a][0] * uu[i][0] + Dinv[i][a][1] * uu[i][1];
       for (int k = 0; k < 6; ++k) pa[k] = pA[i][k] + Iac[k] + (U[i][0][k] * Du[0] + U[i][1][k] * Du[1]);
@@ -354,23 +374,24 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
       Dinv[i][0][0] = S(T(0));
       uu[i][0] = S(T(0));
       for (int k = 0; k < 36; ++k) Ia[k] = IA[i][k];
-      mv6(Ia, c[i], Iac);
+      mv6<L::kUnroll>(Ia, c[i], Iac);
       for (int k = 0; k < 6; ++k) pa[k] = pA[i][k] + Iac[k];
     }
-#pragma unroll
-    for (int pp = 0; pp < i; ++pp) {
-      if (pp != par) continue;
+    // pp < NB, not pp < i: see StepLayout::kUnroll
+#pragma unroll (unroll_by(L::kUnroll, NB))
+    for (int pp = 0; pp < NB; ++pp) {
+      if (pp >= i || pp != par) continue;
       // IA[pp] += X^T Ia X, X = Ad(T_pc^-1), one column of X at a time
       for (int j = 0; j < 6; ++j) {
         S e[6], x[6], y[6], col[6];
         for (int k = 0; k < 6; ++k) e[k] = S(T(k == j ? 1 : 0));
-        ad_inv_apply(R[i], p[i], e, x);
-        mv6(Ia, x, y);
-        ad_dual_apply(R[i], p[i], y, col);
+        ad_inv_apply<L::kUnroll>(R[i], p[i], e, x);
+        mv6<L::kUnroll>(Ia, x, y);
+        ad_dual_apply<L::kUnroll>(R[i], p[i], y, col);
         for (int r = 0; r < 6; ++r) IA[pp][6 * r + j] = IA[pp][6 * r + j] + col[r];
       }
       S f[6];
-      ad_dual_apply(R[i], p[i], pa, f);
+      ad_dual_apply<L::kUnroll>(R[i], p[i], pa, f);
       for (int k = 0; k < 6; ++k) pA[pp][k] = pA[pp][k] + f[k];
     }
   }
@@ -378,25 +399,27 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
   // forward sweep: accelerations
   const T g[6] = {T(0), T(0), T(0), -P[L::kGrav], -P[L::kGrav + 1], -P[L::kGrav + 2]};
   S a[NB][6];
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
   for (int d = 0; d < NQ; ++d) qdd[d] = S(T(0));
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NB))
   for (int i = 0; i < NB; ++i) {
     const T* Sv = P + i * L::kBody + L::kS;
     const T* Sv1 = P + i * L::kBody + L::kS1;
     const int dof = I[L::iDof + i], par = I[L::iParent + i];
     const int nd = joint_ndof(I[L::iType + i]);
     S ap[6];
-    if (par < 0) ad_inv_apply(R[i], p[i], g, ap);
-#pragma unroll
-    for (int pp = 0; pp < i; ++pp)
-      if (pp == par) ad_inv_apply(R[i], p[i], a[pp], ap);
+    for (int k = 0; k < 6; ++k) ap[k] = S(T(0));
+    if (par < 0) ad_inv_apply<L::kUnroll>(R[i], p[i], g, ap);
+    // pp < NB, not pp < i: see StepLayout::kUnroll
+#pragma unroll (unroll_by(L::kUnroll, NB))
+    for (int pp = 0; pp < NB; ++pp)
+      if (pp < i && pp == par) ad_inv_apply<L::kUnroll>(R[i], p[i], a[pp], ap);
     for (int k = 0; k < 6; ++k) ap[k] = ap[k] + c[i][k];
     if (nd == 1) {
       S Ua = U[i][0][0] * ap[0];
       for (int k = 1; k < 6; ++k) Ua = Ua + U[i][0][k] * ap[k];
       S qi = Dinv[i][0][0] * (uu[i][0] - Ua);
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
       for (int d = 0; d < NQ; ++d)
         if (d == dof) qdd[d] = qi;
       for (int k = 0; k < 6; ++k) a[i][k] = ap[k] + Sv[k] * qi;
@@ -409,7 +432,7 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
       }
       S q0 = Dinv[i][0][0] * r[0] + Dinv[i][0][1] * r[1];
       S q1 = Dinv[i][1][0] * r[0] + Dinv[i][1][1] * r[1];
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
       for (int d = 0; d < NQ; ++d) {
         if (d == dof) qdd[d] = q0;
         if (d == dof + 1) qdd[d] = q1;
@@ -431,7 +454,7 @@ NPTT_HD void device_step(const T* __restrict__ P, const int* __restrict__ I,
   const T dt = P[L::kDt];
   S R[NB][9], p[NB][3], qdd[NQ];
   forward_dynamics<T, S, NB, NQ, NA>(P, I, q, v, u, R, p, qdd);
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
   for (int d = 0; d < NQ; ++d) {
     vn[d] = v[d] + dt * qdd[d];
     qn[d] = q[d] + v[d] * dt;
@@ -469,21 +492,28 @@ NPTT_HD void device_step(const T* __restrict__ P, const int* __restrict__ I,
 // the frozen step reads neither the depth nor the restitution. Friction
 // coupling enters the frozen solve through R = (I + diag(us) gov) diag(cm).
 //
-// Every loop over the rows is unrolled, for M = 28 too, although those
-// arrays live in local memory either way. With only the outer row loops
-// rolled (`#pragma unroll 1`), nvcc 12.9 built a K5 whose frozen solve
-// returned NaN at every point on the card, for a reason not found: the
-// host build is clean under -fsanitize=address,undefined, and with every
-// loop of this file and linearize.cu rolled K5 is right at -O3 and -G
-// (scripts/torch_rolled_k5_check.py, PERF.md). Unrolled, the build takes
-// minutes and the results agree with the plain versions.
-//
+// The loops over the rows and the slots, and the loops that hold them,
+// unroll by row_unroll(M, trips): fully for small LCPs (the limited
+// cartpole's 4 rows), whose arrays then live in registers; not at all for
+// larger ones (the worm's 28 rows), where unrolled they made the build take
+// 330-465 s (60-100 s rolled) and the M-sized arrays live in local memory
+// either way, except the dot products over the rows (j = 1 .. M - 1),
+// which unroll by 8 there (K2 at m = 28 3.0x, K4 2.5x, K5 1.4x faster than
+// with them rolled, scripts/torch_unroll_variants.py). The PCG's iterations are
+// always rolled. A build that rolled only the outer row loops gave a K5
+// returning NaN on the card; with every row loop rolled or partly unrolled
+// every kernel agrees with its plain version (PERF.md section 6, ROADMAP
+// queue C).
+NPTT_HD constexpr int row_unroll(int m, int trips, int rolled = 1) {
+  return m <= 8 ? unroll_by(true, trips) : rolled;
+}
+
 // The (bodies, dofs, actions, rows, slots) shapes the constrained kernels
 // are built for; the Python wrappers refuse any other model. cartpole with
 // its two limited dofs: 2 bodies, 2 dofs, 1 action, 4 rows, no slot (K2
 // with classes, K4, K6); the jump worm: 3 bodies, 4 dofs, 2 actions, 8
-// box-corner slots and two limited dofs, 28 rows (K2 with classes and K5;
-// class_step is not built for contact slots).
+// box-corner slots and two limited dofs, 28 rows (K2 with classes, K4 and
+// K5; class_step is not built for contact slots).
 #define NPTT_CONTACT_SHAPES(X) X(2, 2, 1, 4, 0)
 #define NPTT_WORM_SHAPES(X) X(3, 4, 2, 28, 8)
 
@@ -512,12 +542,13 @@ struct RowLayout {
   static constexpr int iRowDof = L::kInts, iRowKind = L::kInts + MR, iSlotBody = L::kInts + 2 * MR;
 };
 
-// A[r][c] = v for run-time (r, c), by unrolled selects (no local memory)
-template <typename S, int N>
+// A[r][c] = v for run-time (r, c), by selects (no local memory where the
+// loops unroll, U = StepLayout::kUnroll)
+template <bool U, typename S, int N>
 NPTT_HD void set_at(S (&A)[N][N], int r, int c, S v) {
-#pragma unroll
+#pragma unroll (unroll_by(U, N))
   for (int a = 0; a < N; ++a)
-#pragma unroll
+#pragma unroll (unroll_by(U, N))
     for (int b = 0; b < N; ++b)
       if (a == r && b == c) A[a][b] = v;
 }
@@ -529,54 +560,56 @@ NPTT_HD void mass_matrix(const T* __restrict__ P, const int* __restrict__ I,
                          const S (&R)[NB][9], const S (&p)[NB][3], S (&Mm)[NQ][NQ]) {
   using L = StepLayout<NB, NQ, NA>;
   S Ic[NB][36];
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NB))
   for (int i = 0; i < NB; ++i)
     for (int k = 0; k < 36; ++k) Ic[i][k] = S(P[i * L::kBody + L::kI + k]);
   // composite inertias: Ic[parent] += X^T Ic X, X = Ad(T_pc^-1), by columns
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NB))
   for (int i = NB - 1; i >= 0; --i) {
     const int par = I[L::iParent + i];
-#pragma unroll
-    for (int pp = 0; pp < i; ++pp) {
-      if (pp != par) continue;
+    // pp < NB, not pp < i: see StepLayout::kUnroll
+#pragma unroll (unroll_by(L::kUnroll, NB))
+    for (int pp = 0; pp < NB; ++pp) {
+      if (pp >= i || pp != par) continue;
       for (int j = 0; j < 6; ++j) {
         S e[6], x[6], y[6], col[6];
         for (int k = 0; k < 6; ++k) e[k] = S(T(k == j ? 1 : 0));
-        ad_inv_apply(R[i], p[i], e, x);
-        mv6(Ic[i], x, y);
-        ad_dual_apply(R[i], p[i], y, col);
+        ad_inv_apply<L::kUnroll>(R[i], p[i], e, x);
+        mv6<L::kUnroll>(Ic[i], x, y);
+        ad_dual_apply<L::kUnroll>(R[i], p[i], y, col);
         for (int r = 0; r < 6; ++r) Ic[pp][6 * r + j] = Ic[pp][6 * r + j] + col[r];
       }
     }
   }
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
   for (int a = 0; a < NQ; ++a)
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
     for (int c = 0; c < NQ; ++c) Mm[a][c] = S(T(0));
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NB))
   for (int i = 0; i < NB; ++i) {
     const int dof = I[L::iDof + i];
     if (dof < 0) continue;
     const int nd = joint_ndof(I[L::iType + i]);
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, 2))
     for (int ci = 0; ci < 2; ++ci) {
       if (ci >= nd) continue;
       const T* Sv = P + i * L::kBody + (ci == 0 ? L::kS : L::kS1);
       S F[6];
-      mv6(Ic[i], Sv, F);
+      mv6<L::kUnroll>(Ic[i], Sv, F);
       // the diagonal block, column dof + ci
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, 2))
       for (int cr = 0; cr < 2; ++cr) {
         if (cr >= nd) continue;
         const T* Sr = P + i * L::kBody + (cr == 0 ? L::kS : L::kS1);
         S Mii = Sr[0] * F[0];
         for (int k = 1; k < 6; ++k) Mii = Mii + Sr[k] * F[k];
-        set_at(Mm, dof + cr, dof + ci, Mii);
+        set_at<L::kUnroll>(Mm, dof + cr, dof + ci, Mii);
       }
       // carry F = Ic S up the chain of ancestors (parents[j] < j)
       int cur = i;
-#pragma unroll
-      for (int jj = i; jj >= 1; --jj) {
+      // from NB - 1, not from i (jj > i never equals cur): see StepLayout::kUnroll
+#pragma unroll (unroll_by(L::kUnroll, NB - 1))
+      for (int jj = NB - 1; jj >= 1; --jj) {
         if (jj != cur) continue;
         const int par = I[L::iParent + jj];
         if (par < 0) {
@@ -584,7 +617,7 @@ NPTT_HD void mass_matrix(const T* __restrict__ P, const int* __restrict__ I,
           continue;
         }
         S G[6];
-        ad_dual_apply(R[jj], p[jj], F, G);
+        ad_dual_apply<L::kUnroll>(R[jj], p[jj], F, G);
         for (int k = 0; k < 6; ++k) F[k] = G[k];
         cur = par;
         const int dp = I[L::iDof + par];
@@ -593,8 +626,8 @@ NPTT_HD void mass_matrix(const T* __restrict__ P, const int* __restrict__ I,
           const T* Sp = P + par * L::kBody + (cp == 0 ? L::kS : L::kS1);
           S mij = Sp[0] * F[0];
           for (int k = 1; k < 6; ++k) mij = mij + Sp[k] * F[k];
-          set_at(Mm, dp + cp, dof + ci, mij);
-          set_at(Mm, dof + ci, dp + cp, mij);
+          set_at<L::kUnroll>(Mm, dp + cp, dof + ci, mij);
+          set_at<L::kUnroll>(Mm, dof + ci, dp + cp, mij);
         }
       }
     }
@@ -615,48 +648,49 @@ NPTT_HD void contact_rows(const T* __restrict__ P, const int* __restrict__ I,
   using RL = RowLayout<NB, NQ, NA, M, NS>;
   // body -> world transforms
   S Rw[NB][9], pw[NB][3];
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NB))
   for (int i = 0; i < NB; ++i) {
     const int par = I[L::iParent + i];
     if (par < 0) {
       for (int k = 0; k < 9; ++k) Rw[i][k] = R[i][k];
       for (int k = 0; k < 3; ++k) pw[i][k] = p[i][k];
     }
-#pragma unroll
-    for (int pp = 0; pp < i; ++pp) {
-      if (pp != par) continue;
+    // pp < NB, not pp < i: see StepLayout::kUnroll
+#pragma unroll (unroll_by(L::kUnroll, NB))
+    for (int pp = 0; pp < NB; ++pp) {
+      if (pp >= i || pp != par) continue;
       S tmp[3];
-      mm3(Rw[pp], R[i], Rw[i]);
-      mv3(Rw[pp], p[i], tmp);
+      mm3<L::kUnroll>(Rw[pp], R[i], Rw[i]);
+      mv3<L::kUnroll>(Rw[pp], p[i], tmp);
       for (int k = 0; k < 3; ++k) pw[i][k] = tmp[k] + pw[pp][k];
     }
   }
-#pragma unroll
+#pragma unroll (row_unroll(M, NS))
   for (int s = 0; s < NS; ++s) {
     const T* sd = P + RL::kSlot + RL::kSlotReals * s;
     const int ab = I[RL::iSlotBody + s];
     S pk[3], Jp[3][NQ];
     bool anc[NB];
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NB))
     for (int i = 0; i < NB; ++i) {
       anc[i] = false;
       if (i == ab) {
         S tmp[3];
-        mv3(Rw[i], sd, tmp);
+        mv3<L::kUnroll>(Rw[i], sd, tmp);
         for (int k = 0; k < 3; ++k) pk[k] = tmp[k] + pw[i][k];
       }
     }
     int cur = ab;
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NB))
     for (int jj = NB - 1; jj >= 0; --jj)
       if (jj == cur) {
         anc[jj] = true;
         cur = I[L::iParent + jj];
       }
     for (int r = 0; r < 3; ++r)
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
       for (int e = 0; e < NQ; ++e) Jp[r][e] = S(T(0));
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NB))
     for (int kb = 0; kb < NB; ++kb) {
       if (!anc[kb]) continue;
       const int dof = I[L::iDof + kb], nd = joint_ndof(I[L::iType + kb]);
@@ -664,11 +698,11 @@ NPTT_HD void contact_rows(const T* __restrict__ P, const int* __restrict__ I,
         const T* Sc = P + kb * L::kBody + (cc == 0 ? L::kS : L::kS1);
         // Ad(T_wk) S = (R w; p x (R w) + R v), then v + omega x p
         S w[3], Rv[3], pxw[3], wxp[3];
-        mv3(Rw[kb], Sc, w);
-        mv3(Rw[kb], Sc + 3, Rv);
+        mv3<L::kUnroll>(Rw[kb], Sc, w);
+        mv3<L::kUnroll>(Rw[kb], Sc + 3, Rv);
         cross3(pw[kb], w, pxw);
         cross3(w, pk, wxp);
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
         for (int e = 0; e < NQ; ++e)
           if (e == dof + cc)
             for (int r = 0; r < 3; ++r) Jp[r][e] = (pxw[r] + Rv[r]) + wxp[r];
@@ -687,11 +721,11 @@ NPTT_HD void contact_rows(const T* __restrict__ P, const int* __restrict__ I,
     for (int k = 0; k < 3; ++k) t1[k] = t1[k] / nt;
     cross3(n, t1, t2);
     const T* dirs[3] = {n, t1, t2};
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, 3))
     for (int d = 0; d < 3; ++d) {
       const int row = 3 * s + d;
       S rel = S(T(0));
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
       for (int e = 0; e < NQ; ++e) {
         Jc[row][e] = (dirs[d][0] * Jp[0][e] + dirs[d][1] * Jp[1][e]) + dirs[d][2] * Jp[2][e];
         rel = e == 0 ? Jc[row][e] * vs[e] : rel + Jc[row][e] * vs[e];
@@ -716,19 +750,20 @@ NPTT_HD void constraint_rows(const T* __restrict__ P, const int* __restrict__ I,
                              const S (&Mi)[NQ][NQ], S (&A)[M][M], S (&b)[M], T (&lo)[M],
                              T (&hi)[M], S (&MJ)[NQ][M]) {
   static_assert(PLANNER || NS == 0, "contact slots are built in the planner form only");
+  using L = StepLayout<NB, NQ, NA>;
   using RL = RowLayout<NB, NQ, NA, M, NS>;
   constexpr int C0 = 3 * NS;
   T coef[M];
   int dofs[M];
   S Jc[C0 > 0 ? C0 : 1][NQ];
   if constexpr (NS > 0) contact_rows<T, S, NB, NQ, NA, M, NS>(P, I, R, p, vs, Jc, b, lo, hi);
-#pragma unroll
+#pragma unroll (row_unroll(M, M - C0))
   for (int r = C0; r < M; ++r) {
     const int d = I[RL::iRowDof + r - C0], kind = I[RL::iRowKind + r - C0];
     const T lim = P[RL::kRow + r - C0];
     dofs[r] = d;
     S qd = S(T(0)), vd = S(T(0));
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
     for (int e = 0; e < NQ; ++e)
       if (e == d) {
         qd = q[e];
@@ -750,35 +785,35 @@ NPTT_HD void constraint_rows(const T* __restrict__ P, const int* __restrict__ I,
       hi[r] = act * T(kBig);
     }
   }
-#pragma unroll
+#pragma unroll (row_unroll(M, NQ))
   for (int k = 0; k < NQ; ++k)
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
     for (int c = 0; c < M; ++c) {
       if (c < C0) {
         S mk = Mi[k][0] * Jc[c][0];
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ - 1))
         for (int e = 1; e < NQ; ++e) mk = mk + Mi[k][e] * Jc[c][e];
         MJ[k][c] = mk;
       } else {
         S mk = S(T(0));
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
         for (int e = 0; e < NQ; ++e)
           if (e == dofs[c]) mk = Mi[k][e];
         MJ[k][c] = mk * coef[c];
       }
     }
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int r = 0; r < M; ++r)
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
     for (int c = 0; c < M; ++c) {
       if (r < C0) {
         S ar = Jc[r][0] * MJ[0][c];
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ - 1))
         for (int e = 1; e < NQ; ++e) ar = ar + Jc[r][e] * MJ[e][c];
         A[r][c] = ar;
       } else {
         S jr = S(T(0));
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
         for (int e = 0; e < NQ; ++e)
           if (e == dofs[r]) jr = MJ[e][c];
         A[r][c] = coef[r] * jr;
@@ -793,9 +828,9 @@ NPTT_HD void constraint_rows(const T* __restrict__ P, const int* __restrict__ I,
 // rows to none (gov = 0 there, and A R = A C).
 template <typename T, typename S, int M, int NS>
 NPTT_HD void frozen_system(const S (&A)[M][M], const T* cm, const T* us, S (&Qf)[M][M]) {
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int i = 0; i < M; ++i)
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
     for (int j = 0; j < M; ++j) {
       S ar = A[i][j];
       if (j < 3 * NS && j % 3 == 0) ar = (ar + us[j + 1] * A[i][j + 1]) + us[j + 2] * A[i][j + 2];
@@ -808,7 +843,7 @@ NPTT_HD void frozen_system(const S (&A)[M][M], const T* cm, const T* us, S (&Qf)
 // friction row i coupled to f.
 template <typename T, typename S, int M, int NS>
 NPTT_HD void frozen_impulses(const T* cm, const T* us, const S (&xc)[M], S (&x)[M]) {
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int i = 0; i < M; ++i) {
     x[i] = cm[i] * (cm[i] * xc[i]);
     if (i < 3 * NS && i % 3 != 0) {
@@ -825,7 +860,7 @@ NPTT_HD void pcg(const S (&Qf)[M][M], S reg, const S (&diagM)[M], const S (&bb)[
                  S (&x)[M]) {
   const T tiny = T(1e-30);
   S r[M], z[M], p[M];
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int i = 0; i < M; ++i) {
     x[i] = S(T(0));
     r[i] = bb[i];
@@ -833,38 +868,39 @@ NPTT_HD void pcg(const S (&Qf)[M][M], S reg, const S (&diagM)[M], const S (&bb)[
     p[i] = z[i];
   }
   S rz = r[0] * z[0];
-#pragma unroll
+#pragma unroll (row_unroll(M, M - 1, 8))
   for (int i = 1; i < M; ++i) rz = rz + r[i] * z[i];
+#pragma unroll 1
   for (int it = 0; it < n_cg; ++it) {
     S Qp[M], Ap[M];
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
     for (int i = 0; i < M; ++i) {
       Qp[i] = Qf[i][0] * p[0];
-#pragma unroll
+#pragma unroll (row_unroll(M, M - 1, 8))
       for (int j = 1; j < M; ++j) Qp[i] = Qp[i] + Qf[i][j] * p[j];
     }
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
     for (int j = 0; j < M; ++j) {
       S s = Qf[0][j] * Qp[0];
-#pragma unroll
+#pragma unroll (row_unroll(M, M - 1, 8))
       for (int i = 1; i < M; ++i) s = s + Qf[i][j] * Qp[i];
       Ap[j] = s + reg * p[j];
     }
     S pAp = p[0] * Ap[0];
-#pragma unroll
+#pragma unroll (row_unroll(M, M - 1, 8))
     for (int i = 1; i < M; ++i) pAp = pAp + p[i] * Ap[i];
     const S alpha = rz / (pAp + tiny);
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
     for (int i = 0; i < M; ++i) {
       x[i] = x[i] + alpha * p[i];
       r[i] = r[i] - alpha * Ap[i];
       z[i] = r[i] / diagM[i];
     }
     S rz_new = r[0] * z[0];
-#pragma unroll
+#pragma unroll (row_unroll(M, M - 1, 8))
     for (int i = 1; i < M; ++i) rz_new = rz_new + r[i] * z[i];
     const S beta = rz_new / (rz + tiny);
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
     for (int i = 0; i < M; ++i) p[i] = z[i] + beta * p[i];
     rz = rz_new;
   }
@@ -877,18 +913,18 @@ NPTT_HD void frozen_normal_eqs(const S (&A)[M][M], const S (&b)[M], const T* cm,
                                S (&Qf)[M][M], S& reg, S (&diagM)[M], S (&bvec)[M]) {
   S rhs[M];
   frozen_system<T, S, M, NS>(A, cm, us, Qf);
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int i = 0; i < M; ++i) rhs[i] = cm[i] * b[i];
   S qs = S(T(1));
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int i = 0; i < M; ++i)
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
     for (int j = 0; j < M; ++j) qs = pmax(qs, nabs(Qf[i][j]));
   reg = (Prec<T>::eps() * qs) * qs;
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int j = 0; j < M; ++j) {
     S dg = Qf[0][j] * Qf[0][j], bv = Qf[0][j] * rhs[0];
-#pragma unroll
+#pragma unroll (row_unroll(M, M - 1, 8))
     for (int i = 1; i < M; ++i) {
       dg = dg + Qf[i][j] * Qf[i][j];
       bv = bv + Qf[i][j] * rhs[i];
@@ -918,18 +954,18 @@ NPTT_HD void frozen_normal_eqs_dual(const Dual<V> (&A)[M][M], const Dual<V> (&b)
                                     Dual<V>& reg, V (&diagM)[M], Dual<V> (&bvec)[M]) {
   Dual<V> rhs[M];
   frozen_system<T, Dual<V>, M, NS>(A, cm, us, Qf);
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int i = 0; i < M; ++i) rhs[i] = cm[i] * b[i];
   T mx = nabs(val(Qf[0][0].v));
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int i = 0; i < M; ++i)
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
     for (int j = 0; j < M; ++j) mx = pmax(mx, nabs(val(Qf[i][j].v)));
   T cnt = T(0);
   V dsum = V(T(0));
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int i = 0; i < M; ++i)
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
     for (int j = 0; j < M; ++j) {
       const T w = nabs(val(Qf[i][j].v)) == mx ? T(1) : T(0);
       cnt = cnt + w;
@@ -938,18 +974,18 @@ NPTT_HD void frozen_normal_eqs_dual(const Dual<V> (&A)[M][M], const Dual<V> (&b)
   const T share = mx > T(1) ? T(1) / cnt : (mx == T(1) ? T(0.5) / cnt : T(0));
   const Dual<V> qs(V(pmax(mx, T(1))), dsum * share);
   reg = (Prec<T>::eps() * qs) * qs;
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int j = 0; j < M; ++j) {
     V dg = Qf[0][j].v * Qf[0][j].v;
     Dual<V> s = Qf[0][j] * rhs[0];
-#pragma unroll
+#pragma unroll (row_unroll(M, M - 1, 8))
     for (int i = 1; i < M; ++i) {
       dg = dg + Qf[i][j].v * Qf[i][j].v;
       s = s + Qf[i][j] * rhs[i];
     }
     diagM[j] = dg + reg.v;
     bvec[j] = s;
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
     for (int i = 0; i < M; ++i) Qv[i][j] = Qf[i][j].v;
   }
 }
@@ -960,20 +996,20 @@ template <typename V, int M>
 NPTT_HD void frozen_tangent_rhs(const Dual<V> (&Qf)[M][M], const Dual<V>& reg,
                                 const Dual<V> (&bvec)[M], const V (&xc)[M], V (&rt)[M]) {
   V Qx[M], dQx[M];
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int i = 0; i < M; ++i) {
     Qx[i] = Qf[i][0].v * xc[0];
     dQx[i] = Qf[i][0].d * xc[0];
-#pragma unroll
+#pragma unroll (row_unroll(M, M - 1, 8))
     for (int j = 1; j < M; ++j) {
       Qx[i] = Qx[i] + Qf[i][j].v * xc[j];
       dQx[i] = dQx[i] + Qf[i][j].d * xc[j];
     }
   }
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int j = 0; j < M; ++j) {
     V s1 = Qf[0][j].d * Qx[0], s2 = Qf[0][j].v * dQx[0];
-#pragma unroll
+#pragma unroll (row_unroll(M, M - 1, 8))
     for (int i = 1; i < M; ++i) {
       s1 = s1 + Qf[i][j].d * Qx[i];
       s2 = s2 + Qf[i][j].v * dQx[i];
@@ -994,12 +1030,12 @@ NPTT_HD void solve_frozen(const Dual<V> (&A)[M][M], const Dual<V> (&b)[M], const
   Dual<V> Qf[M][M], reg, bvec[M], xd[M];
   V Qv[M][M], diagM[M], bv[M], xc[M], rt[M], dxc[M];
   frozen_normal_eqs_dual<T, V, M, NS>(A, b, cm, us, Qf, Qv, reg, diagM, bvec);
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int j = 0; j < M; ++j) bv[j] = bvec[j].v;
   pcg<T>(Qv, reg.v, diagM, bv, n_cg, xc);
   frozen_tangent_rhs<V, M>(Qf, reg, bvec, xc, rt);
   pcg<T>(Qv, reg.v, diagM, rt, n_cg, dxc);
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int i = 0; i < M; ++i) xd[i] = Dual<V>(xc[i], dxc[i]);
   frozen_impulses<T, Dual<V>, M, NS>(cm, us, xd, x);
 }
@@ -1011,10 +1047,10 @@ NPTT_HD S comp_residual(const S (&A)[M][M], const S (&b)[M], const T (&lo)[M], c
                         const S (&x)[M]) {
   const T tol = Prec<T>::tol();
   S res = S(T(0));
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int i = 0; i < M; ++i) {
     S w = A[i][0] * x[0];
-#pragma unroll
+#pragma unroll (row_unroll(M, M - 1, 8))
     for (int j = 1; j < M; ++j) w = w + A[i][j] * x[j];
     w = w - b[i];
     const S nw = -w;
@@ -1031,44 +1067,44 @@ template <typename T, typename S, int M>
 NPTT_HD void lcp_subsolve(const S (&A)[M][M], const S (&b)[M], const T (&lo)[M], const T (&hi)[M],
                           const T (&im)[M], const S (&x)[M], S (&xn)[M]) {
   S xb[M], rhs[M], Af[M][M], AtA[M][M], Atr[M], Ai[M][M];
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int i = 0; i < M; ++i) xb[i] = nclip(x[i], lo[i], hi[i]) * (T(1) - im[i]);
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int i = 0; i < M; ++i) {
     S ax = A[i][0] * xb[0];
-#pragma unroll
+#pragma unroll (row_unroll(M, M - 1, 8))
     for (int j = 1; j < M; ++j) ax = ax + A[i][j] * xb[j];
     rhs[i] = im[i] * (b[i] - ax);
   }
   S sc = S(T(1));
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int i = 0; i < M; ++i)
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
     for (int j = 0; j < M; ++j) {
       Af[i][j] = (im[i] * A[i][j]) * im[j];
       if (i == j) Af[i][j] = Af[i][j] + (T(1) - im[i]);
       sc = pmax(sc, nabs(Af[i][j]));
     }
   const S reg = (Prec<T>::eps() * sc) * sc;
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int i = 0; i < M; ++i) {
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
     for (int j = 0; j < M; ++j) {
       S s = Af[0][i] * Af[0][j];
-#pragma unroll
+#pragma unroll (row_unroll(M, M - 1, 8))
       for (int k = 1; k < M; ++k) s = s + Af[k][i] * Af[k][j];
       AtA[i][j] = i == j ? s + reg : s;
     }
     S t = Af[0][i] * rhs[0];
-#pragma unroll
+#pragma unroll (row_unroll(M, M - 1, 8))
     for (int k = 1; k < M; ++k) t = t + Af[k][i] * rhs[k];
     Atr[i] = t;
   }
-  inv_spd<T>(AtA, Ai);
-#pragma unroll
+  inv_spd<T, 1>(AtA, Ai);
+#pragma unroll (row_unroll(M, M))
   for (int i = 0; i < M; ++i) {
     S xi = Ai[i][0] * Atr[0];
-#pragma unroll
+#pragma unroll (row_unroll(M, M - 1, 8))
     for (int j = 1; j < M; ++j) xi = xi + Ai[i][j] * Atr[j];
     xn[i] = xi * im[i] + xb[i];
   }
@@ -1082,21 +1118,21 @@ NPTT_HD void direct_boxed_solve_lane(const S (&A)[M][M], const S (&b)[M], const 
                                      const T (&hi)[M], S (&out)[M]) {
   T im[M];
   S x[M], best[M];
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int i = 0; i < M; ++i) {
     im[i] = T(1);
     x[i] = S(T(0));
     best[i] = nclip(x[i], lo[i], hi[i]);
   }
   S best_res = comp_residual<T>(A, b, lo, hi, best);
-#pragma unroll
+#pragma unroll (row_unroll(M, 3))
   for (int round = 0; round < 3; ++round) {
     S xn[M];
     lcp_subsolve<T>(A, b, lo, hi, im, x, xn);
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
     for (int i = 0; i < M; ++i) {
       S w = A[i][0] * xn[0];
-#pragma unroll
+#pragma unroll (row_unroll(M, M - 1, 8))
       for (int j = 1; j < M; ++j) w = w + A[i][j] * xn[j];
       w = w - b[i];
       const bool below = val(xn[i]) <= lo[i], above = val(xn[i]) >= hi[i];
@@ -1106,31 +1142,31 @@ NPTT_HD void direct_boxed_solve_lane(const S (&A)[M][M], const S (&b)[M], const 
     }
     const S res = comp_residual<T>(A, b, lo, hi, x);
     if (val(res) < val(best_res)) {
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
       for (int i = 0; i < M; ++i) best[i] = x[i];
       best_res = res;
     }
   }
   S y[M], inv_diag[M];
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int i = 0; i < M; ++i) {
     y[i] = best[i];
     const S id = T(1) / A[i][i];
     inv_diag[i] = nabs(val(A[i][i])) > T(1e-12) ? id : S(T(0));
   }
-#pragma unroll
+#pragma unroll (row_unroll(M, 8))
   for (int sweep = 0; sweep < 8; ++sweep)
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
     for (int i = 0; i < M; ++i) {
       S rs = A[i][0] * y[0];
-#pragma unroll
+#pragma unroll (row_unroll(M, M - 1, 8))
       for (int j = 1; j < M; ++j) rs = rs + A[i][j] * y[j];
       rs = rs - b[i];
       const S xi = nclip(y[i] - rs * inv_diag[i], lo[i], hi[i]);
       y[i] = y[i] + (xi - y[i]);
     }
   const bool better = val(comp_residual<T>(A, b, lo, hi, y)) < val(best_res);
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int i = 0; i < M; ++i) out[i] = better ? y[i] : best[i];
 }
 
@@ -1138,7 +1174,7 @@ NPTT_HD void direct_boxed_solve_lane(const S (&A)[M][M], const S (&b)[M], const 
 template <typename T, typename S, int M>
 NPTT_HD void classify_rows(const S (&x)[M], const T (&lo)[M], const T (&hi)[M], T (&cm)[M]) {
   const T thr = T(kClampThreshold), half_big = T(kBig / 2);
-#pragma unroll
+#pragma unroll (row_unroll(M, M))
   for (int r = 0; r < M; ++r) {
     const T xv = val(x[r]);
     const bool normal_clamp = xv > thr && hi[r] > half_big;
@@ -1159,13 +1195,13 @@ NPTT_HD void frozen_inputs(const T* __restrict__ P, const int* __restrict__ I, c
   S R[NB][9], p[NB][3], qdd[NQ], Mm[NQ][NQ], Mi[NQ][NQ];
   T lo[M], hi[M];
   forward_dynamics<T, S, NB, NQ, NA>(P, I, q, v, u, R, p, qdd);
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
   for (int d = 0; d < NQ; ++d) {
     vs[d] = v[d] + dt * qdd[d];
     qn[d] = q[d] + v[d] * dt;
   }
   mass_matrix<T, S, NB, NQ, NA>(P, I, R, p, Mm);
-  inv_spd<T>(Mm, Mi);
+  inv_spd<T, L::kUnroll>(Mm, Mi);
   constraint_rows<T, S, NB, NQ, NA, M, NS, true>(P, I, q, vs, R, p, Mi, A, b, lo, hi, MJ);
 }
 
@@ -1177,10 +1213,10 @@ NPTT_HD void frozen_step(const T* __restrict__ P, const int* __restrict__ I, con
   S vs[NQ], A[M][M], b[M], MJ[NQ][M], x[M];
   frozen_inputs<T, S, NB, NQ, NA, M, NS>(P, I, q, v, u, qn, vs, A, b, MJ);
   solve_frozen<NS, T>(A, b, cm, us, n_cg, x);
-#pragma unroll
+#pragma unroll (row_unroll(M, NQ))
   for (int d = 0; d < NQ; ++d) {
     S s = MJ[d][0] * x[0];
-#pragma unroll
+#pragma unroll (row_unroll(M, M - 1, 8))
     for (int c = 1; c < M; ++c) s = s + MJ[d][c] * x[c];
     vn[d] = vs[d] + s;
   }
@@ -1195,19 +1231,19 @@ NPTT_HD void class_step(const T* __restrict__ P, const int* __restrict__ I, cons
   S R[NB][9], p[NB][3], qdd[NQ], vs[NQ], Mm[NQ][NQ], Mi[NQ][NQ], A[M][M], b[M], MJ[NQ][M], x[M];
   T lo[M], hi[M];
   forward_dynamics<T, S, NB, NQ, NA>(P, I, q, v, u, R, p, qdd);
-#pragma unroll
+#pragma unroll (unroll_by(L::kUnroll, NQ))
   for (int d = 0; d < NQ; ++d) {
     vs[d] = v[d] + dt * qdd[d];
     qn[d] = q[d] + v[d] * dt;
   }
   mass_matrix<T, S, NB, NQ, NA>(P, I, R, p, Mm);
-  inv_spd<T>(Mm, Mi);
+  inv_spd<T, L::kUnroll>(Mm, Mi);
   constraint_rows<T, S, NB, NQ, NA, M, 0, false>(P, I, q, vs, R, p, Mi, A, b, lo, hi, MJ);
   direct_boxed_solve_lane<T>(A, b, lo, hi, x);
-#pragma unroll
+#pragma unroll (row_unroll(M, NQ))
   for (int d = 0; d < NQ; ++d) {
     S s = MJ[d][0] * x[0];
-#pragma unroll
+#pragma unroll (row_unroll(M, M - 1, 8))
     for (int c = 1; c < M; ++c) s = s + MJ[d][c] * x[c];
     vn[d] = vs[d] + s;
   }

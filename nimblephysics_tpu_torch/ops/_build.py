@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by its own ``nvcc -c``, all started
-together, and one more ``nvcc`` links the objects into one shared library
-with a plain C interface (no PyTorch headers), which is loaded with ctypes.
+One ``nvcc`` call compiles every ``csrc/*.cu`` and links them into one
+shared library with a plain C interface (no PyTorch headers), which is
+loaded with ctypes.
 The library goes to ``_build/<hash of the sources and flags>/``: a changed
 source gets a new directory, so a stale library is never loaded, and the
 file is renamed into place when complete, so no lock file is needed.
@@ -30,7 +30,6 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 NVCC_TIMEOUT_S = 900
 
 _P = ctypes.c_void_p
@@ -58,7 +57,7 @@ def source_hash() -> str:
     for p in sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -79,47 +78,26 @@ def _nvcc() -> str:
 
 
 def build() -> tuple:
-    """Build the library if it is missing: one ``nvcc -c`` per source, run
-    in parallel, then the link. Returns (path, seconds spent building, 0.0
-    when the library was already there)."""
+    """Build the library if it is missing, with one ``nvcc`` call. Returns
+    (path, seconds spent building, 0.0 when the library was already
+    there)."""
     lib = library_path()
     if lib.exists():
         return lib, 0.0
     lib.parent.mkdir(parents=True, exist_ok=True)
-    tag = f"{os.getpid()}.tmp"
-    nvcc = _nvcc()
+    tmp = lib.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+           *[str(p) for p in sources() if p.suffix == ".cu"]]
     t0 = time.perf_counter()
-    jobs = []
-    for src in (p for p in sources() if p.suffix == ".cu"):
-        obj = lib.parent / f"{src.stem}.{tag}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.STDOUT, text=True)))
-    log, failed = [], []
-    for cmd, _, proc in jobs:
-        try:
-            out, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, _ = proc.communicate()
-            out += f"\nnvcc timed out after {NVCC_TIMEOUT_S} s"
-            proc.returncode = -1
-        log.append(" ".join(cmd) + "\n" + out)
-        if proc.returncode != 0:
-            failed.append(out)
-    tmp = lib.with_name(f"{LIB_NAME}.{tag}")
-    if not failed:
-        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *[str(obj) for _, obj, _ in jobs]]
+    try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
-        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            failed.append(proc.stderr)
+    except subprocess.TimeoutExpired as e:
+        raise RuntimeError(f"nvcc timed out after {NVCC_TIMEOUT_S} s") from e
     seconds = time.perf_counter() - t0
-    (lib.parent / "nvcc.log").write_text("\n".join(log))
-    for _, obj, _ in jobs:
-        obj.unlink(missing_ok=True)
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(f[-4000:] for f in failed))
+    (lib.parent / "nvcc.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError("nvcc failed:\n" + proc.stderr[-4000:])
     os.replace(tmp, lib)
     return lib, seconds
 

@@ -9,7 +9,9 @@ frozen-class contact step by forward mode) and ``linearize_pallas_vjp``
 ``dyn_frozen_for_trace`` (the JAX helper ``_tau_stack`` is
 ``Model.action_to_tau`` here, which already stacks). ``linearize``,
 ``linearize_split`` and ``linearize_vjp`` launch the CUDA kernels of
-``csrc/linearize.cu`` on CUDA tensors and run their plain versions,
+``csrc/linearize.cu`` on CUDA tensors (``linearize`` with ``classes=``, the
+JAX kernel's monolithic JVP on frozen classes, launches K4's kernel, which
+on Hopper already is one) and run their plain versions,
 ``torch.func.jacfwd`` (K3, K4) or ``torch.func.jacrev`` (K5) of the plain
 step vmapped over the points, on CPU tensors. The frozen step's solve
 carries the derivatives of a linear solve (ops/frozen_contact.py), as in
@@ -33,6 +35,11 @@ from nimblephysics_tpu_torch.ops.frozen_contact import (
     gov_matrix,
 )
 from nimblephysics_tpu_torch.simulation.step import forward_step
+
+
+# points per call of a plain version's vmapped Jacobian: all B T points at
+# once would hold their (points, directions, m, m) intermediates together
+_PLAIN_CHUNK = 16384
 
 
 def dyn_for_trace(model: Model) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
@@ -59,13 +66,6 @@ def dyn_frozen_for_trace(model: Model, cg_iters: Optional[int] = None):
     return dyn
 
 
-def _no_classes(classes) -> None:
-    if classes is not None:
-        raise NotImplementedError(
-            "linearize with classes is K4, linearize_split (the JVP kernel's "
-            "classes= is ROADMAP queue B, K3)")
-
-
 def linearize_plain(model: Model, xs: torch.Tensor, u: torch.Tensor):
     """fx (B, T, nx, nx), fu (B, T, nx, na) by jacfwd of the plain step."""
     B, T, nx = xs.shape
@@ -77,9 +77,17 @@ def linearize_plain(model: Model, xs: torch.Tensor, u: torch.Tensor):
 
 def linearize(model: Model, xs: torch.Tensor, u: torch.Tensor, classes=None):
     """(fx, fu) at every point (xs (B, T, nx) pre-step states, u (B, T, na)).
-    The CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
+    The CUDA kernel on CUDA tensors, the plain version on CPU tensors.
+
+    With ``classes`` = (cmask, us), each (B, T, m): (fx, fu) of the
+    frozen-class step by forward mode, as ``linearize_pallas(classes=)``,
+    whose frozen solve always runs the default PCG depth m + 6 (it takes no
+    ``cg_iters``). On CUDA that is K4's kernel at depth m + 6, counted in
+    ``linearize.launches``; the plain version is ``linearize_split_plain``
+    at m + 6."""
     name = "linearize"
-    _no_classes(classes)
+    if classes is not None:
+        return _frozen_jvp(name, linearize, model, xs, u, classes, None)
     dev, dtype = _build.check_inputs(name, dict(xs=xs, u=u), contiguous=("xs", "u"))
     if xs.dim() != 3 or u.dim() != 3:
         raise ValueError(f"{name}: xs and u must be (B, T, nx) and (B, T, na)")
@@ -118,8 +126,12 @@ def linearize_split_plain(model: Model, xs: torch.Tensor, u: torch.Tensor, class
     m = cm.shape[-1]
     jac = torch.func.vmap(torch.func.jacfwd(dyn_frozen_for_trace(model, cg_iters),
                                             argnums=(0, 1)))
-    fx, fu = jac(xs.reshape(B * T, nx), u.reshape(B * T, na), cm.reshape(B * T, m),
-                 us.reshape(B * T, m))
+    flat = (xs.reshape(B * T, nx), u.reshape(B * T, na), cm.reshape(B * T, m),
+            us.reshape(B * T, m))
+    # in chunks of points, as linearize_vjp_plain
+    cols = [jac(*(a[i:i + _PLAIN_CHUNK] for a in flat)) for i in range(0, B * T, _PLAIN_CHUNK)]
+    fx = torch.cat([c[0] for c in cols])
+    fu = torch.cat([c[1] for c in cols])
     return fx.reshape(B, T, nx, nx), fu.reshape(B, T, nx, na)
 
 
@@ -128,7 +140,13 @@ def linearize_split(model: Model, xs: torch.Tensor, u: torch.Tensor, classes,
     """(fx, fu) of the frozen-class step at every point (xs (B, T, nx)
     pre-step states, u (B, T, na), classes = (cmask, us) each (B, T, m)).
     The CUDA kernel on CUDA tensors, the plain version on CPU tensors."""
-    name = "linearize_split"
+    return _frozen_jvp("linearize_split", linearize_split, model, xs, u, classes, cg_iters)
+
+
+def _frozen_jvp(name: str, wrapper, model: Model, xs, u, classes, cg_iters):
+    """K4 for ``linearize_split`` and ``linearize(classes=)``: validate, run
+    the plain version on CPU tensors, else launch the kernel and count the
+    launch on ``wrapper``."""
     cm, us = classes
     dev, dtype = _build.check_inputs(name, dict(xs=xs, u=u, cmask=cm, us=us),
                                      contiguous=("xs", "u", "cmask", "us"))
@@ -157,7 +175,7 @@ def linearize_split(model: Model, xs: torch.Tensor, u: torch.Tensor, classes,
         P.data_ptr(), I.data_ptr(), xs.data_ptr(), u.data_ptr(), cm.data_ptr(),
         us.data_ptr(), fx.data_ptr(), fu.data_ptr(), _build.stream_ptr(dev))
     _build.check(rc, name)
-    linearize_split.launches += 1
+    wrapper.launches += 1
     return fx, fu
 
 
@@ -181,9 +199,6 @@ def _analytic_top(model: Model, B: int, T: int, dtype, device):
             torch.zeros((B, T, nq, na), dtype=dtype, device=device))
 
 
-_VJP_CHUNK = 16384
-
-
 def linearize_vjp_plain(model: Model, xs: torch.Tensor, u: torch.Tensor, classes,
                         cg_iters: Optional[int] = None):
     """fx (B, T, nx, nx), fu (B, T, nx, na) of the frozen-class step: the
@@ -199,9 +214,7 @@ def linearize_vjp_plain(model: Model, xs: torch.Tensor, u: torch.Tensor, classes
         lambda x, uu, c, s: dyn(x, uu, c, s)[nq:], argnums=(0, 1)))
     flat = (xs.reshape(B * T, nx), u.reshape(B * T, na), cm.reshape(B * T, m),
             us.reshape(B * T, m))
-    # in chunks of points: the reverse pass over all B T points at once
-    # would hold its (points, nq, m, m) intermediates together
-    rows = [jac(*(a[i:i + _VJP_CHUNK] for a in flat)) for i in range(0, B * T, _VJP_CHUNK)]
+    rows = [jac(*(a[i:i + _PLAIN_CHUNK] for a in flat)) for i in range(0, B * T, _PLAIN_CHUNK)]
     fx_bot = torch.cat([r[0] for r in rows])
     fu_bot = torch.cat([r[1] for r in rows])
     fx_top, fu_top = _analytic_top(model, B, T, xs.dtype, xs.device)
@@ -216,7 +229,13 @@ def linearize_vjp(model: Model, xs: torch.Tensor, u: torch.Tensor, classes,
     (cmask, us) each (B, T, m)); the model must pass
     ``linear_position_update``. The CUDA kernel on CUDA tensors, the plain
     version on CPU tensors."""
-    name = "linearize_vjp"
+    return _frozen_vjp("linearize_vjp", linearize_vjp, model, xs, u, classes, cg_iters)
+
+
+def _frozen_vjp(name: str, wrapper, model: Model, xs, u, classes, cg_iters):
+    """K5 for ``linearize_vjp`` and the port's ``chained_linearize_vjp``:
+    validate, run the plain version on CPU tensors, else launch the kernel
+    and count the launch on ``wrapper``."""
     cm, us = classes
     dev, dtype = _build.check_inputs(name, dict(xs=xs, u=u, cmask=cm, us=us),
                                      contiguous=("xs", "u", "cmask", "us"))
@@ -251,7 +270,7 @@ def linearize_vjp(model: Model, xs: torch.Tensor, u: torch.Tensor, classes,
         xs.data_ptr(), u.data_ptr(), cm.data_ptr(), us.data_ptr(), scratch.data_ptr(),
         fx.data_ptr(), fu.data_ptr(), _build.stream_ptr(dev))
     _build.check(rc, name)
-    linearize_vjp.launches += 1
+    wrapper.launches += 1
     return fx, fu
 
 

@@ -115,6 +115,21 @@ def rollout_gains(model: Model, running_cost: Callable, final_cost: Callable,
                    running_cost.x_goal, final_cost.x_goal]).to(device=dev, dtype=dtype).contiguous()
     if w.shape[0] != 2 * model.nq + na + 3 * nx:
         raise ValueError(f"{name}: cost weights do not match the model")
+    out = launch_rollout(name, model, w, x0, xs_ref, u_ref, K, k, alphas, classes, n_cg)
+    rollout_gains.launches += 1
+    return out
+
+
+def launch_rollout(name: str, model: Model, w, x0, xs_ref, u_ref, K, k, alphas, classes,
+                   n_cg: int):
+    """K2's launch on validated CUDA tensors, the cost weights packed in
+    ``w`` (csrc/rollout.cu); returns (xs, us, costs). The caller counts the
+    launch."""
+    B, T, na = u_ref.shape
+    nx = 2 * model.nq
+    A = alphas.shape[0]
+    dtype, dev = x0.dtype, x0.device
+    m = 0 if classes is None else classes[0].shape[-1]
     P, I = device_step.pack_model(model)
     xs = torch.empty((A, B, T + 1, nx), dtype=dtype, device=dev)
     us = torch.empty((A, B, T, na), dtype=dtype, device=dev)
@@ -130,7 +145,6 @@ def rollout_gains(model: Model, running_cost: Callable, final_cost: Callable,
         u_ref.data_ptr(), K.data_ptr(), k.data_ptr(), alphas.data_ptr(), cm_ptr, us_ptr,
         xs.data_ptr(), us.data_ptr(), costs.data_ptr(), _build.stream_ptr(dev))
     _build.check(rc, name)
-    rollout_gains.launches += 1
     return xs, us, costs
 
 

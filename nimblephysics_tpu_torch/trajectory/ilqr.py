@@ -9,9 +9,10 @@ PyTorch counterpart of ``nimblephysics_tpu/trajectory/ilqr.py``:
   * ``ilqr_solve_batch``: B worlds at once, the same iteration as
     ``vmap(ilqr_solve)``, with kernels where the JAX package runs its
     Pallas kernels: linearize (K3; on frozen classes K5 where the JAX
-    package's "auto" takes it, else K4), the Riccati backward (K1) and the
-    line-search rollout (K2), the last also for the first open-loop
-    rollout.
+    package's "auto" takes it, else K4; "jvp" K4 at the frozen solve's
+    default depth, as ``linearize_pallas(classes=)``; "chain" K5 through
+    ``ops/lane_chain.py``), the Riccati backward (K1) and the line-search
+    rollout (K2), the last also for the first open-loop rollout.
   * ``solve_contact_mpc`` (one world, plain) and ``solve_contact_mpc_batch``:
     the per-step LCP classes come from one full-LCP rollout
     (``class_refresh="rollout"``, K6 in the batch) or from the pointwise
@@ -55,6 +56,10 @@ from nimblephysics_tpu_torch.ops.cuda_rollout import (
     rollout_gains_plain,
 )
 from nimblephysics_tpu_torch.ops.frozen_contact import FrozenClasses
+from nimblephysics_tpu_torch.ops.lane_chain import (
+    chained_linearize_vjp,
+    chained_linearize_vjp_plain,
+)
 from nimblephysics_tpu_torch.ops.linalg_small import inv_spd_pivots
 from nimblephysics_tpu_torch.simulation.step import rollout as full_rollout
 
@@ -71,13 +76,16 @@ class ILQRConfig:
     # backward pass: "sequential" only; "parallel" (the associative-scan
     # LQR of the JAX package) is not ported yet
     riccati: str = "sequential"
-    # linearize sweep of ilqr_solve_batch: K3 on the contact-free step; on
-    # frozen classes "split" takes K4, "vjp" K5, and "auto" K5 where every
-    # joint integrates linearly and nq >= 4, else K4 (the JAX package's
-    # rule); "jvp", "chain" and "xla" are not ported yet
+    # linearize sweep of ilqr_solve_batch: K3 on the contact-free step
+    # whatever the mode; on frozen classes "split" takes K4, "vjp" K5, and
+    # "auto" K5 where every joint integrates linearly and nq >= 4, else K4
+    # (the JAX package's rule); "jvp" K4 at the frozen solve's default PCG
+    # depth m + 6 whatever planner_cg_iters is (linearize_pallas(classes=)
+    # takes no depth); "chain" K5 (the JAX package's chained row-VJP);
+    # "xla" is not ported yet
     linearize: str = "auto"
-    # PCG depth of the frozen-class solve in the planner (K2, K4); None is
-    # m + 6
+    # PCG depth of the frozen-class solve in the planner (K2, K4, K5); None
+    # is m + 6
     planner_cg_iters: Optional[int] = None
     # line-search rollout of ilqr_solve_batch: "auto" (K2) only; "xla" is
     # not ported
@@ -97,23 +105,20 @@ class ILQRSolution(NamedTuple):
     k: torch.Tensor             # (..., T, na) feedforward terms
 
 
-_UNPORTED_LINEARIZE = {"jvp": "queue B, K3 classes=", "chain": "queue B, K8",
-                       "xla": "queue B"}
-
-
 def _check(model: Model, config: ILQRConfig, classes, dtype, device):
     """Validate the call; returns the classes as a (cmask, us) pair of
     contiguous tensors, or None for the contact-free dynamics."""
     if config.riccati != "sequential":
         raise NotImplementedError(
             f"riccati={config.riccati!r} is not ported yet (ROADMAP queue A, M3)")
-    if config.linearize not in ("auto", "split", "vjp"):
+    if config.linearize not in ("auto", "split", "vjp", "jvp", "chain"):
         raise NotImplementedError(
-            f"linearize={config.linearize!r} is not ported yet (ROADMAP "
-            f"{_UNPORTED_LINEARIZE.get(config.linearize, 'queue B')})")
+            f"linearize={config.linearize!r} is not ported yet (ROADMAP queue A, "
+            "M2/M3/M5 leftovers: the plain versions under kernels=False)")
     if config.rollout != "auto":
         raise NotImplementedError(
-            f"rollout={config.rollout!r} is not ported yet (ROADMAP queue B, K2)")
+            f"rollout={config.rollout!r} is not ported yet (ROADMAP queue A, "
+            "M2/M3/M5 leftovers: the plain versions under kernels=False)")
     if config.iters < 1:
         raise ValueError("iters must be at least 1")
     if model.device != device or model.dtype != dtype:
@@ -178,19 +183,26 @@ def ilqr_solve_batch(
     cl = _check(model, config, classes, dtype, device)
     nx = x0_flat.shape[-1]
     cg = config.planner_cg_iters
-    use_vjp = config.linearize == "vjp" or (
-        config.linearize == "auto" and linear_position_update(model) and model.nq >= 4)
+    mode = config.linearize
+    if mode == "auto":
+        mode = "vjp" if linear_position_update(model) and model.nq >= 4 else "split"
     if config.kernels:
         lin_free, ric, roll_fn = linearize, riccati_backward, rollout_gains
-        lin_frozen = linearize_vjp if use_vjp else linearize_split
+        lin_frozen = {"split": linearize_split, "vjp": linearize_vjp,
+                      "chain": lambda model, xs, u, cl, cg: chained_linearize_vjp(
+                          model, xs, u, cl, cg_iters=cg),
+                      "jvp": lambda model, xs, u, cl, cg: linearize(model, xs, u, classes=cl)}
     else:
         lin_free, ric, roll_fn = linearize_plain, riccati_backward_plain, rollout_gains_plain
-        lin_frozen = linearize_vjp_plain if use_vjp else linearize_split_plain
+        lin_frozen = {"split": linearize_split_plain, "vjp": linearize_vjp_plain,
+                      "chain": chained_linearize_vjp_plain,
+                      "jvp": lambda model, xs, u, cl, cg: linearize_split_plain(
+                          model, xs, u, cl)}
 
     def lin(model, xs, u):
         if cl is None:
             return lin_free(model, xs, u)
-        return lin_frozen(model, xs, u, cl, cg)
+        return lin_frozen[mode](model, xs, u, cl, cg)
 
     def roll(*args):
         return roll_fn(*args, classes=cl, cg_iters=cg)

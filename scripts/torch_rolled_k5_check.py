@@ -1,137 +1,33 @@
 #!/usr/bin/env python3
-"""Does K5 stay right when the device step's loops are rolled?
-
-    python3 scripts/torch_rolled_k5_check.py        # on one CUDA card
-
-The port's ``csrc/step.cuh`` unrolls every loop over the LCP rows, which
-makes ``linearize.cu`` take minutes to compile. This script copies
-``common.cuh``, ``step.cuh`` and ``linearize.cu`` into the gitignored
-``_build/rolled_src/``, turns every ``#pragma unroll`` there into
-``#pragma unroll 1`` (every loop rolled), and builds that copy in child
-processes, all started together, once per variant:
-
-  rolled_O3   the package's own nvcc flags (-O3);
-  rolled_G    device debug code (-G: no optimisation by NVVM or ptxas).
-
-Each child runs K5 (``linearize_vjp``) from its library on the jump worm's
-own inputs (chip_smoke.py's worm_kernel_inputs at B=8, T=100, f64 and f32)
-and prints the points whose (fx, fu) is not finite and the largest
-relative error against the plain version. Then, where the toolkit has
-``compute-sanitizer``, the rolled_O3 child runs again under its initcheck
-and memcheck tools, both together (the library is built by then), and
-their last lines are printed. The last line is one JSON object with every result.
+"""Undefined behaviour in the device step's loops, checked on the host.
 
     python3 scripts/torch_rolled_k5_check.py --host   # no card needed, g++
 
-checks the same source for undefined behaviour on the host instead: it
-builds tests/test_torch_device_step.py's worm harness (device_step,
-frozen_step, K5's two thread bodies, K2's and K7's, all on f64) three ways
-with g++ (-O1 under -fsanitize=address,undefined; -O2 with every local
-variable filled with a pattern, and with zeros, at creation), runs each on
-the tests' worm points (PCG depths 12, 1 and 2) and on chip_smoke.py's
-worm inputs (B=16, T=100, f64, the CPU), and prints the sanitizers'
-verdict, whether the two fills give identical bits (a read of an
-uninitialised variable that reaches a result would part them) and K5's
-largest rel error against its plain version.
+``csrc/step.cuh`` rolls its loops over the LCP rows, the contact slots and
+the PCG iterations, and K5 reads and writes the arrays of those loops by
+run-time indices. A card has no device-side sanitizer
+(``compute-sanitizer`` answers "Device not supported" on the H100), so this
+script builds tests/test_torch_device_step.py's worm harness
+(device_step, frozen_step, K5's two thread bodies, K2's and K7's, all on
+f64) three ways with g++ (-O1 under -fsanitize=address,undefined; -O2 with
+every local variable filled with a pattern, and with zeros, at creation),
+runs each on the tests' worm points (PCG depths 12, 1 and 2) and on
+chip_smoke.py's worm inputs (B=16, T=100, f64, the CPU), and prints the
+sanitizers' verdict, whether the two fills give identical bits (a read of
+an uninitialised variable that reaches a result would part them) and K5's
+largest rel error against its plain version. scripts/torch_unroll_variants.py
+checks the rolled kernels on the card.
 """
 
-import ctypes
 import json
-import os
-import re
-import shutil
 import subprocess
 import sys
-import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from nimblephysics_tpu_torch.ops import _build  # noqa: E402
-
-ROLLED = _build.BUILD_ROOT / "rolled_src"
-GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
-VARIANTS = {
-    "rolled_O3": _build.NVCC_FLAGS,
-    "rolled_G": GENCODE + ("-G", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"),
-}
-ROLLED_FILES = ("common.cuh", "step.cuh", "linearize.cu")
-B, T = 8, 100
-CHILD_TIMEOUT_S = 420
-SANITIZER_TIMEOUT_S = 300
-
-
-def write_rolled() -> int:
-    """The rolled copy of the sources; returns the number of pragmas changed."""
-    ROLLED.mkdir(parents=True, exist_ok=True)
-    changed = 0
-    for name in ROLLED_FILES:
-        text = (_build.CSRC_DIR / name).read_text()
-        text, n = re.subn(r"^(\s*)#pragma unroll\s*$", r"\1#pragma unroll 1", text,
-                          flags=re.MULTILINE)
-        changed += n
-        (ROLLED / name).write_text(text)
-    return changed
-
-
-def child(variant: str) -> int:
-    """Build (or find) the variant's library, run K5 from it, print one JSON line."""
-    import torch
-
-    import chip_smoke as cs
-    from nimblephysics_tpu_torch.ops.cuda_linearize import linearize_vjp, linearize_vjp_plain
-
-    _build.CSRC_DIR = ROLLED
-    _build.BUILD_ROOT = ROLLED.parent / f"rolled_{variant}"
-    _build.NVCC_FLAGS = VARIANTS[variant]
-    path, seconds = _build.build()
-    lib = ctypes.CDLL(str(path))
-    fn = lib.nptt_linearize_vjp
-    fn.argtypes = _build.SIGNATURES["nptt_linearize_vjp"]
-    fn.restype = ctypes.c_int
-    _build.load = lambda: lib  # the wrapper launches from this variant's library
-    stack = [line.strip() for line in _build.build_log().splitlines()
-             if "linearize_vjp" in line or ("stack frame" in line)]
-    out = {"variant": variant, "build_s": round(seconds, 1), "ptxas": stack[-8:]}
-    dev, cpu = torch.device("cuda"), torch.device("cpu")
-    for dtype in (torch.float64, torch.float32):
-        # the inputs and the plain version on the CPU, so that only K5 runs
-        # on the card (under compute-sanitizer too)
-        (model, pre, u, classes, cg), _ = cs.worm_kernel_inputs(cpu, B, T, dtype)["linearize_vjp"]
-        fx, fu = linearize_vjp(cs.worm_model(dev, dtype), pre.to(dev), u.to(dev),
-                               tuple(c.to(dev) for c in classes), cg)
-        fx, fu = fx.cpu(), fu.cpu()
-        fxp, fup = linearize_vjp_plain(model, pre, u, classes, cg)
-        k = torch.cat([fx.flatten(2), fu.flatten(2)], -1)
-        p = torch.cat([fxp.flatten(2), fup.flatten(2)], -1)
-        bad = int((~torch.isfinite(k).all(-1)).sum())
-        rel = float(((k - p).abs().max() / p.abs().max().clamp_min(1e-300))
-                    .nan_to_num(float("inf")))
-        out[str(dtype).split(".")[-1]] = {"points": B * T, "nonfinite_points": bad,
-                                          "max_rel_err": rel}
-    print(json.dumps(out), flush=True)
-    return 0
-
-
-def sanitizer() -> str:
-    found = shutil.which("compute-sanitizer")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "compute-sanitizer"
-    return str(cand) if cand.exists() else ""
-
-
-def run(cmd, timeout):
-    """(exit code or 'timeout', the output's last lines)."""
-    try:
-        p = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, cwd=ROOT)
-        return p.returncode, (p.stdout + p.stderr)[-3000:]
-    except subprocess.TimeoutExpired as e:
-        text = "".join((b or b"").decode(errors="replace") for b in (e.stdout, e.stderr))
-        return "timeout", text[-3000:]
-
 
 HOST_VARIANTS = {
     "asan_ubsan": ("-O1", "-g", "-fno-omit-frame-pointer", "-fsanitize=address,undefined",
@@ -220,51 +116,10 @@ def host() -> int:
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--child":
-        return child(sys.argv[2])
-    if sys.argv[1:] == ["--host"]:
-        return host()
-    import torch
-
-    if not torch.cuda.is_available():
-        print("needs a CUDA card", file=sys.stderr)
-        return 1
-    t0 = time.perf_counter()
-    print(f"{write_rolled()} pragmas rolled", flush=True)
-    me = str(Path(__file__).resolve())
-    procs = {v: subprocess.Popen([sys.executable, me, "--child", v], cwd=ROOT,
-                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for v in VARIANTS}
-    results = {}
-    for v, p in procs.items():
-        try:
-            text, _ = p.communicate(timeout=CHILD_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            p.kill()
-            text, _ = p.communicate()
-            text += "\ntimed out"
-        print(f"--- {v} (rc {p.returncode}, {time.perf_counter() - t0:.1f} s)\n{text[-3000:]}",
-              flush=True)
-        lines = [ln for ln in text.splitlines() if ln.startswith("{")]
-        results[v] = json.loads(lines[-1]) if lines else {"rc": p.returncode}
-    cs_bin = sanitizer()
-    if not cs_bin:
-        results["compute-sanitizer"] = "not in the toolkit"
-    elif "rolled_O3" in results and "float64" in results["rolled_O3"]:
-        tools = ("initcheck", "memcheck")
-        with ThreadPoolExecutor(len(tools)) as pool:
-            runs = pool.map(lambda tool: run([cs_bin, "--tool", tool, "--print-limit", "10",
-                                              sys.executable, me, "--child", "rolled_O3"],
-                                             SANITIZER_TIMEOUT_S), tools)
-            for tool, (rc, tail) in zip(tools, runs):
-                print(f"--- compute-sanitizer {tool} (rc {rc}, "
-                      f"{time.perf_counter() - t0:.1f} s)\n{tail}", flush=True)
-                summary = [ln for ln in tail.splitlines() if "ERROR SUMMARY" in ln]
-                results[f"compute-sanitizer {tool}"] = {"rc": rc, "summary": summary[-1:] or
-                                                        tail.splitlines()[-3:]}
-    print(f"done in {time.perf_counter() - t0:.1f} s")
-    print(json.dumps(results))
-    return 0
+    if sys.argv[1:] != ["--host"]:
+        print(__doc__, file=sys.stderr)
+        return 2
+    return host()
 
 
 if __name__ == "__main__":

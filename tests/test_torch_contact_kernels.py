@@ -11,12 +11,19 @@ T=10, the JAX Pallas kernels in interpret mode with block_b=128:
     one PCG iteration with two rows clamping, where only the implicit
     tangent passes; in f32 at cg_iters=4 against linearize_pallas_split at
     rel 2e-4;
+  * K3 linearize(classes=) (K4 at the frozen solve's default PCG depth
+    m + 6, as linearize_pallas(classes=) takes it): f64 against the same
+    jacfwd at rel 1e-9, f32 against linearize_pallas(classes=) at rel 2e-4;
+    ILQRConfig(linearize="jvp") takes that depth whatever planner_cg_iters
+    is;
   * K2 rollout_gains with classes against rollout_gains_pallas(classes=)
     at rel 1e-10;
   * solve_contact_mpc_batch against the JAX one (2 iterations, one outer
     iteration; the JAX side with linearize="xla", its f64-exact
     linearization): u, x, cost, cost history and the returned classes at
-    rel 1e-8;
+    rel 1e-8; the port's replan with linearize="jvp" against the same JAX
+    replan (whose "xla" linearize is the same function: jacfwd at depth
+    m + 6) on u, x and cost at rel 1e-9;
   * the port's one-world solvers against its batch solver, and the options
     not ported yet."""
 
@@ -28,15 +35,17 @@ import torch
 
 from nimblephysics_tpu.models import builders as jb
 from nimblephysics_tpu.ops.pallas_linearize import dyn_frozen_for_trace as j_dyn_frozen
-from nimblephysics_tpu.ops.pallas_linearize import linearize_pallas_split
+from nimblephysics_tpu.ops.pallas_linearize import linearize_pallas, linearize_pallas_split
 from nimblephysics_tpu.ops.pallas_rollout import rollout_classes_pallas, rollout_gains_pallas
 from nimblephysics_tpu.trajectory.ilqr import ILQRConfig as JConfig
 from nimblephysics_tpu.trajectory.ilqr import solve_contact_mpc_batch as j_contact_mpc
 
 from nimblephysics_tpu_torch.models.model import State
 from nimblephysics_tpu_torch.ops import frozen_contact as tf
-from nimblephysics_tpu_torch.ops.cuda_linearize import linearize_split
+from nimblephysics_tpu_torch.ops import cuda_linearize
+from nimblephysics_tpu_torch.ops.cuda_linearize import linearize, linearize_split
 from nimblephysics_tpu_torch.ops.cuda_rollout import rollout_classes, rollout_gains
+from nimblephysics_tpu_torch.trajectory import ilqr as ilqr_mod
 from nimblephysics_tpu_torch.trajectory.ilqr import (
     ILQRConfig,
     ilqr_solve,
@@ -166,6 +175,66 @@ def test_linearize_split_matches_pallas_f32_cg4(case):
     close(fu, fu_j, 2e-4)
 
 
+def test_linearize_with_classes_matches_jacfwd_f64(case, frozen_jac):
+    """K3's classes= form: the frozen step's jacfwd at the default depth
+    m + 6 (linearize_pallas(classes=) takes no PCG depth)."""
+    fx, fu = linearize(case["mt"], t64(case["xs_pre"]), t64(case["u"]),
+                       classes=(t64(case["cmask"]), t64(case["us"])))
+    close(fx, frozen_jac["full"][0], 1e-9)
+    close(fu, frozen_jac["full"][1], 1e-9)
+
+
+def test_linearize_with_classes_matches_pallas_f32(case):
+    mj32 = narrowed_jax(jnp.float32)
+    mt32 = to_port(mj32)
+    f32 = lambda a: jnp.asarray(a, jnp.float32)  # noqa: E731
+    fx_j, fu_j = jax.jit(lambda x, u, cm, us: linearize_pallas(
+        mj32, x, u, block_b=128, interpret=True, classes=(cm, us)))(
+        f32(case["xs_pre"]), f32(case["u"]), f32(case["cmask"]), f32(case["us"]))
+    t32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32)  # noqa: E731
+    fx, fu = linearize(mt32, t32(case["xs_pre"]), t32(case["u"]),
+                       classes=(t32(case["cmask"]), t32(case["us"])))
+    close(fx, fx_j, 2e-4)
+    close(fu, fu_j, 2e-4)
+
+
+def test_jvp_takes_the_default_pcg_depth(case, frozen_jac, monkeypatch):
+    """ILQRConfig(linearize="jvp") linearizes at the frozen solve's default
+    depth m + 6 even where planner_cg_iters is smaller, as the JAX package's
+    linearize_pallas(classes=) does; "split" and "chain" take
+    planner_cg_iters. At one PCG iteration with two rows clamping the two
+    depths give different Jacobians."""
+    from nimblephysics_tpu_torch.ops import lane_chain
+
+    depths = []
+
+    def spy(real):
+        def plain(model, xs, u, classes, cg_iters=None):
+            depths.append(cg_iters)
+            return real(model, xs, u, classes, cg_iters)
+        return plain
+
+    split, vjp = cuda_linearize.linearize_split_plain, cuda_linearize.linearize_vjp_plain
+    for mod in (cuda_linearize, ilqr_mod):
+        monkeypatch.setattr(mod, "linearize_split_plain", spy(split))
+    for mod in (cuda_linearize, lane_chain):
+        monkeypatch.setattr(mod, "linearize_vjp_plain", spy(vjp))
+    run_t, fin_t = port_cartpole_costs(case["mt"])
+    args = (case["mt"], t64(case["x0"]), torch.zeros(B, T, 1, dtype=torch.float64), run_t,
+            fin_t)
+    cl = (t64(case["cmask"]), t64(case["us"]))
+    for mode in ("jvp", "split", "chain"):
+        for kernels in (True, False):
+            ilqr_solve_batch(*args, ILQRConfig(iters=1, linearize=mode, planner_cg_iters=1,
+                                               kernels=kernels), classes=cl)
+    assert depths == [None, None, 1, 1, 1, 1]
+    two = t64(frozen_jac["two"])
+    x, u = t64(case["xs_pre"]), t64(case["u"])
+    fx, _ = linearize(case["mt"], x, u, classes=(two, torch.zeros_like(two)))
+    fx1, _ = split(case["mt"], x, u, (two, torch.zeros_like(two)), 1)
+    assert float((fx - fx1).abs().max()) > 1e-6
+
+
 def test_rollout_gains_with_classes_matches_pallas(case):
     rng = np.random.default_rng(7)
     K = 0.5 * rng.standard_normal((B, T, 1, 4))
@@ -204,12 +273,30 @@ def mpc(case):
     cl0_t = tf.FrozenClasses(t64(cl0.cmask), t64(cl0.us))
     sol_t, cl_t = solve_contact_mpc_batch(case["mt"], t64(case["x0"]), t64(u0), run_t, fin_t,
                                           ILQRConfig(iters=ITERS), outer_iters=1, classes=cl0_t)
-    return dict(sol_j=sol_j, cl_j=cl_j, sol_t=sol_t, cl_t=cl_t, costs=(run_t, fin_t))
+    return dict(sol_j=sol_j, cl_j=cl_j, sol_t=sol_t, cl_t=cl_t, costs=(run_t, fin_t), cl0=cl0_t)
 
 
 @pytest.mark.parametrize("field", ["u", "x", "cost", "cost_history", "K", "k"])
 def test_solve_contact_mpc_batch_matches_jax(mpc, field):
     close(getattr(mpc["sol_t"], field), getattr(mpc["sol_j"], field), 1e-8)
+
+
+@pytest.fixture(scope="module")
+def mpc_jvp(case, mpc):
+    run_t, fin_t = mpc["costs"]
+    sol, _ = solve_contact_mpc_batch(case["mt"], t64(case["x0"]),
+                                     torch.zeros(B, T, 1, dtype=torch.float64), run_t, fin_t,
+                                     ILQRConfig(iters=ITERS, linearize="jvp"), outer_iters=1,
+                                     classes=mpc["cl0"])
+    return sol
+
+
+@pytest.mark.parametrize("field", ["u", "x", "cost"])
+def test_solve_contact_mpc_batch_jvp_matches_jax(mpc, mpc_jvp, field):
+    """The replan with linearize="jvp" against the JAX replan of the mpc
+    fixture (linearize="xla", jacfwd of the frozen step at depth m + 6: the
+    function "jvp" computes)."""
+    close(getattr(mpc_jvp, field), getattr(mpc["sol_j"], field), 1e-9)
 
 
 def test_solve_contact_mpc_batch_classes_match_jax(mpc):
@@ -271,7 +358,7 @@ def test_contact_options_not_ported_raise(case, mpc):
     args = (case["mt"], t64(case["x0"]), torch.zeros(B, T, 1, dtype=torch.float64), run_t, fin_t)
     with pytest.raises(ValueError, match="class_refresh"):
         solve_contact_mpc_batch(*args, class_refresh="scan")
-    with pytest.raises(NotImplementedError, match="K3"):
-        solve_contact_mpc_batch(*args, ILQRConfig(linearize="jvp"))
+    with pytest.raises(NotImplementedError, match="M2/M3/M5"):
+        solve_contact_mpc_batch(*args, ILQRConfig(linearize="xla"))
     with pytest.raises(NotImplementedError, match="M4"):
         ilqr_solve_batch(*args)

@@ -86,11 +86,14 @@ def test_unported_options_raise(case):
     args = (case["mt"], t64(case["x0"]), t64(case["u0"]), run_t, fin_t)
     with pytest.raises(NotImplementedError, match="parallel"):
         ilqr_solve_batch(*args, ILQRConfig(riccati="parallel"))
-    for linearize, item in (("jvp", "K3"), ("xla", "queue B"), ("chain", "K8")):
-        with pytest.raises(NotImplementedError, match=item):
-            ilqr_solve_batch(*args, ILQRConfig(linearize=linearize))
-    with pytest.raises(NotImplementedError, match="K2"):
+    with pytest.raises(NotImplementedError, match="M2/M3/M5"):
+        ilqr_solve_batch(*args, ILQRConfig(linearize="xla"))
+    with pytest.raises(NotImplementedError, match="M2/M3/M5"):
         ilqr_solve_batch(*args, ILQRConfig(rollout="xla"))
+    # on the contact-free step "jvp" and "chain" are K3, as "auto" is
+    for linearize in ("jvp", "chain"):
+        sol = ilqr_solve_batch(*args, ILQRConfig(iters=ITERS, linearize=linearize))
+        assert torch.equal(sol.u, case["sol_t"].u)
     # a model with limit rows needs frozen classes (or the implicit LCP
     # derivative, not ported yet); classes on a model without rows are the
     # contact-free step

@@ -14,12 +14,17 @@
   * solve_contact_mpc_batch(class_refresh="pointwise") as a whole at B=2,
     T=10 (one iteration, bench.py's worm costs and budget otherwise; the
     JAX side with linearize="xla" and rollout="xla", its f64-exact lanes):
-    u, x, cost and the returned classes at rel 1e-9.
+    u, x, cost and the returned classes at rel 1e-9; the port's replan with
+    linearize="chain" against the same JAX replan (not the JAX chain replan,
+    which takes ~90 s here: its "xla" linearize at this fixture is the
+    function K5 and the chain compute).
 
 States: numpy default_rng(SEED) around the worm resting on the floor (root
 y = -0.528, 3 mm into the floor), moving down and sliding (x velocity up to
 1.5 m/s), so that normal, friction (stuck and sliding) and joint-limit rows
 all clamp somewhere. The JAX references are computed once per module."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -273,6 +278,22 @@ def mpc(worm):
 @pytest.mark.parametrize("field", ("u", "x", "cost", "cost_history"))
 def test_pointwise_replan_matches_jax(mpc, field):
     close(getattr(mpc["sol_t"], field), getattr(mpc["sol_j"], field), 1e-9)
+
+
+@pytest.fixture(scope="module")
+def mpc_chain(mpc):
+    model, x0, u0, rc, fc, cfg = mpc["args"]
+    sol, _ = solve_contact_mpc_batch(model, x0, u0, rc, fc,
+                                     dataclasses.replace(cfg, linearize="chain"),
+                                     outer_iters=1, class_refresh="pointwise")
+    return sol
+
+
+@pytest.mark.parametrize("field", ("u", "x", "cost", "cost_history"))
+def test_pointwise_replan_chain_matches_jax(mpc, mpc_chain, field):
+    """linearize="chain" against the JAX replan of the mpc fixture, whose
+    linearize is "xla" (jacfwd of the frozen step), not "chain"."""
+    close(getattr(mpc_chain, field), getattr(mpc["sol_j"], field), 1e-9)
 
 
 def test_pointwise_replan_classes_match_jax(mpc):

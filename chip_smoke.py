@@ -76,7 +76,9 @@ Phases:
      the rows (at least 4), counts printed); then K2 over one step and K5
      on 256 sliding worm points whose friction rows ride the cone, at PCG
      depths 1 and 2, with no row excused (f64 rel 1e-9, f32 rel 2e-4);
-     then each kernel at B=2048 in f32 with kernel and plain times;
+     then each kernel at B=2048 in f32 with kernel and plain times. It
+     first prints the lane-group layout of K2's worm instance and K5
+     (lanes per group, groups per block, shared bytes per block);
   9. the worm replan in f64, kernel path against plain path, B=256, from
      cold (two pointwise refreshes): costs rel 1e-10, u as in phase 6,
      no world above its initial cost;
@@ -104,7 +106,8 @@ Phases:
      linearize="chain": f64 at B=256 from cold, kernel path against phase
      9's plain path (the plain path of "chain" runs the same functions)
      under phase 9's rules (K8 4, K5 0), then f32 as "jvp" in phase 11;
- 13. a JSON line with every kernel's numbers, then the result line.
+ 13. a JSON line with every kernel's numbers and its layout ("design"),
+     then the result line.
 
 Exits non-zero without CUDA, and on any failure. Imports nothing of JAX.
 """
@@ -441,14 +444,10 @@ def solve(dev, dtype, use_kernels, x0_np, T):
     return sol, cost0, seconds
 
 
-# kernels per wrapper launch where it is not 1: K5 runs its primal kernel,
-# then its column kernel
-KERNELS_PER_LAUNCH = {"linearize_vjp": 2, "chained_linearize_vjp": 2}
-
-
 def kernel_launches():
-    """The port's kernel launches so far, by the wrappers' counters."""
-    return sum(fn.launches * KERNELS_PER_LAUNCH.get(n, 1) for n, fn in WRAPPERS.items())
+    """The port's kernel launches so far, by the wrappers' counters (one
+    kernel per wrapper launch)."""
+    return sum(fn.launches for fn in WRAPPERS.values())
 
 
 def profile_solve(label, run, attempts=2):
@@ -878,6 +877,28 @@ REPLACES.update({
 })
 
 
+# each kernel's layout on the card, for the kernels' JSON line
+_THREAD = "one thread per {}"
+_K2_GROUPS = ("lane groups (csrc/frozen_group.cuh): one group per {} with the frozen "
+              "step's rows on its lanes and Qf in shared memory")
+_K5_GROUPS = ("one fused kernel, a lane group per point (csrc/frozen_group.cuh): the primal "
+              "and nq adjoint PCGs over one Qf in shared memory, the tangent through the "
+              "factors of A, one lane per direction of (x, u)")
+DESIGN = {
+    "riccati_backward": _THREAD.format("world"), "linearize": _THREAD.format("(point, direction)"),
+    "rollout_gains": _THREAD.format("(alpha, world)"),
+    "linearize_split": _THREAD.format("(point, direction)"),
+    "rollout_classes": _THREAD.format("world"),
+    "rollout_gains[classes]": _THREAD.format("(alpha, world)"),
+    "pgs_batched": _THREAD.format("LCP, its matrix in shared memory"),
+    "linearize_vjp": _K5_GROUPS, "rollout_gains[worm]": _K2_GROUPS.format("(alpha, world)"),
+    "riccati_backward[worm]": _THREAD.format("world"),
+    "linearize[classes]": "K4's kernel at PCG depth m + 6, " + _THREAD.format("(point, direction)"),
+    "chained_linearize_vjp": "K5's kernel: " + _K5_GROUPS,
+    "chained_step_rollout": "K2's kernel at one alpha: " + _K2_GROUPS.format("world"),
+}
+
+
 def worm_least_work(model, B, T, A, itemsize, n_lcp_iters=WORM_LCP_ITERS, cg=WORM_CG):
     """(bytes, operations) of the worm path's kernels, as least_work: every
     input read once, every output written once, and the kernel's
@@ -886,8 +907,9 @@ def worm_least_work(model, B, T, A, itemsize, n_lcp_iters=WORM_LCP_ITERS, cg=WOR
     residual and the update, and on a friction row its coupled bound
     (pgs_solve's arithmetic; the sweep count is fixed, not data-dependent).
     K5: ops/device_step.py vjp_point_least_ops per point (the primal with
-    its nq adjoint PCGs once, then nq reverse sweeps at a tangent sweep's
-    cost, not the kernel's 2 nq + na columns). K2 and K1 as
+    its nq adjoint PCGs once, then nq reverse sweeps of the tangent through
+    the factors of A at a tangent sweep's cost, not the kernel's 2 nq + na
+    dual directions and its lanes' copies of the dynamics). K2 and K1 as
     contact_least_work and least_work, at the worm's shapes and PCG depth."""
     nx, na, m = 2 * model.nq, model.num_actions, lcp_dim(model)
     n = B * T
@@ -1523,6 +1545,14 @@ def main() -> int:
 
     log(f"{elapsed()} phase 8: the worm path's kernels against their plain versions, "
         f"jump worm, B={WORM_B_CHECK}, T={H}")
+    for name, groups in (("rollout", f"A x B = {len(WORM_ALPHAS)} x {WORM_B}"),
+                         ("linearize_vjp", f"B x T = {WORM_B} x {H}")):
+        shapes = {d: _build.group_shape(name, dt) for d, dt in (("f32", torch.float32),
+                                                                ("f64", torch.float64))}
+        log(f"  {name} worm instance on lane groups: one group per {groups} at the path's "
+            f"shape, {shapes['f32']['lanes']} lanes per group, "
+            f"{shapes['f32']['groups_per_block']} groups per block, shared memory per block "
+            f"{shapes['f32']['shared_bytes']} B (f32) / {shapes['f64']['shared_bytes']} B (f64)")
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).split(".")[-1]
         inputs = worm_kernel_inputs(dev, WORM_B_CHECK, H, dtype)
@@ -1639,7 +1669,7 @@ def main() -> int:
             "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
+            "library_ms": None, "design": DESIGN[name],
         })
         log(f"  {name}: least bytes {b} ({t_bytes:.5f} ms), operations {ops} "
             f"({t_ops:.5f} ms)")

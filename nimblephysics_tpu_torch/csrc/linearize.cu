@@ -46,18 +46,36 @@
 // same truncated PCG applied to the cotangent, as the transpose rule of
 // lax.custom_linear_solve(symmetric=True) runs it. Forward mode with the
 // implicit tangent (K4) differs from this where the PCG has not converged.
-// Design, tape-free, in two kernels (the JAX kernel's primal/row split,
-// here for parallelism): one thread per point runs the frozen solve's
-// inputs on T, its PCG (x_C) and the nq adjoint PCGs lam_k, into a scratch
-// buffer; then one thread per (point, direction of (x, u)) runs the inputs
-// on Dual<T>, which gives the tangents of v*, MJ, Qf, reg and bvec, and
-// writes its column: row k's entry is e_k^T dv* + e_k^T dMJ R (cm * x_C) +
-// lam_k^T (dbvec - (dQf^T Qf + Qf^T dQf + dreg) x_C). Bound on this card:
-// arithmetic (nq + 1 PCGs per point, nx + na dual assemblies of the M-row
-// LCP); M = 28 arrays live in local memory. Least work (chip_smoke.py):
-// (xs, u, cm, us) read and (fx, fu) written once, vjp_point_ops per point
-// (ops/device_step.py), the scratch round trip not counted.
-#include "step.cuh"
+// Design, tape-free, in one kernel with one lane group (frozen_group.cuh)
+// per point:
+//   * the primal: the frozen solve's inputs and normal equations on the
+//     group, then the primal PCG (x_C) and the nq adjoint PCGs lam_k =
+//     PCG(cm * R^T MJ^T e_k) as nq + 1 right-hand sides over the one Qf in
+//     shared memory, each with its own alpha and beta (each equals a
+//     separate step.cuh pcg but for the order of its scalar sums);
+//   * the tangent through the factors of A: cmask, us and so C and R are
+//     constants of the point, so dQf = C dA R with dA = dJ MJ + J dMJ and
+//     dMJ = -M^-1 dM MJ + M^-1 dJ^T. Every term of row k then contracts
+//     against vectors fixed per point: with y = Qf x_C, g_k = Qf lam_k,
+//     a1 = C (cm b - y), a2_k = -C g_k, x = R x_C and w_k = R lam_k,
+//       row k = <G_k, dJ> + <H_k, dM> + c_k . dv*,
+//       G_k[r] = a1_r MJ w_k + w_k[r] pa1 + a2_k[r] (MJ x + v*)
+//                + x_r (pa2_k + M^-1[k, :]),
+//       H_k = -pa1 (MJ w_k)^T - (pa2_k + M^-1[k, :]) (MJ x)^T,
+//       c_k = e_k + J^T a2_k,
+//     pa = M^-T J^T a; where entries of C A R attain max|Qf| >= 1, the
+//     tangent of reg = eps max(max|Qf|, 1)^2 (jnp's tie rule) adds its
+//     terms to G_k and H_k. The group writes G_k, H_k and c_k to shared
+//     memory; then lane d < 2 nq + na takes direction d of (x, u): the
+//     step's inputs on Dual<T> (forward_dynamics for v*; for a direction
+//     of q also mass_matrix and the contact rows, streamed slot by slot),
+//     contracted with them, and writes column d. No M-sized dual array, no
+//     O(M^2) dual pass and no scratch in device memory.
+// Bound on this card: arithmetic (nq + 1 PCGs per point, then 2 nq + na
+// dual steps without their LCP). Least work (chip_smoke.py): (xs, u, cm,
+// us) read and (fx, fu) written once, vjp_point_least_ops per point
+// (ops/device_step.py).
+#include "frozen_group.cuh"
 
 namespace nptt {
 
@@ -128,115 +146,330 @@ NPTT_HD void linearize_split_thread(long long tid, int n_cg, const T* __restrict
   }
 }
 
-// K5's scratch per point: x_C (M), x = R (cm * x_C) (M), lam_k (NQ M).
-template <int NQ, int M>
-struct VjpScratch {
-  static constexpr int kXc = 0, kXr = M, kLam = 2 * M, kSize = 2 * M + NQ * M;
+// K5's shared memory per point: the frozen solve's, with nq + 1
+// right-hand sides; the rows of J; and the tangent's coefficients G_k (on
+// the rows of J), H_k (on M) and c_k (on v*).
+template <typename S, int NB, int NQ, int M>
+struct VjpShared {
+  FrozenShared<S, NB, NQ, M, NQ + 1> fs;
+  S J[M][NQ];
+  S G[NQ][M][NQ];
+  S H[NQ][NQ][NQ];
+  S c[NQ][NQ];
 };
 
-// K5's first thread body, one per point: the frozen solve's primal on T
-// (its PCG gives x_C) and the nq adjoint PCGs lam_k = PCG(cm * R^T MJ^T e_k),
-// into the point's scratch. R is the arithmetic type (T on the card; the
-// host build also runs it on a counting scalar).
-template <typename T, typename R, int NB, int NQ, int NA, int M, int NS>
-NPTT_HD void linearize_vjp_primal(long long n, int n_cg, const T* __restrict__ P,
-                                  const int* __restrict__ I, const T* __restrict__ xs,
-                                  const T* __restrict__ u, const T* __restrict__ cm_all,
-                                  const T* __restrict__ us_all, R* __restrict__ scratch) {
-  using L = StepLayout<NB, NQ, NA>;
-  using SC = VjpScratch<NQ, M>;
-  constexpr int NX = 2 * NQ;
-  const T* cm = cm_all + n * M;
-  const T* us = us_all + n * M;
-  R* sc = scratch + n * SC::kSize;
-  R x[NX], ua[NA], qn[NQ], vs[NQ], A[M][M], b[M], MJ[NQ][M], Qf[M][M], reg, diagM[M], bvec[M],
-      xc[M], xr[M];
-#pragma unroll (unroll_by(L::kUnroll, NX))
-  for (int i = 0; i < NX; ++i) x[i] = R(xs[n * NX + i]);
-#pragma unroll (unroll_by(L::kUnroll, NA))
-  for (int a = 0; a < NA; ++a) ua[a] = R(u[n * NA + a]);
-  frozen_inputs<T, R, NB, NQ, NA, M, NS>(P, I, x, x + NQ, ua, qn, vs, A, b, MJ);
-  frozen_normal_eqs<T, R, M, NS>(A, b, cm, us, Qf, reg, diagM, bvec);
-  pcg<T>(Qf, reg, diagM, bvec, n_cg, xc);
-  frozen_impulses<T, R, M, NS>(cm, us, xc, xr);
-#pragma unroll (row_unroll(M, M))
-  for (int i = 0; i < M; ++i) {
-    sc[SC::kXc + i] = xc[i];
-    sc[SC::kXr + i] = xr[i];
+// acc = prod at a lane's first owned index, acc + prod at the others
+template <typename S>
+NPTT_HD void accumulate(S& acc, int o, S prod) {
+  acc = o == 0 ? prod : acc + prod;
+}
+
+// sign(Qf_ij) where |Qf_ij| attains max|Qf| = mx, else 0
+template <typename T, class Sh>
+NPTT_HD T tie_sign(const Sh& sh, int i, int j, T mx) {
+  const T q = val(sh.fs.Qf[i][j]);
+  return nabs(q) == mx ? (q >= T(0) ? T(1) : T(-1)) : T(0);
+}
+
+// The terms of jnp's tie rule for max|Qf| in G_k and H_k (see the K5 note
+// above): dreg = 2 eps qs share sum over the tied entries (i, j) of
+// sign(Qf_ij) dQf_ij, dQf = C dA R. Runs only where an entry with
+// cmask_i = cmask_j = 1 attains max|Qf| >= 1 (the group decides alike).
+template <typename T, typename R, int NB, int NQ, int M, int NS, int G, class Grp>
+NPTT_HD void vjp_tie_terms(const Grp& g, VjpShared<R, NB, NQ, M>& sh, const T* cm, const T* us,
+                           R mx, const R (&Mi)[NQ][NQ], const R* lamxc) {
+  constexpr int kN = Owned<M, G>::kN, C0 = 3 * NS;
+  const T mxv = val(mx);
+  T cnt = T(0), live = T(0);
+#pragma unroll (unroll_by(true, kN))
+  for (int o = 0; o < kN; ++o) {
+    const int i = g.lane + G * o;
+    if (i >= M) continue;
+    for (int j = 0; j < M; ++j)
+      if (nabs(val(sh.fs.Qf[i][j])) == mxv) {
+        cnt = cnt + T(1);
+        if (cm[i] != T(0) && cm[j] != T(0)) live = T(1);
+      }
   }
-#pragma unroll (row_unroll(M, NQ))
-  for (int k = 0; k < NQ; ++k) {
-    // cm * R^T MJ^T e_k: R^T y = cm * (y + the coupled rows' us y)
-    R xbar[M], lam[M];
-#pragma unroll (row_unroll(M, M))
+  T tie[2] = {cnt, live};
+  g.sum(tie);
+  const T share = mxv > T(1) ? T(1) / tie[0] : (mxv == T(1) ? T(0.5) / tie[0] : T(0));
+  if (share == T(0) || tie[1] == T(0)) return;
+  const T qs = mxv > T(1) ? mxv : T(1);
+  R coef[NQ], Hs[NQ * NQ];
+  for (int k = 0; k < NQ; ++k) coef[k] = -(T(2) * Prec<T>::eps() * qs * share) * lamxc[k];
+  for (int e = 0; e < NQ * NQ; ++e) Hs[e] = R(T(0));
+#pragma unroll (unroll_by(true, kN))
+  for (int o = 0; o < kN; ++o) {
+    const int i = g.lane + G * o;
+    if (i >= M || cm[i] == T(0)) continue;
+    // row i: MJ R omega_i = sum over tied j of sign_ij (MJ R)[:, j], with
+    // (MJ R)[e][j] in sh.fs.p
+    R mw[NQ];
+    bool any = false;
     for (int j = 0; j < M; ++j) {
-      R y = MJ[k][j];
-      if (j < 3 * NS && j % 3 == 0) y = (y + us[j + 1] * MJ[k][j + 1]) + us[j + 2] * MJ[k][j + 2];
-      xbar[j] = cm[j] * (cm[j] * y);
+      const T sij = tie_sign<T>(sh, i, j, mxv);
+      if (sij == T(0) || cm[j] == T(0)) continue;
+      for (int e = 0; e < NQ; ++e) {
+        const R term = sij * sh.fs.p[e][j];
+        mw[e] = any ? mw[e] + term : term;
+      }
+      any = true;
     }
-    pcg<T>(Qf, reg, diagM, xbar, n_cg, lam);
-#pragma unroll (row_unroll(M, M))
-    for (int j = 0; j < M; ++j) sc[SC::kLam + k * M + j] = lam[j];
+    if (!any) continue;
+    for (int e = 0; e < NQ; ++e) {
+      const R cj = cm[i] * sh.J[i][e];
+      for (int f = 0; f < NQ; ++f) Hs[e * NQ + f] = Hs[e * NQ + f] + cj * mw[f];
+      if (i < C0)
+        for (int k = 0; k < NQ; ++k) sh.G[k][i][e] = sh.G[k][i][e] + coef[k] * (cm[i] * mw[e]);
+    }
+  }
+#pragma unroll (unroll_by(true, kN))
+  for (int o = 0; o < kN; ++o) {
+    const int l = g.lane + G * o;
+    if (l >= C0) continue;
+    // u_l = sum_i cm_i Omega_il J_i, with
+    // Omega_il = sign_il cm_l^2 + [l friction] sign_if cm_f^2 us_l
+    const int f = l - l % 3;
+    R ul[NQ];
+    bool any = false;
+    for (int i = 0; i < M; ++i) {
+      if (cm[i] == T(0)) continue;
+      const T om = tie_sign<T>(sh, i, l, mxv) * (cm[l] * cm[l]) +
+                   (l % 3 != 0 ? tie_sign<T>(sh, i, f, mxv) * (cm[f] * cm[f]) * us[l] : T(0));
+      if (om == T(0)) continue;
+      for (int e = 0; e < NQ; ++e) {
+        const R term = (cm[i] * om) * sh.J[i][e];
+        ul[e] = any ? ul[e] + term : term;
+      }
+      any = true;
+    }
+    if (!any) continue;
+    for (int e = 0; e < NQ; ++e) {
+      R mu = Mi[0][e] * ul[0];
+      for (int h = 1; h < NQ; ++h) mu = mu + Mi[h][e] * ul[h];
+      for (int k = 0; k < NQ; ++k) sh.G[k][l][e] = sh.G[k][l][e] + coef[k] * mu;
+    }
+  }
+  g.sum(Hs);
+  for (int L = g.lane; L < NQ * NQ; L += G) {
+    const int k = L / NQ, e = L % NQ;
+    for (int f = 0; f < NQ; ++f) {
+      R ht = Mi[0][e] * Hs[f];
+      for (int h = 1; h < NQ; ++h) ht = ht + Mi[h][e] * Hs[h * NQ + f];
+      sh.H[k][e][f] = sh.H[k][e][f] - coef[k] * ht;
+    }
   }
 }
 
-// K5's second thread body, one per (point, direction d of (x, u)): the
-// solve's inputs on Dual<R> seeded with e_d, then column d of the v' rows,
-//   e_k^T dv* + e_k^T dMJ x + lam_k^T (dbvec - (dQf^T Qf + Qf^T dQf + dreg) x_C),
-// from the point's scratch; direction 0 also writes the analytic q' rows,
-// [I, dt I] and 0.
+// Column d of the v' rows at point n: the step's inputs on Dual<R> seeded
+// with e_d contracted with the point's coefficients,
+//   row_k = <G_k, dJ> + <H_k, dM> + c_k . dv*
+// (dJ and dM vanish on the directions of v and u); and column d of the q'
+// rows, [I, dt I] and 0.
 template <typename T, typename R, int NB, int NQ, int NA, int M, int NS>
-NPTT_HD void linearize_vjp_column(long long tid, const T* __restrict__ P,
-                                  const int* __restrict__ I, const T* __restrict__ xs,
-                                  const T* __restrict__ u, const T* __restrict__ cm_all,
-                                  const T* __restrict__ us_all, const R* __restrict__ scratch,
-                                  R* __restrict__ fx, R* __restrict__ fu) {
+NPTT_HD void vjp_column(const VjpShared<R, NB, NQ, M>& sh, int d, long long n,
+                        const T* __restrict__ P, const int* __restrict__ I,
+                        const T* __restrict__ xs, const T* __restrict__ u, R* __restrict__ fx,
+                        R* __restrict__ fu) {
   using L = StepLayout<NB, NQ, NA>;
-  using SC = VjpScratch<NQ, M>;
-  constexpr int NX = 2 * NQ, K = NX + NA;
-  const long long n = tid / K;
-  const int d = (int)(tid % K);
-  const T* cm = cm_all + n * M;
-  const T* us = us_all + n * M;
-  const R* sc = scratch + n * SC::kSize;
-  Dual<R> q[NQ], v[NQ], uu[NA], qn[NQ], vs[NQ], A[M][M], b[M], MJ[NQ][M], Qf[M][M], reg,
-      bvec[M];
-  R Qv[M][M], diagM[M], xc[M], rt[M];
-#pragma unroll (unroll_by(L::kUnroll, NQ))
+  constexpr int NX = 2 * NQ;
+  const T dt = P[L::kDt];
+  Dual<R> q[NQ], v[NQ], uu[NA], Rd[NB][9], pd[NB][3], qdd[NQ];
+  R dvs[NQ], row[NQ];
+#pragma unroll (unroll_by(true, NQ))
   for (int i = 0; i < NQ; ++i) {
     q[i] = Dual<R>(R(xs[n * NX + i]), R(T(d == i ? 1 : 0)));
     v[i] = Dual<R>(R(xs[n * NX + NQ + i]), R(T(d == NQ + i ? 1 : 0)));
   }
-#pragma unroll (unroll_by(L::kUnroll, NA))
+#pragma unroll (unroll_by(true, NA))
   for (int a = 0; a < NA; ++a) uu[a] = Dual<R>(R(u[n * NA + a]), R(T(d == NX + a ? 1 : 0)));
-#pragma unroll (row_unroll(M, M))
-  for (int i = 0; i < M; ++i) xc[i] = sc[SC::kXc + i];
-  frozen_inputs<T, Dual<R>, NB, NQ, NA, M, NS>(P, I, q, v, uu, qn, vs, A, b, MJ);
-  frozen_normal_eqs_dual<T, R, M, NS>(A, b, cm, us, Qf, Qv, reg, diagM, bvec);
-  frozen_tangent_rhs<R, M>(Qf, reg, bvec, xc, rt);
-#pragma unroll (row_unroll(M, NQ))
+  // the loops over bodies and dofs unrolled (K5 1.8x faster than rolled,
+  // whose arrays in local memory took 63 of its 75 ms)
+  constexpr bool UR = true;
+  forward_dynamics<T, Dual<R>, NB, NQ, NA, UR>(P, I, q, v, uu, Rd, pd, qdd);
+#pragma unroll (unroll_by(true, NQ))
+  for (int e = 0; e < NQ; ++e) dvs[e] = (v[e] + dt * qdd[e]).d;
+#pragma unroll (unroll_by(true, NQ))
   for (int k = 0; k < NQ; ++k) {
-    R g = vs[k].d;
-#pragma unroll (row_unroll(M, M))
-    for (int i = 0; i < M; ++i) g = g + MJ[k][i].d * sc[SC::kXr + i];
-#pragma unroll (row_unroll(M, M))
-    for (int j = 0; j < M; ++j) g = g + sc[SC::kLam + k * M + j] * rt[j];
-    if (d < NX)
-      fx[(n * NX + NQ + k) * NX + d] = g;
-    else
-      fu[(n * NX + NQ + k) * NA + (d - NX)] = g;
+    row[k] = sh.c[k][0] * dvs[0];
+#pragma unroll (unroll_by(true, NQ - 1))
+    for (int e = 1; e < NQ; ++e) row[k] = row[k] + sh.c[k][e] * dvs[e];
   }
-  if (d == 0) {
-    const T dt = P[StepLayout<NB, NQ, NA>::kDt];
-#pragma unroll (unroll_by(L::kUnroll, NQ))
-    for (int i = 0; i < NQ; ++i) {
-#pragma unroll (unroll_by(L::kUnroll, NX))
-      for (int j = 0; j < NX; ++j)
-        fx[(n * NX + i) * NX + j] = R(j == i ? T(1) : (j == NQ + i ? dt : T(0)));
-#pragma unroll (unroll_by(L::kUnroll, NA))
-      for (int a = 0; a < NA; ++a) fu[(n * NX + i) * NA + a] = R(T(0));
+  if (d < NQ) {
+    Dual<R> Mm[NQ][NQ], Rw[NB][9], pw[NB][3];
+    mass_matrix<T, Dual<R>, NB, NQ, NA, UR>(P, I, Rd, pd, Mm);
+#pragma unroll (unroll_by(true, NQ))
+    for (int k = 0; k < NQ; ++k)
+#pragma unroll (unroll_by(true, NQ))
+      for (int e = 0; e < NQ; ++e)
+#pragma unroll (unroll_by(true, NQ))
+        for (int f = 0; f < NQ; ++f) row[k] = row[k] + sh.H[k][e][f] * Mm[e][f].d;
+    world_frames<T, Dual<R>, NB, NQ, NA, UR>(I, Rd, pd, Rw, pw);
+#pragma unroll 1
+    for (int s = 0; s < NS; ++s) {
+      Dual<R> Jp[3][NQ];
+      slot_jacobian<T, Dual<R>, NB, NQ, NA, M, NS, UR>(P, I, Rw, pw, s, Jp);
+#pragma unroll (unroll_by(true, 3))
+      for (int dd = 0; dd < 3; ++dd) {
+        T dir[3];
+        Dual<R> Jr[NQ];
+        slot_direction<T, NB, NQ, NA, M, NS>(P, s, dd, dir);
+        slot_row<true>(dir, Jp, Jr);
+#pragma unroll (unroll_by(true, NQ))
+        for (int k = 0; k < NQ; ++k)
+#pragma unroll (unroll_by(true, NQ))
+          for (int e = 0; e < NQ; ++e) row[k] = row[k] + sh.G[k][3 * s + dd][e] * Jr[e].d;
+      }
     }
   }
+#pragma unroll (unroll_by(true, NQ))
+  for (int k = 0; k < NQ; ++k) {
+    if (d < NX) {
+      fx[(n * NX + NQ + k) * NX + d] = row[k];
+      fx[(n * NX + k) * NX + d] = R(d == k ? T(1) : (d == NQ + k ? dt : T(0)));
+    } else {
+      fu[(n * NX + NQ + k) * NA + (d - NX)] = row[k];
+      fu[(n * NX + k) * NA + (d - NX)] = R(T(0));
+    }
+  }
+}
+
+// K5's body for point n on one lane group of G (R is the arithmetic type:
+// T on the card; the host build also runs it on a counting scalar).
+template <typename T, typename R, int NB, int NQ, int NA, int M, int NS, int G, class Grp>
+NPTT_HD void linearize_vjp_group(const Grp& g, VjpShared<R, NB, NQ, M>& sh, long long n, int n_cg,
+                                 const T* __restrict__ P, const int* __restrict__ I,
+                                 const T* __restrict__ xs, const T* __restrict__ u,
+                                 const T* __restrict__ cm_all, const T* __restrict__ us_all,
+                                 R* __restrict__ fx, R* __restrict__ fu) {
+  constexpr int NX = 2 * NQ, K = NX + NA, NR = NQ + 1, C0 = 3 * NS, kN = Owned<M, G>::kN;
+  constexpr int kRed = 2 * NQ * NQ + 3 * NQ;
+  const T* cm = cm_all + n * M;
+  const T* us = us_all + n * M;
+  R x[NX], ua[NA], qn[NQ], vs[NQ], Mi[NQ][NQ], mx, reg, diagM[kN], bb[NR][kN], sol[NR][kN];
+  LaneRows<T, R, NQ, M, G> rw;
+#pragma unroll (unroll_by(true, NX))
+  for (int i = 0; i < NX; ++i) x[i] = R(xs[n * NX + i]);
+#pragma unroll (unroll_by(true, NA))
+  for (int a = 0; a < NA; ++a) ua[a] = R(u[n * NA + a]);
+  group_inputs<T, R, NB, NQ, NA, M, NS, G>(g, sh.fs, P, I, x, x + NQ, ua, qn, vs, Mi, rw);
+  group_normal_eqs<T, R, NQ, M, NS, G>(g, sh.fs, rw, cm, us, mx, reg, diagM, bb[0]);
+  // the adjoint right-hand sides cm * R^T MJ^T e_k
+#pragma unroll (unroll_by(true, kN))
+  for (int o = 0; o < kN; ++o) {
+    const int j = g.lane + G * o;
+#pragma unroll (unroll_by(true, NQ))
+    for (int k = 0; k < NQ; ++k) {
+      bb[1 + k][o] = R(T(0));
+      if (j >= M) continue;
+      R y = sh.fs.MJ[k][j];
+      if (j < C0 && j % 3 == 0)
+        y = (y + us[j + 1] * sh.fs.MJ[k][j + 1]) + us[j + 2] * sh.fs.MJ[k][j + 2];
+      bb[1 + k][o] = cm[j] * (cm[j] * y);
+    }
+  }
+  group_pcg<T, R, M, NR, G>(g, sh.fs, reg, diagM, bb, n_cg, sol);
+  // broadcast x_C, lam_k, J and (MJ R)[k][j] = the adjoint right-hand sides
+#pragma unroll (unroll_by(true, kN))
+  for (int o = 0; o < kN; ++o) {
+    const int i = g.lane + G * o;
+    if (i >= M) continue;
+#pragma unroll (unroll_by(true, NR))
+    for (int s = 0; s < NR; ++s) sh.fs.x[s][i] = sol[s][o];
+#pragma unroll (unroll_by(true, NQ))
+    for (int k = 0; k < NQ; ++k) {
+      sh.fs.p[k][i] = bb[1 + k][o];
+      sh.J[i][k] = rw.J[o][k];
+    }
+  }
+  g.sync();
+  // per owned row: x = R x_C, w_k = R lam_k, a1 = C (rhs - Qf x_C),
+  // a2_k = -C Qf lam_k; then their sums over the rows (red): MJ w_k, MJ x,
+  // J^T a1, J^T a2_k and lam_k . x_C
+  R xr[kN], w1[NQ][kN], a1[kN], a2[NQ][kN], red[kRed];
+  R* MJw = red;                       // [k][e]
+  R* MJx = red + NQ * NQ;             // [e]
+  R* JTa1 = MJx + NQ;                 // [e]
+  R* JTa2 = JTa1 + NQ;                // [k][e]
+  R* lamxc = JTa2 + NQ * NQ;          // [k]
+#pragma unroll (unroll_by(true, kRed))
+  for (int i = 0; i < kRed; ++i) red[i] = R(T(0));
+#pragma unroll (unroll_by(true, kN))
+  for (int o = 0; o < kN; ++o) {
+    const int i = g.lane + G * o;
+    if (i >= M) continue;
+    xr[o] = r_apply<T, R, M, NS>(cm, us, sh.fs.x[0], i);
+#pragma unroll (unroll_by(true, NQ))
+    for (int k = 0; k < NQ; ++k) w1[k][o] = r_apply<T, R, M, NS>(cm, us, sh.fs.x[1 + k], i);
+    R acc[NR];
+#pragma unroll (unroll_by(true, NR))
+    for (int s = 0; s < NR; ++s) acc[s] = sh.fs.Qf[i][0] * sh.fs.x[s][0];
+#pragma unroll (unroll_by(true, M - 1))
+    for (int j = 1; j < M; ++j) {
+      const R qv = sh.fs.Qf[i][j];
+#pragma unroll (unroll_by(true, NR))
+      for (int s = 0; s < NR; ++s) acc[s] = acc[s] + qv * sh.fs.x[s][j];
+    }
+    a1[o] = cm[i] * (sh.fs.rhs[i] - acc[0]);
+#pragma unroll (unroll_by(true, NQ))
+    for (int k = 0; k < NQ; ++k) a2[k][o] = -(cm[i] * acc[1 + k]);
+#pragma unroll (unroll_by(true, NQ))
+    for (int e = 0; e < NQ; ++e) {
+#pragma unroll (unroll_by(true, NQ))
+      for (int k = 0; k < NQ; ++k) {
+        accumulate(MJw[k * NQ + e], o, rw.MJ[o][e] * w1[k][o]);
+        accumulate(JTa2[k * NQ + e], o, rw.J[o][e] * a2[k][o]);
+      }
+      accumulate(MJx[e], o, rw.MJ[o][e] * xr[o]);
+      accumulate(JTa1[e], o, rw.J[o][e] * a1[o]);
+    }
+#pragma unroll (unroll_by(true, NQ))
+    for (int k = 0; k < NQ; ++k) accumulate(lamxc[k], o, sol[1 + k][o] * sol[0][o]);
+  }
+  g.sum(red);
+  // every lane: pa1 = M^-T J^T a1, pa2_k = M^-T J^T a2_k + M^-1[k, :],
+  // vn = MJ x + v*
+  R pa1[NQ], pa2[NQ][NQ], vn[NQ];
+#pragma unroll (unroll_by(true, NQ))
+  for (int f = 0; f < NQ; ++f) {
+    pa1[f] = Mi[0][f] * JTa1[0];
+#pragma unroll (unroll_by(true, NQ))
+    for (int k = 0; k < NQ; ++k) pa2[k][f] = Mi[0][f] * JTa2[k * NQ];
+#pragma unroll (unroll_by(true, NQ - 1))
+    for (int e = 1; e < NQ; ++e) {
+      pa1[f] = pa1[f] + Mi[e][f] * JTa1[e];
+#pragma unroll (unroll_by(true, NQ))
+      for (int k = 0; k < NQ; ++k) pa2[k][f] = pa2[k][f] + Mi[e][f] * JTa2[k * NQ + e];
+    }
+#pragma unroll (unroll_by(true, NQ))
+    for (int k = 0; k < NQ; ++k) pa2[k][f] = pa2[k][f] + Mi[k][f];
+    vn[f] = MJx[f] + vs[f];
+  }
+  // G_k on the lane's contact rows; H_k and c_k by lanes L = lane, lane + G, ...
+#pragma unroll (unroll_by(true, kN))
+  for (int o = 0; o < kN; ++o) {
+    const int r = g.lane + G * o;
+    if (r >= C0) continue;
+#pragma unroll (unroll_by(true, NQ))
+    for (int k = 0; k < NQ; ++k)
+#pragma unroll (unroll_by(true, NQ))
+      for (int e = 0; e < NQ; ++e)
+        sh.G[k][r][e] = ((a1[o] * MJw[k * NQ + e] + w1[k][o] * pa1[e]) + a2[k][o] * vn[e]) +
+                        xr[o] * pa2[k][e];
+  }
+  for (int Lk = g.lane; Lk < NQ * NQ; Lk += G) {
+    const int k = Lk / NQ, e = Lk % NQ;
+#pragma unroll (unroll_by(true, NQ))
+    for (int f = 0; f < NQ; ++f)
+      sh.H[k][e][f] = -(pa1[e] * MJw[k * NQ + f]) - pa2[k][e] * MJx[f];
+    sh.c[k][e] = e == k ? JTa2[k * NQ + e] + T(1) : JTa2[k * NQ + e];
+  }
+  vjp_tie_terms<T, R, NB, NQ, M, NS, G>(g, sh, cm, us, mx, Mi, lamxc);
+  g.sync();
+  for (int d = g.lane; d < K; d += G)
+    vjp_column<T, R, NB, NQ, NA, M, NS>(sh, d, n, P, I, xs, u, fx, fu);
+  g.sync();
 }
 
 #ifdef __CUDACC__
@@ -284,47 +517,37 @@ static int launch_linearize_split(long long n_points, int n_cg, const void* P, c
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NB, int NQ, int NA, int M, int NS>
-__global__ void linearize_vjp_primal_kernel(long long n_points, int n_cg, const T* __restrict__ P,
-                                            const int* __restrict__ I,
-                                            const T* __restrict__ xs, const T* __restrict__ u,
-                                            const T* __restrict__ cm, const T* __restrict__ ucl,
-                                            T* __restrict__ scratch) {
-  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n < n_points)
-    linearize_vjp_primal<T, T, NB, NQ, NA, M, NS>(n, n_cg, P, I, xs, u, cm, ucl, scratch);
+template <typename T, int NB, int NQ, int NA, int M, int NS, int G>
+__global__ void linearize_vjp_group_kernel(long long n_points, int n_cg, const T* __restrict__ P,
+                                           const int* __restrict__ I, const T* __restrict__ xs,
+                                           const T* __restrict__ u, const T* __restrict__ cm,
+                                           const T* __restrict__ ucl, T* __restrict__ fx,
+                                           T* __restrict__ fu) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long n = (long long)blockIdx.x * kGroupsPerBlock + threadIdx.x / G;
+  if (n >= n_points) return;  // a whole group leaves: its lanes' mask holds only them
+  auto* sh = reinterpret_cast<VjpShared<T, NB, NQ, M>*>(smem) + threadIdx.x / G;
+  linearize_vjp_group<T, T, NB, NQ, NA, M, NS, G>(warp_group<G>(), *sh, n, n_cg, P, I, xs, u, cm,
+                                                  ucl, fx, fu);
 }
 
-template <typename T, int NB, int NQ, int NA, int M, int NS>
-__global__ void linearize_vjp_column_kernel(long long n_threads, const T* __restrict__ P,
-                                            const int* __restrict__ I,
-                                            const T* __restrict__ xs, const T* __restrict__ u,
-                                            const T* __restrict__ cm, const T* __restrict__ ucl,
-                                            const T* __restrict__ scratch, T* __restrict__ fx,
-                                            T* __restrict__ fu) {
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid < n_threads)
-    linearize_vjp_column<T, T, NB, NQ, NA, M, NS>(tid, P, I, xs, u, cm, ucl, scratch, fx, fu);
-}
-
-// K5: the primal kernel, then the column kernel, on one stream; scratch
-// holds VjpScratch<NQ, M>::kSize values per point.
+// K5: one lane group of kK5Group per point, kGroupsPerBlock groups per
+// block, each with its VjpShared in dynamic shared memory.
 template <typename T, int NB, int NQ, int NA, int M, int NS>
 static int launch_linearize_vjp(long long n_points, int n_cg, const void* P, const void* I,
                                 const void* xs, const void* u, const void* cm, const void* ucl,
-                                void* scratch, void* fx, void* fu, cudaStream_t stream) {
-  const int threads = 128;
-  const long long n_cols = n_points * (2 * NQ + NA);
-  linearize_vjp_primal_kernel<T, NB, NQ, NA, M, NS>
-      <<<(unsigned)((n_points + threads - 1) / threads), threads, 0, stream>>>(
-          n_points, n_cg, (const T*)P, (const int*)I, (const T*)xs, (const T*)u, (const T*)cm,
-          (const T*)ucl, (T*)scratch);
-  cudaError_t err = cudaGetLastError();
+                                void* fx, void* fu, cudaStream_t stream) {
+  static_assert(group_layout(M), "K5 runs on lane groups, where the rows stay rolled");
+  constexpr int G = kK5Group;
+  const size_t smem = kGroupsPerBlock * sizeof(VjpShared<T, NB, NQ, M>);
+  auto kernel = linearize_vjp_group_kernel<T, NB, NQ, NA, M, NS, G>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  linearize_vjp_column_kernel<T, NB, NQ, NA, M, NS>
-      <<<(unsigned)((n_cols + threads - 1) / threads), threads, 0, stream>>>(
-          n_cols, (const T*)P, (const int*)I, (const T*)xs, (const T*)u, (const T*)cm,
-          (const T*)ucl, (const T*)scratch, (T*)fx, (T*)fu);
+  const long long blocks = (n_points + kGroupsPerBlock - 1) / kGroupsPerBlock;
+  kernel<<<(unsigned)blocks, kGroupsPerBlock * G, smem, stream>>>(
+      n_points, n_cg, (const T*)P, (const int*)I, (const T*)xs, (const T*)u, (const T*)cm,
+      (const T*)ucl, (T*)fx, (T*)fu);
   return (int)cudaGetLastError();
 }
 #endif
@@ -372,16 +595,29 @@ extern "C" int nptt_linearize_split(int is_double, int nb, int nq, int na, int m
 extern "C" int nptt_linearize_vjp(int is_double, int nb, int nq, int na, int m, int ns,
                                   long long n_points, int n_cg, const void* P, const void* I,
                                   const void* xs, const void* u, const void* cm, const void* ucl,
-                                  void* scratch, void* fx, void* fu, void* stream) {
+                                  void* fx, void* fu, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
 #define NPTT_VJP_CASE(NB, NQ, NA, M, NS)                                                        \
   if (m == M && ns == NS && nb == NB && nq == NQ && na == NA)                                   \
     return is_double ? nptt::launch_linearize_vjp<double, NB, NQ, NA, M, NS>(                   \
-                           n_points, n_cg, P, I, xs, u, cm, ucl, scratch, fx, fu, s)            \
+                           n_points, n_cg, P, I, xs, u, cm, ucl, fx, fu, s)                     \
                      : nptt::launch_linearize_vjp<float, NB, NQ, NA, M, NS>(                    \
-                           n_points, n_cg, P, I, xs, u, cm, ucl, scratch, fx, fu, s);
+                           n_points, n_cg, P, I, xs, u, cm, ucl, fx, fu, s);
   NPTT_WORM_SHAPES(NPTT_VJP_CASE)
 #undef NPTT_VJP_CASE
   return -1;
+}
+
+// K5's lane-group layout at the worm's shape: out = (lanes per group,
+// groups per block, shared bytes per block).
+extern "C" int nptt_linearize_vjp_group_shape(int is_double, long long* out) {
+#define NPTT_SHAPE(NB, NQ, NA, M, NS)                                                 \
+  out[0] = nptt::kK5Group;                                                           \
+  out[1] = nptt::kGroupsPerBlock;                                                    \
+  out[2] = nptt::kGroupsPerBlock * (is_double ? sizeof(nptt::VjpShared<double, NB, NQ, M>) \
+                                              : sizeof(nptt::VjpShared<float, NB, NQ, M>));
+  NPTT_WORM_SHAPES(NPTT_SHAPE)
+#undef NPTT_SHAPE
+  return 0;
 }
 #endif

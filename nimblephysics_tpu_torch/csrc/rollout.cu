@@ -24,6 +24,14 @@
 // running cost and one plain step (ops/device_step.py step_ops, or
 // frozen_step_ops with classes), and the final cost per (alpha, world).
 //
+// Where the rows stay rolled (step.cuh group_layout: the jump worm's
+// m = 28) one thread per pair is latency-bound: 8,192 threads in 64 blocks
+// walk a 28-row Qf in local memory 24 times per step (PERF.md section 6).
+// There K2 runs one lane group of kK2Group lanes per (alpha, world)
+// instead (frozen_group.cuh): every lane carries x and applies the control
+// law and the running cost, the lanes share the frozen step's rows and its
+// Qf in shared memory, and lanes 0 .. nx - 1 (na - 1) write xs (us).
+//
 // K6 replaces rollout_classes_pallas (kernel _classes_kernel), which ran
 // the T-step scan of the full constrained step with the worlds on lanes
 // and the state carried in VMEM across time chunks. Bound on this card:
@@ -34,7 +42,7 @@
 // Least work (chip_smoke.py least_work): u and x0 read, (xs, cmask)
 // written once, one class_step per (world, t) (ops/device_step.py
 // class_step_ops).
-#include "step.cuh"
+#include "frozen_group.cuh"
 
 namespace nptt {
 
@@ -112,6 +120,83 @@ NPTT_HD void rollout_thread(long long l, long long B, int Tn, int n_cg, const T*
   costs[l] = cost + cf;
 }
 
+// K2 on a lane group (group_layout(M)): rollout_thread's pair l, the
+// frozen step on the group (group_frozen_step).
+template <typename T, int NB, int NQ, int NA, int M, int NS, int G, class Grp>
+NPTT_HD void rollout_group(const Grp& g, FrozenShared<T, NB, NQ, M, 1>& sh, long long l,
+                           long long B, int Tn, int n_cg, const T* __restrict__ P,
+                           const int* __restrict__ I,
+                           const T* __restrict__ w, const T* __restrict__ x0,
+                           const T* __restrict__ xs_ref, const T* __restrict__ u_ref,
+                           const T* __restrict__ K, const T* __restrict__ k,
+                           const T* __restrict__ alphas, const T* __restrict__ cm,
+                           const T* __restrict__ ucl, T* __restrict__ xs, T* __restrict__ us,
+                           T* __restrict__ costs) {
+  using L = StepLayout<NB, NQ, NA>;
+  constexpr int NX = 2 * NQ;
+  const long long a = l / B, b = l % B;
+  const T alpha = alphas[a];
+  const T* wq = w;
+  const T* wv = w + NQ;
+  const T* wu = w + 2 * NQ;
+  const T* wf = w + 2 * NQ + NA;
+  const T* gr = wf + NX;
+  const T* gf = gr + NX;
+  T x[NX];
+#pragma unroll (unroll_by(true, NX))
+  for (int i = 0; i < NX; ++i) {
+    x[i] = x0[b * NX + i];
+    if (i == g.lane) xs[l * (Tn + 1) * NX + i] = x[i];
+  }
+  T cost = T(0);
+#pragma unroll 1
+  for (int t = 0; t < Tn; ++t) {
+    const long long bt = b * Tn + t;
+    T dx[NX], u[NA];
+#pragma unroll (unroll_by(true, NX))
+    for (int i = 0; i < NX; ++i) dx[i] = x[i] - xs_ref[(b * (Tn + 1) + t) * NX + i];
+#pragma unroll (unroll_by(true, NA))
+    for (int j = 0; j < NA; ++j) {
+      T Kdx = T(0);
+#pragma unroll (unroll_by(true, NX))
+      for (int i = 0; i < NX; ++i) Kdx = Kdx + K[(bt * NA + j) * NX + i] * dx[i];
+      T uj = u_ref[bt * NA + j] + (alpha * k[bt * NA + j] + Kdx);
+      const T lo = P[L::kAct + 2 * j], hi = P[L::kAct + 2 * j + 1];
+      uj = uj < lo ? lo : (uj > hi ? hi : uj);  // NaN passes through, as in clip
+      u[j] = uj;
+      if (j == g.lane) us[(l * Tn + t) * NA + j] = uj;
+    }
+    T cq = T(0), cv = T(0), cu = T(0);
+#pragma unroll (unroll_by(true, NQ))
+    for (int i = 0; i < NQ; ++i) {
+      const T dq = x[i] - gr[i], dv = x[NQ + i] - gr[NQ + i];
+      cq = cq + wq[i] * (dq * dq);
+      cv = cv + wv[i] * (dv * dv);
+    }
+#pragma unroll (unroll_by(true, NA))
+    for (int j = 0; j < NA; ++j) cu = cu + wu[j] * (u[j] * u[j]);
+    cost = cost + (cq + cv + cu);
+    T qn[NQ], vn[NQ];
+    group_frozen_step<T, NB, NQ, NA, M, NS, G>(g, sh, P, I, x, x + NQ, u, cm + bt * M,
+                                               ucl + bt * M, n_cg, qn, vn);
+#pragma unroll (unroll_by(true, NQ))
+    for (int i = 0; i < NQ; ++i) {
+      x[i] = qn[i];
+      x[NQ + i] = vn[i];
+    }
+#pragma unroll (unroll_by(true, NX))
+    for (int i = 0; i < NX; ++i)
+      if (i == g.lane) xs[(l * (Tn + 1) + t + 1) * NX + i] = x[i];
+  }
+  T cf = T(0);
+#pragma unroll (unroll_by(true, NX))
+  for (int i = 0; i < NX; ++i) {
+    const T dx = x[i] - gf[i];
+    cf = cf + wf[i] * (dx * dx);
+  }
+  if (g.lane == 0) costs[l] = cost + cf;
+}
+
 template <typename T, int NB, int NQ, int NA, int M>
 NPTT_HD void classes_thread(long long b, long long B, int Tn, const T* __restrict__ P,
                             const int* __restrict__ I, const T* __restrict__ x0,
@@ -119,19 +204,19 @@ NPTT_HD void classes_thread(long long b, long long B, int Tn, const T* __restric
   using L = StepLayout<NB, NQ, NA>;
   constexpr int NX = 2 * NQ, E = NX + M;
   T x[NX];
-#pragma unroll (unroll_by(L::kUnroll, NX))
+#pragma unroll (unroll_by(true, NX))
   for (int i = 0; i < NX; ++i) x[i] = x0[b * NX + i];
   for (int t = 0; t < Tn; ++t) {
     T u[NA], qn[NQ], vn[NQ], cm[M];
-#pragma unroll (unroll_by(L::kUnroll, NA))
+#pragma unroll (unroll_by(true, NA))
     for (int a = 0; a < NA; ++a) u[a] = u_tb[((long long)t * NA + a) * B + b];
     class_step<T, T, NB, NQ, NA, M>(P, I, x, x + NQ, u, qn, vn, cm);
-#pragma unroll (unroll_by(L::kUnroll, NQ))
+#pragma unroll (unroll_by(true, NQ))
     for (int i = 0; i < NQ; ++i) {
       x[i] = qn[i];
       x[NQ + i] = vn[i];
     }
-#pragma unroll (unroll_by(L::kUnroll, NX))
+#pragma unroll (unroll_by(true, NX))
     for (int i = 0; i < NX; ++i) out[((long long)t * E + i) * B + b] = x[i];
 #pragma unroll (row_unroll(M, M))
     for (int r = 0; r < M; ++r) out[((long long)t * E + NX + r) * B + b] = cm[r];
@@ -153,17 +238,50 @@ __global__ void rollout_kernel(long long A, long long B, int Tn, int n_cg, const
                                          cm, ucl, xs, us, costs);
 }
 
+// K2 on lane groups: kGroupsPerBlock groups of G lanes per block, each
+// with its FrozenShared in dynamic shared memory.
+template <typename T, int NB, int NQ, int NA, int M, int NS, int G>
+__global__ void rollout_group_kernel(long long A, long long B, int Tn, int n_cg,
+                                     const T* __restrict__ P, const int* __restrict__ I,
+                                     const T* __restrict__ w, const T* __restrict__ x0,
+                                     const T* __restrict__ xs_ref, const T* __restrict__ u_ref,
+                                     const T* __restrict__ K, const T* __restrict__ k,
+                                     const T* __restrict__ alphas, const T* __restrict__ cm,
+                                     const T* __restrict__ ucl, T* __restrict__ xs,
+                                     T* __restrict__ us, T* __restrict__ costs) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long l = (long long)blockIdx.x * kGroupsPerBlock + threadIdx.x / G;
+  if (l >= A * B) return;  // a whole group leaves: its lanes' mask holds only them
+  auto* sh = reinterpret_cast<FrozenShared<T, NB, NQ, M, 1>*>(smem) + threadIdx.x / G;
+  rollout_group<T, NB, NQ, NA, M, NS, G>(warp_group<G>(), *sh, l, B, Tn, n_cg, P, I, w, x0,
+                                         xs_ref, u_ref, K, k, alphas, cm, ucl, xs, us, costs);
+}
+
 template <typename T, int NB, int NQ, int NA, int M, int NS>
 static int launch_rollout(long long A, long long B, int Tn, int n_cg, const void* P, const void* I,
                           const void* w, const void* x0, const void* xs_ref, const void* u_ref,
                           const void* K, const void* k, const void* alphas, const void* cm,
                           const void* ucl, void* xs, void* us, void* costs, cudaStream_t stream) {
-  const int threads = 128;
-  const long long blocks = (A * B + threads - 1) / threads;
-  rollout_kernel<T, NB, NQ, NA, M, NS><<<(unsigned)blocks, threads, 0, stream>>>(
-      A, B, Tn, n_cg, (const T*)P, (const int*)I, (const T*)w, (const T*)x0, (const T*)xs_ref,
-      (const T*)u_ref, (const T*)K, (const T*)k, (const T*)alphas, (const T*)cm, (const T*)ucl,
-      (T*)xs, (T*)us, (T*)costs);
+  if constexpr (group_layout(M)) {
+    constexpr int G = kK2Group;
+    const size_t smem = kGroupsPerBlock * sizeof(FrozenShared<T, NB, NQ, M, 1>);
+    auto kernel = rollout_group_kernel<T, NB, NQ, NA, M, NS, G>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const long long blocks = (A * B + kGroupsPerBlock - 1) / kGroupsPerBlock;
+    kernel<<<(unsigned)blocks, kGroupsPerBlock * G, smem, stream>>>(
+        A, B, Tn, n_cg, (const T*)P, (const int*)I, (const T*)w, (const T*)x0, (const T*)xs_ref,
+        (const T*)u_ref, (const T*)K, (const T*)k, (const T*)alphas, (const T*)cm, (const T*)ucl,
+        (T*)xs, (T*)us, (T*)costs);
+  } else {
+    const int threads = 128;
+    const long long blocks = (A * B + threads - 1) / threads;
+    rollout_kernel<T, NB, NQ, NA, M, NS><<<(unsigned)blocks, threads, 0, stream>>>(
+        A, B, Tn, n_cg, (const T*)P, (const int*)I, (const T*)w, (const T*)x0, (const T*)xs_ref,
+        (const T*)u_ref, (const T*)K, (const T*)k, (const T*)alphas, (const T*)cm, (const T*)ucl,
+        (T*)xs, (T*)us, (T*)costs);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -216,6 +334,19 @@ extern "C" int nptt_rollout(int is_double, int nb, int nq, int na, int m, int ns
 #undef NPTT_ROLLOUT_FREE
 #undef NPTT_ROLLOUT_CALL
   return -1;
+}
+
+// K2's lane-group layout at the worm's shape: out = (lanes per group,
+// groups per block, shared bytes per block).
+extern "C" int nptt_rollout_group_shape(int is_double, long long* out) {
+#define NPTT_SHAPE(NB, NQ, NA, M, NS)                                                  \
+  out[0] = nptt::kK2Group;                                                            \
+  out[1] = nptt::kGroupsPerBlock;                                                     \
+  out[2] = nptt::kGroupsPerBlock * (is_double ? sizeof(nptt::FrozenShared<double, NB, NQ, M, 1>) \
+                                              : sizeof(nptt::FrozenShared<float, NB, NQ, M, 1>));
+  NPTT_WORM_SHAPES(NPTT_SHAPE)
+#undef NPTT_SHAPE
+  return 0;
 }
 
 // K6. Returns 0, a cudaError_t, or -1 for a (dtype, nb, nq, na, m) without

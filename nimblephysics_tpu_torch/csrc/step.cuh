@@ -220,43 +220,71 @@ NPTT_HD void inv_spd(const S (&A)[N][N], S (&Ai)[N][N]) {
     for (int j = 0; j < N; ++j) Ai[i][j] = rows[i][N + j];
 }
 
+// The body-indexed work arrays of forward_dynamics and mass_matrix in a
+// lane group's shared memory, where one lane runs the dynamics
+// (frozen_group.cuh). The one-thread step keeps them as local arrays,
+// declared where they were before the group existed, so that its code
+// stays as it was (work_array picks one or the other at compile time).
+template <typename S, int NB, int NQ>
+struct DynWork {
+  S tau[NQ], V[NB][6], c[NB][6], pA[NB][6], IA[NB][36], U[NB][2][6], Dinv[NB][2][2], uu[NB][2],
+      a[NB][6], Ic[NB][36];
+};
+
+template <bool EXT, typename W, typename A>
+NPTT_HD A& work_array(W* w, A W::*member, A& local) {
+  if constexpr (EXT)
+    return w->*member;
+  else
+    return local;
+}
+
 // Forward kinematics and ABA: each body's transform to its parent (R, p)
 // and the generalized accelerations qdd at (q, v, u). A body's joint has
 // nd = joint_ndof(type) dofs, from its first dof on; the two-dof branch
 // (translational2d) inverts its 2x2 joint inertia with inv_spd.
-template <typename T, typename S, int NB, int NQ, int NA>
-NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I,
-                              const S* q, const S* v, const S* u, S (&R)[NB][9],
-                              S (&p)[NB][3], S (&qdd)[NQ]) {
+// UR: whether the loops over bodies and dofs unroll (StepLayout::kUnroll;
+// a lane group's lane 0 unrolls them at any shape); EXT: the work arrays
+// in *wk, else local.
+template <typename T, typename S, int NB, int NQ, int NA, bool UR, bool EXT>
+NPTT_HD void forward_dynamics_impl(DynWork<S, NB, NQ>* wk, const T* __restrict__ P,
+                                   const int* __restrict__ I, const S* q, const S* v,
+                                   const S* u, S (&R)[NB][9], S (&p)[NB][3], S (&qdd)[NQ]) {
   using L = StepLayout<NB, NQ, NA>;
+  using W = DynWork<S, NB, NQ>;
   const T dt = P[L::kDt];
 
   // generalized force: action on the actuated dofs, implicit spring, damping
-  S tau[NQ];
-#pragma unroll (unroll_by(L::kUnroll, NQ))
+  S tau_l[NQ];
+  S(&tau)[NQ] = work_array<EXT>(wk, &W::tau, tau_l);
+#pragma unroll (unroll_by(UR, NQ))
   for (int d = 0; d < NQ; ++d) tau[d] = S(T(0));
-#pragma unroll (unroll_by(L::kUnroll, NA))
+#pragma unroll (unroll_by(UR, NA))
   for (int a = 0; a < NA; ++a) {
     const int da = I[L::iActDof + a];
-#pragma unroll (unroll_by(L::kUnroll, NQ))
+#pragma unroll (unroll_by(UR, NQ))
     for (int d = 0; d < NQ; ++d)
       if (d == da) tau[d] = u[a];
   }
-#pragma unroll (unroll_by(L::kUnroll, NQ))
+#pragma unroll (unroll_by(UR, NQ))
   for (int d = 0; d < NQ; ++d) {
     const T damp = P[L::kDof + 3 * d], stiff = P[L::kDof + 3 * d + 1], rest = P[L::kDof + 3 * d + 2];
     tau[d] = tau[d] + (-stiff) * (q[d] - rest + v[d] * dt) + (-damp) * v[d];
   }
 
   // forward sweep: kinematics, velocities, bias forces
-  S V[NB][6], c[NB][6], pA[NB][6], IA[NB][36];
-#pragma unroll (unroll_by(L::kUnroll, NB))
+  S V_l[NB][6], c_l[NB][6], pA_l[NB][6], IA_l[NB][36];
+  S(&V)[NB][6] = work_array<EXT>(wk, &W::V, V_l);
+  S(&c)[NB][6] = work_array<EXT>(wk, &W::c, c_l);
+  S(&pA)[NB][6] = work_array<EXT>(wk, &W::pA, pA_l);
+  S(&IA)[NB][36] = work_array<EXT>(wk, &W::IA, IA_l);
+#pragma unroll (unroll_by(UR, NB))
   for (int i = 0; i < NB; ++i) {
     const T* Bp = P + i * L::kBody;
     const int jt = I[L::iType + i], dof = I[L::iDof + i], par = I[L::iParent + i];
     const int nd = joint_ndof(jt);
     S qi = S(T(0)), vi = S(T(0)), qj = S(T(0)), vj = S(T(0));
-#pragma unroll (unroll_by(L::kUnroll, NQ))
+#pragma unroll (unroll_by(UR, NQ))
     for (int d = 0; d < NQ; ++d) {
       if (d == dof) {
         qi = q[d];
@@ -272,7 +300,7 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
     for (int k = 0; k < 3; ++k) pq[k] = S(T(0));
     if (jt == kRevolute) {
       S w[3] = {Bp[L::kAxis] * qi, Bp[L::kAxis + 1] * qi, Bp[L::kAxis + 2] * qi};
-      expm_so3<T, L::kUnroll>(w, Rq);
+      expm_so3<T, UR>(w, Rq);
     } else if (jt == kPrismatic) {
       for (int k = 0; k < 3; ++k) pq[k] = Bp[L::kAxis + k] * qi;
     } else if (jt == kTranslational2d) {
@@ -280,11 +308,11 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
     }
     // T_pc = T_pj o Q(q) o T_cj^-1
     S RA[9], pAq[3], tmp[3];
-    mm3<L::kUnroll>(Bp + L::kRpj, Rq, RA);
-    mv3<L::kUnroll>(Bp + L::kRpj, pq, tmp);
+    mm3<UR>(Bp + L::kRpj, Rq, RA);
+    mv3<UR>(Bp + L::kRpj, pq, tmp);
     for (int k = 0; k < 3; ++k) pAq[k] = tmp[k] + Bp[L::kPpj + k];
-    mm3<L::kUnroll>(RA, Bp + L::kRci, R[i]);
-    mv3<L::kUnroll>(RA, Bp + L::kPci, tmp);
+    mm3<UR>(RA, Bp + L::kRci, R[i]);
+    mv3<UR>(RA, Bp + L::kPci, tmp);
     for (int k = 0; k < 3; ++k) p[i][k] = tmp[k] + pAq[k];
 
     S vJ[6], Vpar[6];
@@ -294,20 +322,23 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
       Vpar[k] = S(T(0));
     }
     // pp < NB, not pp < i: see StepLayout::kUnroll
-#pragma unroll (unroll_by(L::kUnroll, NB))
+#pragma unroll (unroll_by(UR, NB))
     for (int pp = 0; pp < NB; ++pp)
-      if (pp < i && pp == par) ad_inv_apply<L::kUnroll>(R[i], p[i], V[pp], Vpar);
+      if (pp < i && pp == par) ad_inv_apply<UR>(R[i], p[i], V[pp], Vpar);
     for (int k = 0; k < 6; ++k) V[i][k] = Vpar[k] + vJ[k];
     ad_motion(V[i], vJ, c[i]);
     S IV[6];
-    mv6<L::kUnroll>(Bp + L::kI, V[i], IV);
+    mv6<UR>(Bp + L::kI, V[i], IV);
     ad_dual(V[i], IV, pA[i]);
     for (int k = 0; k < 36; ++k) IA[i][k] = S(Bp[L::kI + k]);
   }
 
   // backward sweep: articulated inertias and bias forces
-  S U[NB][2][6], Dinv[NB][2][2], uu[NB][2];
-#pragma unroll (unroll_by(L::kUnroll, NB))
+  S U_l[NB][2][6], Dinv_l[NB][2][2], uu_l[NB][2];
+  S(&U)[NB][2][6] = work_array<EXT>(wk, &W::U, U_l);
+  S(&Dinv)[NB][2][2] = work_array<EXT>(wk, &W::Dinv, Dinv_l);
+  S(&uu)[NB][2] = work_array<EXT>(wk, &W::uu, uu_l);
+#pragma unroll (unroll_by(UR, NB))
   for (int i = NB - 1; i >= 0; --i) {
     const T* Sv = P + i * L::kBody + L::kS;
     const T* Sv1 = P + i * L::kBody + L::kS1;
@@ -315,7 +346,7 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
     const int nd = joint_ndof(I[L::iType + i]);
     S Ia[36], pa[6], Iac[6];
     if (nd == 1) {
-      mv6<L::kUnroll>(IA[i], Sv, U[i][0]);
+      mv6<UR>(IA[i], Sv, U[i][0]);
       S D = Sv[0] * U[i][0][0];
       S sp = Sv[0] * pA[i][0];
       for (int k = 1; k < 6; ++k) {
@@ -324,26 +355,26 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
       }
       Dinv[i][0][0] = T(1) / D;
       S te = S(T(0));
-#pragma unroll (unroll_by(L::kUnroll, NQ))
+#pragma unroll (unroll_by(UR, NQ))
       for (int d = 0; d < NQ; ++d)
         if (d == dof) te = tau[d];
       uu[i][0] = te - sp;
       for (int r = 0; r < 6; ++r)
         for (int k = 0; k < 6; ++k)
           Ia[6 * r + k] = IA[i][6 * r + k] - (U[i][0][r] * Dinv[i][0][0]) * U[i][0][k];
-      mv6<L::kUnroll>(Ia, c[i], Iac);
+      mv6<UR>(Ia, c[i], Iac);
       S Du = Dinv[i][0][0] * uu[i][0];
       for (int k = 0; k < 6; ++k) pa[k] = pA[i][k] + Iac[k] + U[i][0][k] * Du;
     } else if (nd == 2) {
       // D = S^T IA S (2x2), u = tau - S^T pA, Ia = IA - U D^-1 U^T,
       // pa = pA + Ia c + U D^-1 u
-      mv6<L::kUnroll>(IA[i], Sv, U[i][0]);
-      mv6<L::kUnroll>(IA[i], Sv1, U[i][1]);
+      mv6<UR>(IA[i], Sv, U[i][0]);
+      mv6<UR>(IA[i], Sv1, U[i][1]);
       S D[2][2], sp[2], te[2] = {S(T(0)), S(T(0))};
-#pragma unroll (unroll_by(L::kUnroll, 2))
+#pragma unroll (unroll_by(UR, 2))
       for (int a = 0; a < 2; ++a) {
         const T* Sa = a == 0 ? Sv : Sv1;
-#pragma unroll (unroll_by(L::kUnroll, 2))
+#pragma unroll (unroll_by(UR, 2))
         for (int b = 0; b < 2; ++b) {
           D[a][b] = Sa[0] * U[i][b][0];
           for (int k = 1; k < 6; ++k) D[a][b] = D[a][b] + Sa[k] * U[i][b][k];
@@ -351,8 +382,8 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
         sp[a] = Sa[0] * pA[i][0];
         for (int k = 1; k < 6; ++k) sp[a] = sp[a] + Sa[k] * pA[i][k];
       }
-      inv_spd<T, L::kUnroll>(D, Dinv[i]);
-#pragma unroll (unroll_by(L::kUnroll, NQ))
+      inv_spd<T, UR>(D, Dinv[i]);
+#pragma unroll (unroll_by(UR, NQ))
       for (int d = 0; d < NQ; ++d) {
         if (d == dof) te[0] = tau[d];
         if (d == dof + 1) te[1] = tau[d];
@@ -365,7 +396,7 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
       for (int r = 0; r < 6; ++r)
         for (int k = 0; k < 6; ++k)
           Ia[6 * r + k] = IA[i][6 * r + k] - (UD[r][0] * U[i][0][k] + UD[r][1] * U[i][1][k]);
-      mv6<L::kUnroll>(Ia, c[i], Iac);
+      mv6<UR>(Ia, c[i], Iac);
       S Du[2];
       for (int a = 0; a < 2; ++a) Du[a] = Dinv[i][a][0] * uu[i][0] + Dinv[i][a][1] * uu[i][1];
       for (int k = 0; k < 6; ++k) pa[k] = pA[i][k] + Iac[k] + (U[i][0][k] * Du[0] + U[i][1][k] * Du[1]);
@@ -374,34 +405,35 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
       Dinv[i][0][0] = S(T(0));
       uu[i][0] = S(T(0));
       for (int k = 0; k < 36; ++k) Ia[k] = IA[i][k];
-      mv6<L::kUnroll>(Ia, c[i], Iac);
+      mv6<UR>(Ia, c[i], Iac);
       for (int k = 0; k < 6; ++k) pa[k] = pA[i][k] + Iac[k];
     }
     // pp < NB, not pp < i: see StepLayout::kUnroll
-#pragma unroll (unroll_by(L::kUnroll, NB))
+#pragma unroll (unroll_by(UR, NB))
     for (int pp = 0; pp < NB; ++pp) {
       if (pp >= i || pp != par) continue;
       // IA[pp] += X^T Ia X, X = Ad(T_pc^-1), one column of X at a time
       for (int j = 0; j < 6; ++j) {
         S e[6], x[6], y[6], col[6];
         for (int k = 0; k < 6; ++k) e[k] = S(T(k == j ? 1 : 0));
-        ad_inv_apply<L::kUnroll>(R[i], p[i], e, x);
-        mv6<L::kUnroll>(Ia, x, y);
-        ad_dual_apply<L::kUnroll>(R[i], p[i], y, col);
+        ad_inv_apply<UR>(R[i], p[i], e, x);
+        mv6<UR>(Ia, x, y);
+        ad_dual_apply<UR>(R[i], p[i], y, col);
         for (int r = 0; r < 6; ++r) IA[pp][6 * r + j] = IA[pp][6 * r + j] + col[r];
       }
       S f[6];
-      ad_dual_apply<L::kUnroll>(R[i], p[i], pa, f);
+      ad_dual_apply<UR>(R[i], p[i], pa, f);
       for (int k = 0; k < 6; ++k) pA[pp][k] = pA[pp][k] + f[k];
     }
   }
 
   // forward sweep: accelerations
   const T g[6] = {T(0), T(0), T(0), -P[L::kGrav], -P[L::kGrav + 1], -P[L::kGrav + 2]};
-  S a[NB][6];
-#pragma unroll (unroll_by(L::kUnroll, NQ))
+  S a_l[NB][6];
+  S(&a)[NB][6] = work_array<EXT>(wk, &W::a, a_l);
+#pragma unroll (unroll_by(UR, NQ))
   for (int d = 0; d < NQ; ++d) qdd[d] = S(T(0));
-#pragma unroll (unroll_by(L::kUnroll, NB))
+#pragma unroll (unroll_by(UR, NB))
   for (int i = 0; i < NB; ++i) {
     const T* Sv = P + i * L::kBody + L::kS;
     const T* Sv1 = P + i * L::kBody + L::kS1;
@@ -409,17 +441,17 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
     const int nd = joint_ndof(I[L::iType + i]);
     S ap[6];
     for (int k = 0; k < 6; ++k) ap[k] = S(T(0));
-    if (par < 0) ad_inv_apply<L::kUnroll>(R[i], p[i], g, ap);
+    if (par < 0) ad_inv_apply<UR>(R[i], p[i], g, ap);
     // pp < NB, not pp < i: see StepLayout::kUnroll
-#pragma unroll (unroll_by(L::kUnroll, NB))
+#pragma unroll (unroll_by(UR, NB))
     for (int pp = 0; pp < NB; ++pp)
-      if (pp < i && pp == par) ad_inv_apply<L::kUnroll>(R[i], p[i], a[pp], ap);
+      if (pp < i && pp == par) ad_inv_apply<UR>(R[i], p[i], a[pp], ap);
     for (int k = 0; k < 6; ++k) ap[k] = ap[k] + c[i][k];
     if (nd == 1) {
       S Ua = U[i][0][0] * ap[0];
       for (int k = 1; k < 6; ++k) Ua = Ua + U[i][0][k] * ap[k];
       S qi = Dinv[i][0][0] * (uu[i][0] - Ua);
-#pragma unroll (unroll_by(L::kUnroll, NQ))
+#pragma unroll (unroll_by(UR, NQ))
       for (int d = 0; d < NQ; ++d)
         if (d == dof) qdd[d] = qi;
       for (int k = 0; k < 6; ++k) a[i][k] = ap[k] + Sv[k] * qi;
@@ -432,7 +464,7 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
       }
       S q0 = Dinv[i][0][0] * r[0] + Dinv[i][0][1] * r[1];
       S q1 = Dinv[i][1][0] * r[0] + Dinv[i][1][1] * r[1];
-#pragma unroll (unroll_by(L::kUnroll, NQ))
+#pragma unroll (unroll_by(UR, NQ))
       for (int d = 0; d < NQ; ++d) {
         if (d == dof) qdd[d] = q0;
         if (d == dof + 1) qdd[d] = q1;
@@ -442,7 +474,24 @@ NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I
       for (int k = 0; k < 6; ++k) a[i][k] = ap[k];
     }
   }
+}
 
+// with the work arrays in w (a lane group's shared memory)
+template <typename T, typename S, int NB, int NQ, int NA,
+          bool UR = StepLayout<NB, NQ, NA>::kUnroll>
+NPTT_HD void forward_dynamics(DynWork<S, NB, NQ>& w, const T* __restrict__ P,
+                              const int* __restrict__ I, const S* q, const S* v, const S* u,
+                              S (&R)[NB][9], S (&p)[NB][3], S (&qdd)[NQ]) {
+  forward_dynamics_impl<T, S, NB, NQ, NA, UR, true>(&w, P, I, q, v, u, R, p, qdd);
+}
+
+// with local work arrays (the one-thread step)
+template <typename T, typename S, int NB, int NQ, int NA,
+          bool UR = StepLayout<NB, NQ, NA>::kUnroll>
+NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I,
+                              const S* q, const S* v, const S* u, S (&R)[NB][9],
+                              S (&p)[NB][3], S (&qdd)[NQ]) {
+  forward_dynamics_impl<T, S, NB, NQ, NA, UR, false>(nullptr, P, I, q, v, u, R, p, qdd);
 }
 
 // One step x' = f(x, u) of the planning dynamics (simulation/step.py
@@ -508,6 +557,11 @@ NPTT_HD constexpr int row_unroll(int m, int trips, int rolled = 1) {
   return m <= 8 ? unroll_by(true, trips) : rolled;
 }
 
+// Where the rows stay rolled (more than 8 of them, the worm's 28), K2 and
+// K5 run the frozen solve on a lane group (frozen_group.cuh) instead of
+// one thread.
+NPTT_HD constexpr bool group_layout(int m) { return m > 8; }
+
 // The (bodies, dofs, actions, rows, slots) shapes the constrained kernels
 // are built for; the Python wrappers refuse any other model. cartpole with
 // its two limited dofs: 2 bodies, 2 dofs, 1 action, 4 rows, no slot (K2
@@ -555,60 +609,62 @@ NPTT_HD void set_at(S (&A)[N][N], int r, int c, S v) {
 
 // Composite-rigid-body mass matrix M(q) (ops/dynamics.py mass_matrix) from
 // the transforms forward_dynamics left in (R, p).
-template <typename T, typename S, int NB, int NQ, int NA>
-NPTT_HD void mass_matrix(const T* __restrict__ P, const int* __restrict__ I,
-                         const S (&R)[NB][9], const S (&p)[NB][3], S (&Mm)[NQ][NQ]) {
+template <typename T, typename S, int NB, int NQ, int NA, bool UR, bool EXT>
+NPTT_HD void mass_matrix_impl(DynWork<S, NB, NQ>* wk, const T* __restrict__ P,
+                              const int* __restrict__ I, const S (&R)[NB][9],
+                              const S (&p)[NB][3], S (&Mm)[NQ][NQ]) {
   using L = StepLayout<NB, NQ, NA>;
-  S Ic[NB][36];
-#pragma unroll (unroll_by(L::kUnroll, NB))
+  S Ic_l[NB][36];
+  S(&Ic)[NB][36] = work_array<EXT>(wk, &DynWork<S, NB, NQ>::Ic, Ic_l);
+#pragma unroll (unroll_by(UR, NB))
   for (int i = 0; i < NB; ++i)
     for (int k = 0; k < 36; ++k) Ic[i][k] = S(P[i * L::kBody + L::kI + k]);
   // composite inertias: Ic[parent] += X^T Ic X, X = Ad(T_pc^-1), by columns
-#pragma unroll (unroll_by(L::kUnroll, NB))
+#pragma unroll (unroll_by(UR, NB))
   for (int i = NB - 1; i >= 0; --i) {
     const int par = I[L::iParent + i];
     // pp < NB, not pp < i: see StepLayout::kUnroll
-#pragma unroll (unroll_by(L::kUnroll, NB))
+#pragma unroll (unroll_by(UR, NB))
     for (int pp = 0; pp < NB; ++pp) {
       if (pp >= i || pp != par) continue;
       for (int j = 0; j < 6; ++j) {
         S e[6], x[6], y[6], col[6];
         for (int k = 0; k < 6; ++k) e[k] = S(T(k == j ? 1 : 0));
-        ad_inv_apply<L::kUnroll>(R[i], p[i], e, x);
-        mv6<L::kUnroll>(Ic[i], x, y);
-        ad_dual_apply<L::kUnroll>(R[i], p[i], y, col);
+        ad_inv_apply<UR>(R[i], p[i], e, x);
+        mv6<UR>(Ic[i], x, y);
+        ad_dual_apply<UR>(R[i], p[i], y, col);
         for (int r = 0; r < 6; ++r) Ic[pp][6 * r + j] = Ic[pp][6 * r + j] + col[r];
       }
     }
   }
-#pragma unroll (unroll_by(L::kUnroll, NQ))
+#pragma unroll (unroll_by(UR, NQ))
   for (int a = 0; a < NQ; ++a)
-#pragma unroll (unroll_by(L::kUnroll, NQ))
+#pragma unroll (unroll_by(UR, NQ))
     for (int c = 0; c < NQ; ++c) Mm[a][c] = S(T(0));
-#pragma unroll (unroll_by(L::kUnroll, NB))
+#pragma unroll (unroll_by(UR, NB))
   for (int i = 0; i < NB; ++i) {
     const int dof = I[L::iDof + i];
     if (dof < 0) continue;
     const int nd = joint_ndof(I[L::iType + i]);
-#pragma unroll (unroll_by(L::kUnroll, 2))
+#pragma unroll (unroll_by(UR, 2))
     for (int ci = 0; ci < 2; ++ci) {
       if (ci >= nd) continue;
       const T* Sv = P + i * L::kBody + (ci == 0 ? L::kS : L::kS1);
       S F[6];
-      mv6<L::kUnroll>(Ic[i], Sv, F);
+      mv6<UR>(Ic[i], Sv, F);
       // the diagonal block, column dof + ci
-#pragma unroll (unroll_by(L::kUnroll, 2))
+#pragma unroll (unroll_by(UR, 2))
       for (int cr = 0; cr < 2; ++cr) {
         if (cr >= nd) continue;
         const T* Sr = P + i * L::kBody + (cr == 0 ? L::kS : L::kS1);
         S Mii = Sr[0] * F[0];
         for (int k = 1; k < 6; ++k) Mii = Mii + Sr[k] * F[k];
-        set_at<L::kUnroll>(Mm, dof + cr, dof + ci, Mii);
+        set_at<UR>(Mm, dof + cr, dof + ci, Mii);
       }
       // carry F = Ic S up the chain of ancestors (parents[j] < j)
       int cur = i;
       // from NB - 1, not from i (jj > i never equals cur): see StepLayout::kUnroll
-#pragma unroll (unroll_by(L::kUnroll, NB - 1))
+#pragma unroll (unroll_by(UR, NB - 1))
       for (int jj = NB - 1; jj >= 1; --jj) {
         if (jj != cur) continue;
         const int par = I[L::iParent + jj];
@@ -617,7 +673,7 @@ NPTT_HD void mass_matrix(const T* __restrict__ P, const int* __restrict__ I,
           continue;
         }
         S G[6];
-        ad_dual_apply<L::kUnroll>(R[jj], p[jj], F, G);
+        ad_dual_apply<UR>(R[jj], p[jj], F, G);
         for (int k = 0; k < 6; ++k) F[k] = G[k];
         cur = par;
         const int dp = I[L::iDof + par];
@@ -626,29 +682,37 @@ NPTT_HD void mass_matrix(const T* __restrict__ P, const int* __restrict__ I,
           const T* Sp = P + par * L::kBody + (cp == 0 ? L::kS : L::kS1);
           S mij = Sp[0] * F[0];
           for (int k = 1; k < 6; ++k) mij = mij + Sp[k] * F[k];
-          set_at<L::kUnroll>(Mm, dp + cp, dof + ci, mij);
-          set_at<L::kUnroll>(Mm, dof + ci, dp + cp, mij);
+          set_at<UR>(Mm, dp + cp, dof + ci, mij);
+          set_at<UR>(Mm, dof + ci, dp + cp, mij);
         }
       }
     }
   }
 }
 
-// The contact rows of the planner assembly (ops/contact.py _contact_rows
-// with planner=True): per slot k the world point p = R_wa p_local + p_wa on
-// its body a, the point Jacobian Jp = v + omega x p of the world Jacobian
-// columns Ad(T_wk) S_k of a's ancestors k (ops/dynamics.py world_jacobian),
-// and the rows n^T Jp, t1^T Jp, t2^T Jp with (t1, t2) = _tangent_basis(n);
-// b = -J v*. The halfspace is static, so n and the basis are constants.
-template <typename T, typename S, int NB, int NQ, int NA, int M, int NS>
-NPTT_HD void contact_rows(const T* __restrict__ P, const int* __restrict__ I,
-                          const S (&R)[NB][9], const S (&p)[NB][3], const S* vs,
-                          S (&Jc)[3 * NS][NQ], S (&b)[M], T (&lo)[M], T (&hi)[M]) {
+template <typename T, typename S, int NB, int NQ, int NA,
+          bool UR = StepLayout<NB, NQ, NA>::kUnroll>
+NPTT_HD void mass_matrix(DynWork<S, NB, NQ>& w, const T* __restrict__ P,
+                         const int* __restrict__ I, const S (&R)[NB][9], const S (&p)[NB][3],
+                         S (&Mm)[NQ][NQ]) {
+  mass_matrix_impl<T, S, NB, NQ, NA, UR, true>(&w, P, I, R, p, Mm);
+}
+
+template <typename T, typename S, int NB, int NQ, int NA,
+          bool UR = StepLayout<NB, NQ, NA>::kUnroll>
+NPTT_HD void mass_matrix(const T* __restrict__ P, const int* __restrict__ I,
+                         const S (&R)[NB][9], const S (&p)[NB][3], S (&Mm)[NQ][NQ]) {
+  mass_matrix_impl<T, S, NB, NQ, NA, UR, false>(nullptr, P, I, R, p, Mm);
+}
+
+// Each body's transform to the world (Rw, pw) from the parent-relative
+// transforms (R, p) of forward_dynamics.
+template <typename T, typename S, int NB, int NQ, int NA,
+          bool UR = StepLayout<NB, NQ, NA>::kUnroll>
+NPTT_HD void world_frames(const int* __restrict__ I, const S (&R)[NB][9], const S (&p)[NB][3],
+                          S (&Rw)[NB][9], S (&pw)[NB][3]) {
   using L = StepLayout<NB, NQ, NA>;
-  using RL = RowLayout<NB, NQ, NA, M, NS>;
-  // body -> world transforms
-  S Rw[NB][9], pw[NB][3];
-#pragma unroll (unroll_by(L::kUnroll, NB))
+#pragma unroll (unroll_by(UR, NB))
   for (int i = 0; i < NB; ++i) {
     const int par = I[L::iParent + i];
     if (par < 0) {
@@ -656,80 +720,120 @@ NPTT_HD void contact_rows(const T* __restrict__ P, const int* __restrict__ I,
       for (int k = 0; k < 3; ++k) pw[i][k] = p[i][k];
     }
     // pp < NB, not pp < i: see StepLayout::kUnroll
-#pragma unroll (unroll_by(L::kUnroll, NB))
+#pragma unroll (unroll_by(UR, NB))
     for (int pp = 0; pp < NB; ++pp) {
       if (pp >= i || pp != par) continue;
       S tmp[3];
-      mm3<L::kUnroll>(Rw[pp], R[i], Rw[i]);
-      mv3<L::kUnroll>(Rw[pp], p[i], tmp);
+      mm3<UR>(Rw[pp], R[i], Rw[i]);
+      mv3<UR>(Rw[pp], p[i], tmp);
       for (int k = 0; k < 3; ++k) pw[i][k] = tmp[k] + pw[pp][k];
     }
   }
+}
+
+// Slot s's point Jacobian Jp (3 x NQ): its world point p = R_wa p_local +
+// p_wa on its body a, and Jp = v + omega x p over the world Jacobian
+// columns Ad(T_wk) S_k of a's ancestors k (ops/dynamics.py world_jacobian).
+template <typename T, typename S, int NB, int NQ, int NA, int M, int NS,
+          bool UR = StepLayout<NB, NQ, NA>::kUnroll>
+NPTT_HD void slot_jacobian(const T* __restrict__ P, const int* __restrict__ I,
+                           const S (&Rw)[NB][9], const S (&pw)[NB][3], int s, S (&Jp)[3][NQ]) {
+  using L = StepLayout<NB, NQ, NA>;
+  using RL = RowLayout<NB, NQ, NA, M, NS>;
+  const T* sd = P + RL::kSlot + RL::kSlotReals * s;
+  const int ab = I[RL::iSlotBody + s];
+  S pk[3];
+  bool anc[NB];
+#pragma unroll (unroll_by(UR, NB))
+  for (int i = 0; i < NB; ++i) {
+    anc[i] = false;
+    if (i == ab) {
+      S tmp[3];
+      mv3<UR>(Rw[i], sd, tmp);
+      for (int k = 0; k < 3; ++k) pk[k] = tmp[k] + pw[i][k];
+    }
+  }
+  int cur = ab;
+#pragma unroll (unroll_by(UR, NB))
+  for (int jj = NB - 1; jj >= 0; --jj)
+    if (jj == cur) {
+      anc[jj] = true;
+      cur = I[L::iParent + jj];
+    }
+  for (int r = 0; r < 3; ++r)
+#pragma unroll (unroll_by(UR, NQ))
+    for (int e = 0; e < NQ; ++e) Jp[r][e] = S(T(0));
+#pragma unroll (unroll_by(UR, NB))
+  for (int kb = 0; kb < NB; ++kb) {
+    if (!anc[kb]) continue;
+    const int dof = I[L::iDof + kb], nd = joint_ndof(I[L::iType + kb]);
+    for (int cc = 0; cc < nd; ++cc) {
+      const T* Sc = P + kb * L::kBody + (cc == 0 ? L::kS : L::kS1);
+      // Ad(T_wk) S = (R w; p x (R w) + R v), then v + omega x p
+      S w[3], Rv[3], pxw[3], wxp[3];
+      mv3<UR>(Rw[kb], Sc, w);
+      mv3<UR>(Rw[kb], Sc + 3, Rv);
+      cross3(pw[kb], w, pxw);
+      cross3(w, pk, wxp);
+#pragma unroll (unroll_by(UR, NQ))
+      for (int e = 0; e < NQ; ++e)
+        if (e == dof + cc)
+          for (int r = 0; r < 3; ++r) Jp[r][e] = (pxw[r] + Rv[r]) + wxp[r];
+    }
+  }
+}
+
+// Direction d of slot s's rows: its halfspace's constant normal n (d = 0)
+// or a vector of _tangent_basis(n) (d = 1, 2).
+template <typename T, int NB, int NQ, int NA, int M, int NS>
+NPTT_HD void slot_direction(const T* __restrict__ P, int s, int d, T (&dir)[3]) {
+  using RL = RowLayout<NB, NQ, NA, M, NS>;
+  const T* sd = P + RL::kSlot + RL::kSlotReals * s;
+  const T n[3] = {sd[3], sd[4], sd[5]};
+  const T ez[3] = {T(0), T(0), T(1)}, ex[3] = {T(1), T(0), T(0)};
+  T tz[3], tx[3], t1[3], t2[3];
+  cross3(ez, n, tz);
+  cross3(ex, n, tx);
+  const bool use_z = tz[0] * tz[0] + tz[1] * tz[1] + tz[2] * tz[2] > T(1e-12);
+  for (int k = 0; k < 3; ++k) t1[k] = use_z ? tz[k] : tx[k];
+  T nt = t1[0] * t1[0] + t1[1] * t1[1] + t1[2] * t1[2];
+  nt = nsqrt(nt > T(1e-18) ? nt : T(1e-18));
+  for (int k = 0; k < 3; ++k) t1[k] = t1[k] / nt;
+  cross3(n, t1, t2);
+  for (int k = 0; k < 3; ++k) dir[k] = d == 0 ? n[k] : (d == 1 ? t1[k] : t2[k]);
+}
+
+// One contact row dir^T Jp (NQ) of a slot.
+template <bool U, typename T, typename S, int NQ>
+NPTT_HD void slot_row(const T (&dir)[3], const S (&Jp)[3][NQ], S* row) {
+#pragma unroll (unroll_by(U, NQ))
+  for (int e = 0; e < NQ; ++e) row[e] = (dir[0] * Jp[0][e] + dir[1] * Jp[1][e]) + dir[2] * Jp[2][e];
+}
+
+// The contact rows of the planner assembly (ops/contact.py _contact_rows
+// with planner=True): per slot k its point Jacobian (slot_jacobian) and the
+// rows n^T Jp, t1^T Jp, t2^T Jp with (t1, t2) = _tangent_basis(n);
+// b = -J v*. The halfspace is static, so n and the basis are constants.
+template <typename T, typename S, int NB, int NQ, int NA, int M, int NS>
+NPTT_HD void contact_rows(const T* __restrict__ P, const int* __restrict__ I,
+                          const S (&R)[NB][9], const S (&p)[NB][3], const S* vs,
+                          S (&Jc)[3 * NS][NQ], S (&b)[M], T (&lo)[M], T (&hi)[M]) {
+  using L = StepLayout<NB, NQ, NA>;
+  S Rw[NB][9], pw[NB][3];
+  world_frames<T, S, NB, NQ, NA>(I, R, p, Rw, pw);
 #pragma unroll (row_unroll(M, NS))
   for (int s = 0; s < NS; ++s) {
-    const T* sd = P + RL::kSlot + RL::kSlotReals * s;
-    const int ab = I[RL::iSlotBody + s];
-    S pk[3], Jp[3][NQ];
-    bool anc[NB];
-#pragma unroll (unroll_by(L::kUnroll, NB))
-    for (int i = 0; i < NB; ++i) {
-      anc[i] = false;
-      if (i == ab) {
-        S tmp[3];
-        mv3<L::kUnroll>(Rw[i], sd, tmp);
-        for (int k = 0; k < 3; ++k) pk[k] = tmp[k] + pw[i][k];
-      }
-    }
-    int cur = ab;
-#pragma unroll (unroll_by(L::kUnroll, NB))
-    for (int jj = NB - 1; jj >= 0; --jj)
-      if (jj == cur) {
-        anc[jj] = true;
-        cur = I[L::iParent + jj];
-      }
-    for (int r = 0; r < 3; ++r)
-#pragma unroll (unroll_by(L::kUnroll, NQ))
-      for (int e = 0; e < NQ; ++e) Jp[r][e] = S(T(0));
-#pragma unroll (unroll_by(L::kUnroll, NB))
-    for (int kb = 0; kb < NB; ++kb) {
-      if (!anc[kb]) continue;
-      const int dof = I[L::iDof + kb], nd = joint_ndof(I[L::iType + kb]);
-      for (int cc = 0; cc < nd; ++cc) {
-        const T* Sc = P + kb * L::kBody + (cc == 0 ? L::kS : L::kS1);
-        // Ad(T_wk) S = (R w; p x (R w) + R v), then v + omega x p
-        S w[3], Rv[3], pxw[3], wxp[3];
-        mv3<L::kUnroll>(Rw[kb], Sc, w);
-        mv3<L::kUnroll>(Rw[kb], Sc + 3, Rv);
-        cross3(pw[kb], w, pxw);
-        cross3(w, pk, wxp);
-#pragma unroll (unroll_by(L::kUnroll, NQ))
-        for (int e = 0; e < NQ; ++e)
-          if (e == dof + cc)
-            for (int r = 0; r < 3; ++r) Jp[r][e] = (pxw[r] + Rv[r]) + wxp[r];
-      }
-    }
-    // _tangent_basis of the constant normal
-    const T n[3] = {sd[3], sd[4], sd[5]};
-    const T ez[3] = {T(0), T(0), T(1)}, ex[3] = {T(1), T(0), T(0)};
-    T tz[3], tx[3], t1[3], t2[3];
-    cross3(ez, n, tz);
-    cross3(ex, n, tx);
-    const bool use_z = tz[0] * tz[0] + tz[1] * tz[1] + tz[2] * tz[2] > T(1e-12);
-    for (int k = 0; k < 3; ++k) t1[k] = use_z ? tz[k] : tx[k];
-    T nt = t1[0] * t1[0] + t1[1] * t1[1] + t1[2] * t1[2];
-    nt = nsqrt(nt > T(1e-18) ? nt : T(1e-18));
-    for (int k = 0; k < 3; ++k) t1[k] = t1[k] / nt;
-    cross3(n, t1, t2);
-    const T* dirs[3] = {n, t1, t2};
+    S Jp[3][NQ];
+    slot_jacobian<T, S, NB, NQ, NA, M, NS>(P, I, Rw, pw, s, Jp);
 #pragma unroll (unroll_by(L::kUnroll, 3))
     for (int d = 0; d < 3; ++d) {
       const int row = 3 * s + d;
-      S rel = S(T(0));
-#pragma unroll (unroll_by(L::kUnroll, NQ))
-      for (int e = 0; e < NQ; ++e) {
-        Jc[row][e] = (dirs[d][0] * Jp[0][e] + dirs[d][1] * Jp[1][e]) + dirs[d][2] * Jp[2][e];
-        rel = e == 0 ? Jc[row][e] * vs[e] : rel + Jc[row][e] * vs[e];
-      }
+      T dir[3];
+      slot_direction<T, NB, NQ, NA, M, NS>(P, s, d, dir);
+      slot_row<L::kUnroll>(dir, Jp, Jc[row]);
+      S rel = Jc[row][0] * vs[0];
+#pragma unroll (unroll_by(L::kUnroll, NQ - 1))
+      for (int e = 1; e < NQ; ++e) rel = rel + Jc[row][e] * vs[e];
       b[row] = -rel;
       lo[row] = T(0);
       hi[row] = d == 0 ? T(kBig) : T(0);

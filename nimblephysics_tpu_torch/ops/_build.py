@@ -43,8 +43,10 @@ SIGNATURES = {
     "nptt_rollout": [_I, _I, _I, _I, _I, _I, _LL, _LL, _I, _I] + [_P] * 15,
     "nptt_linearize_split": [_I, _I, _I, _I, _I, _LL, _I] + [_P] * 9,
     "nptt_rollout_classes": [_I, _I, _I, _I, _I, _LL, _I] + [_P] * 6,
-    "nptt_linearize_vjp": [_I, _I, _I, _I, _I, _I, _LL, _I] + [_P] * 10,
+    "nptt_linearize_vjp": [_I, _I, _I, _I, _I, _I, _LL, _I] + [_P] * 9,
     "nptt_pgs": [_I, _I, _LL, _I] + [_P] * 9,
+    "nptt_rollout_group_shape": [_I, _P],
+    "nptt_linearize_vjp_group_shape": [_I, _P],
 }
 
 
@@ -159,6 +161,15 @@ def check_shape(name: str, key: str, t, shape: tuple) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
+
+
+def group_shape(name: str, dtype) -> dict:
+    """The lane-group layout of K2's worm instance (``name`` "rollout") or
+    K5's ("linearize_vjp"): lanes per group, groups per block and shared
+    bytes per block (csrc/frozen_group.cuh)."""
+    out = (ctypes.c_longlong * 3)()
+    getattr(load(), f"nptt_{name}_group_shape")(int(dtype == torch.float64), out)
+    return {"lanes": out[0], "groups_per_block": out[1], "shared_bytes": out[2]}
 
 
 def stream_ptr(device) -> int:

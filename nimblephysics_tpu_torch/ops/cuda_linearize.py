@@ -260,15 +260,12 @@ def _frozen_vjp(name: str, wrapper, model: Model, xs, u, classes, cg_iters):
     P, I = device_step.pack_model(model)
     fx = torch.empty((B, T, nx, nx), dtype=dtype, device=dev)
     fu = torch.empty((B, T, nx, na), dtype=dtype, device=dev)
-    # per point: x_C, R (cm x_C) and the nq adjoint solutions (csrc/linearize.cu
-    # VjpScratch)
-    scratch = torch.empty((B * T, (2 + model.nq) * m), dtype=dtype, device=dev)
     lib = _build.load()
     rc = lib.nptt_linearize_vjp(
         int(dtype == torch.float64), model.num_bodies, model.nq, na, m,
         total_slots(model), B * T, n_cg, P.data_ptr(), I.data_ptr(),
-        xs.data_ptr(), u.data_ptr(), cm.data_ptr(), us.data_ptr(), scratch.data_ptr(),
-        fx.data_ptr(), fu.data_ptr(), _build.stream_ptr(dev))
+        xs.data_ptr(), u.data_ptr(), cm.data_ptr(), us.data_ptr(), fx.data_ptr(),
+        fu.data_ptr(), _build.stream_ptr(dev))
     _build.check(rc, name)
     wrapper.launches += 1
     return fx, fu

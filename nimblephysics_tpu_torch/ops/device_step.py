@@ -178,6 +178,16 @@ def _pack_slots(model: Model):
 # constants alone are not counted.
 TANGENT_OPS = {"add": 1, "add_c": 0, "mul": 3, "mul_c": 1, "div": 3,
                "sin": 2, "cos": 3, "sqrt": 2}
+# ... and by kind (csrc/common.cuh Dual): a product's tangent a.d b + a b.d
+# is two products and a sum, a quotient's (a.d - q b.d) / b a product, a sum
+# and a quotient, sqrt's x.d / (2 s) a product (of the constant 2 built in
+# the arithmetic type) and a quotient.
+TANGENT_KINDS = {"add": {"add": 1}, "add_c": {}, "mul": {"mul": 2, "add": 1},
+                 "mul_c": {"mul_c": 1}, "div": {"div": 1, "mul": 1, "add": 1},
+                 "sin": {"cos": 1, "mul": 1}, "cos": {"sin": 1, "mul": 1, "add": 1},
+                 "sqrt": {"mul": 1, "div": 1}}
+# csrc/frozen_group.cuh kK5Group: the lanes of K5's group per point
+K5_GROUP = 16
 
 
 def _ops(k: int = 1, **kinds) -> Counter:
@@ -291,26 +301,38 @@ def _inv_spd_ops(n: int) -> Counter:
     return _ops(n, div=1, mul=2 * n) + _ops(n * (n - 1) * 2 * n, mul=1, add=1)
 
 
-def _contact_rows_ops(model: Model) -> Counter:
-    """csrc/step.cuh contact_rows: the world transforms, then per slot its
-    point, its point Jacobian over its body's ancestors' dof columns, its
-    three rows and their b."""
-    nq, nds = model.nq, model.joint_ndofs
+def _world_frames_ops(model: Model) -> Counter:
+    """csrc/step.cuh world_frames."""
     c = Counter()
     for i in range(model.num_bodies):
         if model.parents[i] >= 0:
             c += _ops(mul=27, add=18) + _mv3(False) + _ops(add=3)
+    return c
+
+
+def _slot_jacobian_ops(model: Model) -> list:
+    """csrc/step.cuh slot_jacobian, per contact slot: its point and its
+    point Jacobian over its body's ancestors' dof columns."""
+    nds = model.joint_ndofs
+    out = []
     for ia, _, n in enumerate_pairs(model):
         a = model.shapes[ia].body_index
         cols = 0
         while a >= 0:
             cols += nds[a]
             a = model.parents[a]
-        per_slot = (_mv3(True) + _ops(add=3)
-                    + _ops(cols, **(_mv3(True) + _mv3(True) + _cross3() + _cross3()
-                                    + _ops(add=6)))
-                    + _ops(3 * nq, mul_c=3, add=2) + _ops(3, mul=nq, add=nq))
-        c += _ops(n, **per_slot)
+        out += [_mv3(True) + _ops(add=3)
+                + _ops(cols, **(_mv3(True) + _mv3(True) + _cross3() + _cross3() + _ops(add=6)))] * n
+    return out
+
+
+def _contact_rows_ops(model: Model) -> Counter:
+    """csrc/step.cuh contact_rows: the world transforms, then per slot its
+    point Jacobian, its three rows and their b."""
+    nq = model.nq
+    c = _world_frames_ops(model)
+    for jac in _slot_jacobian_ops(model):
+        c += jac + _ops(3 * nq, mul_c=3, add=2) + _ops(3, mul=nq, add=nq)
     return c
 
 
@@ -424,52 +446,105 @@ def class_step_ops(model: Model) -> int:
     return sum(class_step_op_kinds(model).values())
 
 
-def _vjp_parts(model: Model, n_cg: int) -> tuple:
-    """K5's operations for one point, in parts (csrc/linearize.cu): the
-    primal thread body by kind (the frozen solve's inputs, its normal
-    equations, the primal PCG and the nq adjoint PCGs on values); then,
-    per direction of (x, u), the column thread body's operations on values
-    (which repeat the primal's) and on tangents, without the 4 m operations
-    of each of its nq entries; Qf x_C, which each column recomputes on
-    values; and m."""
-    from nimblephysics_tpu_torch.ops.contact import lcp_dim
+def _tangent_kinds(c: Counter) -> Counter:
+    """The operations the tangents of c's operations add, by kind."""
+    out = Counter()
+    for kind, n in c.items():
+        for k, m in TANGENT_KINDS[kind].items():
+            out[k] += n * m
+    return out
+
+
+def _group_sums(m: int, g: int, n: int = 1) -> Counter:
+    """n sums over m rows held by a group of g lanes by its butterfly
+    (csrc/frozen_group.cuh, the groups' sum()): the m products, each lane's partial
+    (a sum per owned row after its first) and log2(g) sums on every
+    lane."""
+    return _ops(n, mul=m, add=m - min(g, m) + g * (g.bit_length() - 1))
+
+
+def _vjp_parts(model: Model, n_cg: int, g: int) -> dict:
+    """K5's operations for one point by part, as csrc/linearize.cu's
+    linearize_vjp_group does them on a group of g lanes: "dyn", the step's
+    dynamics on lane 0 (forward_dynamics, mass_matrix, inv_spd,
+    world_frames) and every lane's v* and q'; "primal", the rows, the
+    normal equations, the primal and nq adjoint PCGs and the point's
+    coefficients G_k, H_k, c_k (without the tie rule of max|Qf|, which adds operations only where an entry of C A R
+    attains max|Qf| >= 1); "col" and "qcol", the values of one direction's
+    dual inputs (every direction's: forward_dynamics and v*; a direction of
+    q's besides: mass_matrix, world_frames and the contact rows), and
+    "contract" and "qcontract", the contractions that follow them."""
+    from nimblephysics_tpu_torch.ops.contact import coulomb_dofs, lcp_dim, limited_dofs
 
     m, nq, ns = lcp_dim(model), model.nq, total_slots(model)
-    inputs = _constrained_ops(model, True) - _ops(nq, **_dot(m)) - _ops(nq, add=1)
-    primal = (inputs + _normal_eqs_ops(m, ns) + _ops(nq + 1, **_pcg_ops(m, n_cg))
-              + _impulses_ops(m, ns) + _ops(nq, **(_ops(ns, mul_c=2, add=2) + _ops(m, mul_c=2))))
-    system = _ops(m * m, mul_c=3) + _ops(m * ns, mul_c=2, add=2) + _ops(m, add_c=1)
-    qx = m * (2 * m - 1)
-    # the inputs and Qf on dual numbers: 1 + TANGENT_OPS[kind] per operation;
-    # rhs = cm b; reg = (eps qs) qs; diag(Qf^T Qf) + reg and Qf^T rhs
-    values = (sum(inputs.values()) + sum(system.values()) + m + 2
-              + 2 * m * (2 * m - 1) + m + qx)
-    tangent = (sum(TANGENT_OPS[kd] * n for kd, n in inputs.items())
-               + sum(TANGENT_OPS[kd] * n for kd, n in system.items()) + m
-               + 2 * m * m + 1 + 4                       # tie rule of max|Qf|, reg
-               + m * (3 * m + m - 1)                     # Qf^T rhs
-               + 3 * m * (2 * m - 1) + 4 * m)            # dQf x_C, the tangent right-hand side
-    return primal, values, tangent, qx, m
+    c0, nr = 3 * ns, nq + 1
+    mr = m - c0
+    n_lim, n_coul = 2 * len(limited_dofs(model)), len(coulomb_dofs(model))
+    euler = _ops(nq, mul_c=2, add=2)
+    dyn = (step_op_kinds(model) - euler + _mass_matrix_ops(model) + _inv_spd_ops(nq)
+           + _world_frames_ops(model) + _ops(g, **euler))
+    rows = Counter()
+    for jac in _slot_jacobian_ops(model):              # J, b and MJ of contact rows
+        rows += _ops(3, **(jac + _ops(nq, mul_c=3, add=2) + _ops(mul=nq, add=nq)
+                           + _ops(nq, mul=nq, add=nq - 1)))
+    rows += _ops(n_lim, mul_c=1) + _ops(n_coul, add=1) + _ops(mr * nq, mul_c=1)
+    normal = (_ops(c0 * m, mul=nq, add=nq - 1) + _ops(mr * m, mul_c=1)   # A, by entries
+              + _ops(m, add_c=2) + _ops(m * ns, mul_c=2, add=2)          # CFM, 1 - cm, coupling
+              + _ops(m * m, mul_c=3) + _ops(m, mul_c=1)                  # Qf, rhs
+              + _ops(g, mul_c=1, mul=1)                                  # reg on every lane
+              + _ops(2 * m, **_dot(m)) + _ops(m, add=1))                 # diagM, bvec
+    adjoint = _ops(nq * m, mul_c=2) + _ops(nq * ns, mul_c=2, add=2)
+    it = (_ops(nr * m, **_dot(m)) + _ops(nr * m, mul=m + 1, add=m)      # Qp, Ap
+          + _ops(nr, **_dot(m)) + _ops(nr * g, add_c=1, div=1)          # pAp, alpha
+          + _ops(nr * m, mul=2, add=2, div=1)                           # x, r, z
+          + _ops(nr, **_dot(m)) + _ops(nr * g, add_c=1, div=1)          # rz, beta
+          + _ops(nr * m, mul=1, add=1))                                 # p
+    pcg = _ops(nr * m, div=1) + _ops(nr, **_dot(m)) + _ops(n_cg, **it)
+    red = 2 * nq * nq + 3 * nq
+    coeffs = (_ops(nr, **(_ops(m, mul_c=2) + _ops(2 * ns, mul_c=3, add=1)))    # R x_C, R lam_k
+              + _ops(nr * m, **_dot(m))                                     # Qf x_C, Qf lam_k
+              + _ops(m, add=1, mul_c=1) + _ops(nq * m, mul_c=1, add=1)      # a1, a2_k
+              + _group_sums(m, g, red)                                      # MJ w, J^T a, lam x_C
+              + _ops(g, **(_ops(nq + nq * nq, **_dot(nq))                   # pa1, pa2_k
+                           + _ops(nq * nq + nq, add=1)))                    # + M^-1[k, :], vn
+              + _ops(c0 * nq * nq, mul=4, add=3)                            # G_k
+              + _ops(nq ** 3, mul=2, add=2) + _ops(nq, add_c=1))            # H_k, c_k
+    col = step_op_kinds(model) - _ops(nq, mul_c=1, add=1)    # forward_dynamics and v*
+    qcol = _mass_matrix_ops(model) + _world_frames_ops(model)
+    for jac in _slot_jacobian_ops(model):
+        qcol += jac + _ops(3 * nq, mul_c=3, add=2)
+    return {"dyn": dyn, "primal": rows + normal + adjoint + pcg + coeffs,
+            "col": col, "contract": _ops(nq, **_dot(nq)),
+            "qcol": qcol, "qcontract": _ops(nq ** 3 + 3 * ns * nq * nq, mul=1, add=1)}
 
 
-def vjp_point_ops(model: Model, n_cg: int) -> int:
-    """The operations of K5's thread bodies for one point as the code does
-    them: linearize_vjp_primal, then linearize_vjp_column per direction of
-    (x, u), each on dual numbers (a dual operation of a kind costs
-    1 + TANGENT_OPS[kind]; the normal equations' dual form computes
-    diag(Qf^T Qf) on values and takes max|Qf|'s tangent by its tie rule)."""
-    primal, values, tangent, _, m = _vjp_parts(model, n_cg)
+def vjp_point_op_kinds(model: Model, n_cg: int, group: int = K5_GROUP) -> Counter:
+    """The operations of K5's body for one point as the code does them, by
+    kind (csrc/linearize.cu linearize_vjp_group on a group of ``group``
+    lanes): the dynamics, the primal and the coefficients, then per
+    direction of (x, u) its inputs on dual numbers (a dual operation of a
+    kind adds TANGENT_KINDS[kind]) and their contraction."""
+    p = _vjp_parts(model, n_cg, group)
     k = 2 * model.nq + model.num_actions
-    return sum(primal.values()) + k * (values + tangent + model.nq * 4 * m)
+    return (p["dyn"] + p["primal"]
+            + _ops(k, **(p["col"] + _tangent_kinds(p["col"]) + p["contract"]))
+            + _ops(model.nq, **(p["qcol"] + _tangent_kinds(p["qcol"]) + p["qcontract"])))
+
+
+def vjp_point_ops(model: Model, n_cg: int, group: int = K5_GROUP) -> int:
+    return sum(vjp_point_op_kinds(model, n_cg, group).values())
 
 
 def vjp_point_least_ops(model: Model, n_cg: int) -> int:
     """The operations one point of K5's function needs, for its bound: the
-    primal frozen step with its nq adjoint PCGs and Qf x_C once, then nq
-    reverse sweeps (the nq rows of v'), each counted as one tangent sweep
-    without its values (the adjoint of each operation costs what its
-    tangent does) and with the 4 m operations that contract one row. The
-    kernel repeats the values per direction and runs 2 nq + na directions
-    (vjp_point_ops)."""
-    primal, _, tangent, qx, m = _vjp_parts(model, n_cg)
-    return sum(primal.values()) + qx + model.nq * (tangent + 4 * m)
+    primal as one thread does it (the dynamics once, the nq + 1 PCGs with
+    their sums in sequence, the coefficients G_k, H_k, c_k), then nq reverse
+    sweeps of the factored form, one per row of v', each from its
+    cotangents G_k, H_k, c_k on J, M and v* back to (x, u) through
+    forward_dynamics, mass_matrix and the contact rows, counted as one
+    tangent sweep of them without their values (the adjoint of each
+    operation costs what its tangent does). The kernel runs 2 nq + na dual
+    directions with their values (vjp_point_ops)."""
+    p = _vjp_parts(model, n_cg, 1)
+    sweep = _tangent_kinds(p["col"] + p["qcol"])
+    return sum((p["dyn"] + p["primal"]).values()) + model.nq * sum(sweep.values())

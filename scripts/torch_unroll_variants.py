@@ -34,8 +34,8 @@ outer loop is rolled) under a plain ``#pragma unroll``:
   fault_G         the same with ``-G`` (no device optimisation);
   fault_ap_init   the same with ``ap`` zeroed first;
   fault_fd, fault_mm, fault_cr
-                  the shape in forward_dynamics, mass_matrix or
-                  contact_rows only;
+                  the shape in forward_dynamics, mass_matrix or the
+                  contact rows (world_frames, slot_jacobian) only;
   fault_mm_pp, fault_mm_jj
                   the shape on mass_matrix's loop over pp, or over jj,
                   only.
@@ -80,9 +80,11 @@ FAULT = ("fault", "fault_ptxas_O1", "fault_ptxas_O0", "fault_ap_init", "fault_G"
 EXTRA_FLAGS = {"fault_ptxas_O1": ("-Xptxas", "-O1"), "fault_ptxas_O0": ("-Xptxas", "-O0"),
                "fault_G": ("-G",)}
 # the fault's shape in one function only, on its loops of the given kinds
-FAULT_IN = {"fault_fd": ("forward_dynamics", "pp jj"), "fault_mm": ("mass_matrix", "pp jj"),
-            "fault_cr": ("contact_rows", "pp jj"), "fault_mm_pp": ("mass_matrix", "pp"),
-            "fault_mm_jj": ("mass_matrix", "jj")}
+FAULT_IN = {"fault_fd": (("forward_dynamics_impl",), "pp jj"),
+            "fault_mm": (("mass_matrix_impl",), "pp jj"),
+            "fault_cr": (("world_frames", "slot_jacobian"), "pp jj"),
+            "fault_mm_pp": (("mass_matrix_impl",), "pp"),
+            "fault_mm_jj": (("mass_matrix_impl",), "jj")}
 SASS = ("as_built", "fault", "fault_ptxas_O1")
 B_SMALL = 64
 AP_INIT = "    for (int k = 0; k < 6; ++k) ap[k] = S(T(0));\n"
@@ -92,13 +94,13 @@ def with_fault_shape(text: str, loops: str = "pp jj") -> str:
     """The ancestor loops (over pp, over jj) bounded by i under a plain
     #pragma unroll, as in the build that gave a wrong K5."""
     if "pp" in loops:
-        text = re.sub(r"#pragma unroll \(unroll_by\(L::kUnroll, NB\)\)\n(\s*)"
+        text = re.sub(r"#pragma unroll \(unroll_by\((?:L::kUnroll|UR), NB\)\)\n(\s*)"
                       r"for \(int pp = 0; pp < NB; \+\+pp\)",
                       r"#pragma unroll\n\1for (int pp = 0; pp < i; ++pp)", text)
         text = text.replace("pp < i && pp == par", "pp == par").replace(
             "pp >= i || pp != par", "pp != par")
     if "jj" in loops:
-        text = re.sub(r"#pragma unroll \(unroll_by\(L::kUnroll, NB - 1\)\)\n(\s*)"
+        text = re.sub(r"#pragma unroll \(unroll_by\((?:L::kUnroll|UR), NB - 1\)\)\n(\s*)"
                       r"for \(int jj = NB - 1; jj >= 1; --jj\)",
                       r"#pragma unroll\n\1for (int jj = i; jj >= 1; --jj)", text)
     return text
@@ -124,8 +126,10 @@ def transform(variant: str, text: str) -> str:
     if variant in ("dot4", "dot16"):
         return text.replace("row_unroll(M, M - 1, 8)", f"row_unroll(M, M - 1, {variant[3:]})")
     if variant in FAULT_IN:
-        name, loops = FAULT_IN[variant]
-        return in_function(text, name, lambda t: with_fault_shape(t, loops))
+        names, loops = FAULT_IN[variant]
+        for name in names:
+            text = in_function(text, name, lambda t: with_fault_shape(t, loops))
+        return text
     if variant.startswith("fault"):
         text = with_fault_shape(text)
         return text if variant == "fault_ap_init" else text.replace(AP_INIT, "")

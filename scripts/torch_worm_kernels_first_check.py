@@ -9,9 +9,11 @@ the new instances), then on the jump worm (chip_smoke.py's worm inputs:
 bench.py's x0, u from numpy, the plain pointwise refresh's states and
 classes) holds K7 ``pgs_batched``, K5 ``linearize_vjp``, K2 ``rollout_gains``
 with classes at m = 28 and K1 at (nx, na) = (8, 2) against their plain
-versions in f64 and f32 at B=64, T=100, then at B=512, T=100 in f32
-(chip_smoke.py's compare_worm), and times each kernel there (mean of 5
-calls by CUDA events). The short first call the new
+versions in f64 and f32 at B=64, T=100, then K2 over one step and K5 on
+chip_smoke.py's 256 sliding points at PCG depths 1 and 2 with no row
+excused, prints the lane-group layout of K2's worm instance and K5, then
+runs them at B=512, T=100 in f32 (chip_smoke.py's compare_worm), and times
+each kernel there (mean of 5 calls by CUDA events). The short first call the new
 kernels get before the full ``chip_smoke.py``. With ``--cpu`` it runs the
 same calls on the plain versions at B=2, T=5 (no timing).
 """
@@ -72,6 +74,10 @@ def main() -> int:
         print(f"  classes: {float((cl[0].amax(-1) > 0).float().mean()):.4f} of the points clamp, "
               f"{int((cl[1] != 0).sum())} UPPER rows", flush=True)
     if not cpu:
+        cs.check_coupled_rows(dev)
+        for name in ("rollout", "linearize_vjp"):
+            print(f"{name} lane groups: f32 {_build.group_shape(name, torch.float32)}, "
+                  f"f64 {_build.group_shape(name, torch.float64)}", flush=True)
         full = cs.worm_kernel_inputs(dev, 512, 100, torch.float32)
         for name, (args, kw) in full.items():
             abs_err, rel_err = cs.compare_worm(name, args, kw, "float32")

@@ -516,29 +516,65 @@ def test_pack_model_appends_constraint_rows():
 
 
 # The jump worm's device code: the contact-free step, frozen_step with
-# contact rows and friction coupling (K2's step), K5's two thread bodies
-# (linearize_vjp_primal, then linearize_vjp_column over the directions),
-# K2's thread body with a target cost, all built for
-# the host. Reads "nb nq na m ns n nr ni n_cg", the packed reals and ints,
-# the cost weights and targets (8 nq + na), then n points (x, u, cmask,
-# us); writes the operation counts by kind of device_step, of frozen_step,
-# of K5's primal thread body and of its column thread bodies for one point
-# on the counting scalar; then per point
-# device_step's and frozen_step's (q', v') and K5's (fx, fu); then K2's
-# trajectory of n steps from the first point (the points' u and classes,
-# zero gains) and its cost.
+# contact rows and friction coupling (per thread, as K4's worm instance runs
+# it), and the lane-group bodies of csrc/frozen_group.cuh that K2 and K5 run
+# at m = 28: group_frozen_step, K5's linearize_vjp_group and K2's
+# rollout_group, each on one host thread per lane (HostGroup: a barrier for
+# the warp's sync, its shuffles through an exchange array in the device's
+# butterfly order), and K7's thread body, all built for the host. Reads
+# "nb nq na m ns n nr ni n_cg", the packed reals and ints, the cost weights
+# and targets (8 nq + na), then n points (x, u, cmask, us); writes the
+# operation counts by kind of device_step and of frozen_step at the first
+# point on the counting scalar, and of K5's group body there summed over
+# its lanes, on a group of kK5Group lanes and on one of a single lane; then
+# per point device_step's, frozen_step's and
+# group_frozen_step's (q', v') and K5's (fx, fu); then K2's group trajectory
+# of n steps from the first point (the points' u and classes, zero gains)
+# and its cost; then the butterfly sums over groups of 32, 16 and 8 lanes,
+# lane l holding |x[l mod 2 nq]| of the first point, as each lane sees them.
 WORM_MAIN = CONTACT_MAIN[:CONTACT_MAIN.index("static void print_ops()")].replace(
-    '#include "rollout.cu"', '#include "rollout.cu"\n#include "lcp.cu"') + r"""
+    '#include "rollout.cu"', '#include "rollout.cu"\n#include "lcp.cu"').replace(
+    "long long g_ops[8];", "thread_local long long g_ops[8];") + r"""
+#include <memory>
+
+static long long g_sum[8];
+static std::mutex g_sum_mu;
+
+// a lane thread's counts into g_sum
+static void fold_ops() {
+  std::lock_guard<std::mutex> lk(g_sum_mu);
+  for (int k = 0; k < 8; ++k) { g_sum[k] += nptt::g_ops[k]; nptt::g_ops[k] = 0; }
+}
+
 static void print_ops() {
   for (int k = 0; k < 8; ++k) printf("%lld ", nptt::g_ops[k]);
   printf("\n");
   for (int k = 0; k < 8; ++k) nptt::g_ops[k] = 0;
 }
 
+static void print_sum() {
+  for (int k = 0; k < 8; ++k) printf("%lld ", g_sum[k]);
+  printf("\n");
+  for (int k = 0; k < 8; ++k) g_sum[k] = 0;
+}
+
+template <int G>
+static void print_butterfly(const std::vector<double>& vals) {
+  const int n = (int)vals.size();
+  std::vector<double> out(G);
+  nptt::HostGroup<G>::run([&](nptt::HostGroup<G> g) {
+    double v[1] = {std::fabs(vals[g.lane % n])};
+    g.sum(v);
+    out[g.lane] = v[0];
+  });
+  for (int l = 0; l < G; ++l) printf("%.17g ", out[l]);
+  printf("\n");
+}
+
 template <int NB, int NQ, int NA, int M, int NS>
 void run(const double* P, const int* I, const double* w, const std::vector<double>& pts, int n,
          int n_cg) {
-  constexpr int NX = 2 * NQ, E = NX + NA + 2 * M;
+  constexpr int NX = 2 * NQ, E = NX + NA + 2 * M, G2 = nptt::kK2Group, G5 = nptt::kK5Group;
   using nptt::C;
   std::vector<double> xs(n * NX), us(n * NA), cms(n * M), ucl(n * M);
   for (int p = 0; p < n; ++p) {
@@ -556,25 +592,41 @@ void run(const double* P, const int* I, const double* w, const std::vector<doubl
     nptt::frozen_step<double, C, NB, NQ, NA, M, NS>(P, I, q, v, u, cms.data(), ucl.data(), n_cg,
                                                     qn, vn);
     print_ops();
-    constexpr int K = NX + NA, SK = nptt::VjpScratch<NQ, M>::kSize;
-    std::vector<C> fxc(NX * NX), fuc(NX * NA), scc(SK);
-    nptt::linearize_vjp_primal<double, C, NB, NQ, NA, M, NS>(0, n_cg, P, I, xs.data(), us.data(),
-                                                             cms.data(), ucl.data(), scc.data());
-    print_ops();
-    for (long long t = 0; t < K; ++t)
-      nptt::linearize_vjp_column<double, C, NB, NQ, NA, M, NS>(
-          t, P, I, xs.data(), us.data(), cms.data(), ucl.data(), scc.data(), fxc.data(),
+    std::vector<C> fxc(NX * NX), fuc(NX * NA);
+    auto shc = std::make_unique<nptt::VjpShared<C, NB, NQ, M>>();
+    nptt::HostGroup<G5>::run([&](nptt::HostGroup<G5> g) {
+      nptt::linearize_vjp_group<double, C, NB, NQ, NA, M, NS, G5>(
+          g, *shc, 0, n_cg, P, I, xs.data(), us.data(), cms.data(), ucl.data(), fxc.data(),
           fuc.data());
-    print_ops();
+      fold_ops();
+    });
+    print_sum();
+    nptt::HostGroup<1>::run([&](nptt::HostGroup<1> g) {
+      nptt::linearize_vjp_group<double, C, NB, NQ, NA, M, NS, 1>(
+          g, *shc, 0, n_cg, P, I, xs.data(), us.data(), cms.data(), ucl.data(), fxc.data(),
+          fuc.data());
+      fold_ops();
+    });
+    print_sum();
   }
-  constexpr int K = NX + NA, SK = nptt::VjpScratch<NQ, M>::kSize;
-  std::vector<double> fx(n * NX * NX), fu(n * NX * NA), sc(n * SK);
-  for (long long p = 0; p < n; ++p)
-    nptt::linearize_vjp_primal<double, double, NB, NQ, NA, M, NS>(
-        p, n_cg, P, I, xs.data(), us.data(), cms.data(), ucl.data(), sc.data());
-  for (long long t = 0; t < (long long)n * K; ++t)
-    nptt::linearize_vjp_column<double, double, NB, NQ, NA, M, NS>(
-        t, P, I, xs.data(), us.data(), cms.data(), ucl.data(), sc.data(), fx.data(), fu.data());
+  std::vector<double> fx(n * NX * NX), fu(n * NX * NA), qg(n * NQ), vg(n * NQ);
+  auto sh5 = std::make_unique<nptt::VjpShared<double, NB, NQ, M>>();
+  auto sh2 = std::make_unique<nptt::FrozenShared<double, NB, NQ, M, 1>>();
+  for (long long p = 0; p < n; ++p) {
+    nptt::HostGroup<G5>::run([&](nptt::HostGroup<G5> g) {
+      nptt::linearize_vjp_group<double, double, NB, NQ, NA, M, NS, G5>(
+          g, *sh5, p, n_cg, P, I, xs.data(), us.data(), cms.data(), ucl.data(), fx.data(),
+          fu.data());
+    });
+    nptt::HostGroup<G2>::run([&](nptt::HostGroup<G2> g) {
+      double qn[NQ], vn[NQ];
+      nptt::group_frozen_step<double, NB, NQ, NA, M, NS, G2>(
+          g, *sh2, P, I, &xs[p * NX], &xs[p * NX + NQ], &us[p * NA], &cms[p * M], &ucl[p * M],
+          n_cg, qn, vn);
+      if (g.lane == 0)
+        for (int i = 0; i < NQ; ++i) { qg[p * NQ + i] = qn[i]; vg[p * NQ + i] = vn[i]; }
+    });
+  }
   for (int p = 0; p < n; ++p) {
     double qo[NQ], vo[NQ], qf[NQ], vf[NQ];
     nptt::device_step<double, double, NB, NQ, NA>(P, I, &xs[p * NX], &xs[p * NX + NQ],
@@ -586,6 +638,8 @@ void run(const double* P, const int* I, const double* w, const std::vector<doubl
     for (int i = 0; i < NQ; ++i) printf("%.17g ", vo[i]);
     for (int i = 0; i < NQ; ++i) printf("%.17g ", qf[i]);
     for (int i = 0; i < NQ; ++i) printf("%.17g ", vf[i]);
+    for (int i = 0; i < NQ; ++i) printf("%.17g ", qg[p * NQ + i]);
+    for (int i = 0; i < NQ; ++i) printf("%.17g ", vg[p * NQ + i]);
     for (int i = 0; i < NX * NX; ++i) printf("%.17g ", fx[p * NX * NX + i]);
     for (int i = 0; i < NX * NA; ++i) printf("%.17g ", fu[p * NX * NA + i]);
     printf("\n");
@@ -593,15 +647,20 @@ void run(const double* P, const int* I, const double* w, const std::vector<doubl
   std::vector<double> xs_ref((n + 1) * NX, 0.0), Kg(n * NA * NX, 0.0), kf(n * NA, 0.0),
       xs2((n + 1) * NX), us2(n * NA);
   double alpha = 1.0, cost = 0.0;
-  nptt::rollout_thread<double, NB, NQ, NA, M, NS>(0, 1, n, n_cg, P, I, w, xs.data(),
-                                                   xs_ref.data(), us.data(), Kg.data(),
-                                                   kf.data(), &alpha, cms.data(), ucl.data(),
-                                                   xs2.data(), us2.data(), &cost);
+  nptt::HostGroup<G2>::run([&](nptt::HostGroup<G2> g) {
+    nptt::rollout_group<double, NB, NQ, NA, M, NS, G2>(
+        g, *sh2, 0, 1, n, n_cg, P, I, w, xs.data(), xs_ref.data(), us.data(), Kg.data(),
+        kf.data(), &alpha, cms.data(), ucl.data(), xs2.data(), us2.data(), &cost);
+  });
   for (int t = 0; t < n; ++t) {
     for (int i = 0; i < NX; ++i) printf("%.17g ", xs2[(t + 1) * NX + i]);
     printf("\n");
   }
   printf("%.17g\n", cost);
+  std::vector<double> vals(xs.begin(), xs.begin() + NX);
+  print_butterfly<32>(vals);
+  print_butterfly<16>(vals);
+  print_butterfly<8>(vals);
 }
 
 // K7's thread body: after the worm's input, "m n iters", findex, then n
@@ -649,19 +708,23 @@ def worm_exe(tmp_path_factory):
     d = tmp_path_factory.mktemp("worm_step")
     (d / "worm_main.cpp").write_text(WORM_MAIN)
     exe = d / "worm_main"
-    subprocess.run(["g++", "-std=c++17", "-O0", "-I", str(CSRC), str(d / "worm_main.cpp"),
-                    "-o", str(exe)], check=True, capture_output=True, timeout=300)
+    subprocess.run(["g++", "-std=c++17", "-O0", "-pthread", "-I", str(CSRC),
+                    str(d / "worm_main.cpp"), "-o", str(exe)],
+                   check=True, capture_output=True, timeout=300)
     return exe
 
 
-def worm_points(sliding, n=6, seed=7):
+def worm_points(sliding, n=6, seed=7, mass_scale=1.0):
     """Worm states 3 mm into the floor, moving down, links near their lower
     limits, strong pushes; with ``sliding`` the root also slides (x velocity
     up to 1.5 m/s), so friction rows ride the cone (UPPER); the classes come
-    from the port's classify_points."""
+    from the port's classify_points. ``mass_scale`` scales the bodies' masses
+    and inertias."""
     from nimblephysics_tpu_torch.ops import frozen_contact as tf
 
     model = builders.jump_worm(dtype=torch.float64, device="cpu")
+    if mass_scale != 1.0:
+        model = model.replace(mass=model.mass * mass_scale, moment=model.moment * mass_scale)
     rng = np.random.default_rng(seed)
     q = 0.01 * rng.standard_normal((n, 4))
     q[:, 1] += -0.528
@@ -681,15 +744,16 @@ WORM_W = np.concatenate([[0.0, 2.0, 0.0, 0.0], np.zeros(4), np.full(2, 1e-5),
 
 
 @functools.lru_cache(maxsize=None)
-def run_worm(exe, n_cg, sliding):
+def run_worm(exe, n_cg, sliding, mass_scale=1.0):
     """(model, x, u, cmask, us, operation counts of device_step, frozen_step
-    and K5's thread bodies for one point, one row per point, K2's trajectory and cost,
-    the PGS LCPs and K7's thread body's solutions)."""
+    and K5's group body for one point, one row per point, K2's trajectory
+    and cost, the PGS LCPs and K7's thread body's solutions, the butterfly
+    sums over groups of 32, 16 and 8 lanes)."""
     from nimblephysics_tpu_torch.ops import contact as tc
     from nimblephysics_tpu_torch.ops import dynamics as td
     from nimblephysics_tpu_torch.ops.collide import detect_contacts
 
-    model, x, u, cm, us = worm_points(sliding)
+    model, x, u, cm, us = worm_points(sliding, mass_scale=mass_scale)
     P, I = device_step.pack_model(model)
     m = tc.lcp_dim(model)
     n = x.shape[0]
@@ -717,9 +781,10 @@ def run_worm(exe, n_cg, sliding):
     rows = np.array([[float(t) for t in line.split()] for line in out[4:4 + n]])
     traj = np.array([[float(t) for t in line.split()] for line in out[4 + n:4 + 2 * n]])
     cost = float(out[4 + 2 * n])
-    pgs = np.array([[float(t) for t in line.split()] for line in out[5 + 2 * n:5 + 3 * n]])
+    sums = [np.array([float(t) for t in line.split()]) for line in out[5 + 2 * n:8 + 2 * n]]
+    pgs = np.array([[float(t) for t in line.split()] for line in out[8 + 2 * n:8 + 3 * n]])
     return (model, x, u, cm, us, counts, rows, traj, cost,
-            (A, b, lo, hi, fs, torch.tensor(x0)), pgs)
+            (A, b, lo, hi, fs, torch.tensor(x0)), pgs, sums)
 
 
 # PCG depth: bench.py's 12 on points where the root does not slide, and 1
@@ -730,43 +795,117 @@ def run_worm(exe, n_cg, sliding):
 # iterations (7 of 28 rows clamping), as do this host build and the plain
 # version; at 1 and 2 iterations all three agree to rounding.
 WORM_CASES = ((12, False), (1, True), (2, True))
+# ... and at depth 12 there, where the one-thread frozen_step, its lane-group
+# form and the plain step part by far more than rounding
+CONE_DEPTH = 12
 
 
 @pytest.mark.parametrize("n_cg,sliding", WORM_CASES)
 def test_worm_steps_match_plain(worm_exe, n_cg, sliding):
     from nimblephysics_tpu_torch.ops.cuda_linearize import dyn_frozen_for_trace
 
-    model, x, u, cm, us, _, rows, _, _, _, _ = run_worm(worm_exe, n_cg, sliding)
+    model, x, u, cm, us, _, rows, *_ = run_worm(worm_exe, n_cg, sliding)
     xt, ut = torch.tensor(x), torch.tensor(u)
     np.testing.assert_allclose(rows[:, :8], dyn_for_trace(model)(xt, ut).numpy(),
                                rtol=1e-12, atol=1e-12)
     frozen = dyn_frozen_for_trace(model, n_cg)(xt, ut, torch.tensor(cm), torch.tensor(us))
     np.testing.assert_allclose(rows[:, 8:16], frozen.numpy(), rtol=1e-12, atol=1e-12)
+    # the lane-group frozen step of K2 at m = 28 (csrc/frozen_group.cuh):
+    # the one-thread step's arithmetic, operation for operation
+    np.testing.assert_array_equal(rows[:, 16:24], rows[:, 8:16])
     assert cm[:, :24].any() and ((us != 0).any() == sliding)
 
 
 @pytest.mark.parametrize("n_cg,sliding", WORM_CASES)
 def test_linearize_vjp_thread_matches_jacrev(worm_exe, n_cg, sliding):
-    """K5's thread body against jacrev of the plain frozen step's v' half
-    (linearize_vjp_plain), the q' rows [I, dt I] and 0 exactly."""
+    """K5's lane-group body (linearize_vjp_group: the primal and adjoint
+    PCGs together, the tangent through the factors of A) against jacrev of
+    the plain frozen step's v' half (linearize_vjp_plain), the q' rows
+    [I, dt I] and 0 exactly."""
     from nimblephysics_tpu_torch.ops.cuda_linearize import linearize_vjp_plain
 
-    model, x, u, cm, us, _, rows, _, _, _, _ = run_worm(worm_exe, n_cg, sliding)
+    model, x, u, cm, us, _, rows, *_ = run_worm(worm_exe, n_cg, sliding)
     n = x.shape[0]
     fx, fu = linearize_vjp_plain(model, torch.tensor(x)[:, None], torch.tensor(u)[:, None],
                                  (torch.tensor(cm)[:, None], torch.tensor(us)[:, None]), n_cg)
-    np.testing.assert_allclose(rows[:, 16:80], fx.reshape(n, -1).numpy(), rtol=1e-11,
+    np.testing.assert_allclose(rows[:, 24:88], fx.reshape(n, -1).numpy(), rtol=1e-11,
                                atol=1e-11)
-    np.testing.assert_allclose(rows[:, 80:96], fu.reshape(n, -1).numpy(), rtol=1e-11,
+    np.testing.assert_allclose(rows[:, 88:104], fu.reshape(n, -1).numpy(), rtol=1e-11,
                                atol=1e-11)
+    top = np.concatenate([np.eye(4), float(model.dt) * np.eye(4)], axis=1).ravel()
+    assert (rows[:, 24:56] == top).all() and (rows[:, 88:96] == 0).all()
+
+
+# A worm 20 times lighter: at its sliding points entries of C A R, not only
+# the unclamped rows' 1, attain max|Qf| (about 7), so the tangent of reg =
+# eps max(max|Qf|, 1)^2 by jnp's tie rule is not zero there
+LIGHT_WORM = 0.05
+
+
+@pytest.mark.parametrize("n_cg", (1, 2))
+def test_linearize_vjp_thread_follows_the_tie_rule(worm_exe, n_cg):
+    """K5's group body against jacrev on the light worm, where its tie-rule
+    terms (csrc/linearize.cu vjp_tie_terms) are live; its group step
+    against the one-thread step. The tie terms move the rows by ~1e-12 of
+    their largest entry (reg's eps is 1e-10 in f64), so the rows are held
+    to 1e-13 of it: both agree to rounding (4e-16) at these depths, and the
+    body without its tie terms misses by 1.0e-12."""
+    from nimblephysics_tpu_torch.ops.cuda_linearize import linearize_vjp_plain
+
+    model, x, u, cm, us, _, rows, *_ = run_worm(worm_exe, n_cg, True, LIGHT_WORM)
+    n = x.shape[0]
+    np.testing.assert_array_equal(rows[:, 16:24], rows[:, 8:16])
+    fx, fu = linearize_vjp_plain(model, torch.tensor(x)[:, None], torch.tensor(u)[:, None],
+                                 (torch.tensor(cm)[:, None], torch.tensor(us)[:, None]), n_cg)
+    want = np.concatenate([fx.reshape(n, -1).numpy(), fu.reshape(n, -1).numpy()], axis=1)
+    np.testing.assert_allclose(rows[:, 24:104], want, rtol=0, atol=1e-13 * np.abs(want).max())
+
+
+def test_worm_group_bodies_on_the_cone_at_depth_12(worm_exe):
+    """The group bodies at the sliding points at PCG depth 12 in f64. There
+    the cone points' normal equations amplify rounding: the plain step and
+    the one-thread frozen_step, which sum in other orders, part by up to
+    ~1e-7 relative (7e-8 measured), so the group step is held to the
+    one-thread step bit for bit (it repeats its arithmetic operation for
+    operation), and both, like K5's group body against jacrev (4e-8
+    measured), to the plain versions within 1e-6, the largest move
+    chip_smoke.py excuses."""
+    from nimblephysics_tpu_torch.ops.cuda_linearize import dyn_frozen_for_trace, linearize_vjp_plain
+
+    model, x, u, cm, us, _, rows, *_ = run_worm(worm_exe, CONE_DEPTH, True)
+    n = x.shape[0]
+    xt, ut, cmt, ust = (torch.tensor(a) for a in (x, u, cm, us))
+    frozen = dyn_frozen_for_trace(model, CONE_DEPTH)(xt, ut, cmt, ust).numpy()
+    np.testing.assert_array_equal(rows[:, 16:24], rows[:, 8:16])
+    for got in (rows[:, 8:16], rows[:, 16:24]):
+        np.testing.assert_allclose(got, frozen, rtol=1e-6, atol=1e-6 * np.abs(frozen).max())
+    fx, fu = linearize_vjp_plain(model, xt[:, None], ut[:, None], (cmt[:, None], ust[:, None]),
+                                 CONE_DEPTH)
+    want = np.concatenate([fx.reshape(n, -1).numpy(), fu.reshape(n, -1).numpy()], axis=1)
+    np.testing.assert_allclose(rows[:, 24:104], want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+    assert (us != 0).any()
+
+
+def test_group_butterfly_sum_matches_the_plain_sum(worm_exe):
+    """HostGroup's butterfly (the host form of the device's __shfl_xor_sync
+    sums) over groups of 32, 16 and 8 lanes: every lane gets the plain sum
+    of the lanes' values, to rel 1e-15."""
+    import math
+
+    _, x, *_, sums = run_worm(worm_exe, 2, True)
+    for got, G in zip(sums, (32, 16, 8)):
+        want = math.fsum(abs(x[0][lane % 8]) for lane in range(G))
+        assert got.shape == (G,) and (got == got[0]).all()
+        assert abs(got[0] - want) <= 1e-15 * want, (G, got[0], want)
 
 
 def test_worm_rollout_thread_matches_plain(worm_exe):
-    """K2's thread body on the worm with bench.py's target cost."""
+    """K2's lane-group body (rollout_group) on the worm with bench.py's
+    target cost."""
     from nimblephysics_tpu_torch.ops.cuda_rollout import rollout_gains_plain
     from nimblephysics_tpu_torch.trajectory.costs import QuadraticCost, QuadraticFinalCost
 
-    model, x, u, cm, us, _, _, traj, cost, _, _ = run_worm(worm_exe, 2, True)
+    model, x, u, cm, us, _, _, traj, cost, *_ = run_worm(worm_exe, 2, True)
     n = x.shape[0]
     goal = torch.tensor(WORM_W[-8:])
     rc = QuadraticCost(model, wq=torch.tensor(WORM_W[:4]), wu=1e-5, x_goal=goal)
@@ -786,7 +925,7 @@ def test_pgs_thread_matches_plain(worm_exe):
     from nimblephysics_tpu_torch.ops.contact import lcp_findex
     from nimblephysics_tpu_torch.ops.cuda_lcp import pgs_batched_plain
 
-    model, *_, lcps, pgs = run_worm(worm_exe, 2, True)
+    model, *_, lcps, pgs, _ = run_worm(worm_exe, 2, True)
     want = pgs_batched_plain(*lcps, lcp_findex(model), 60)
     np.testing.assert_allclose(pgs, want.numpy(), rtol=1e-12, atol=1e-14)
     assert np.abs(pgs).max() > 1e-3
@@ -796,24 +935,29 @@ def test_pgs_thread_matches_plain(worm_exe):
 def test_worm_op_counts_match_code(worm_exe, n_cg):
     """The closed forms behind the worm kernels' bounds: device_step and
     frozen_step kind by kind (two-dof joint, contact rows, friction
-    coupling), K5's primal thread body kind by kind and its column thread
-    bodies in total; K5's bound counts the primal once and nq sweeps, each
-    less than one of the kernel's columns."""
+    coupling), and K5's body kind by kind on a group of kK5Group lanes and
+    on a group of one. K5's bound counts the one-lane primal and nq reverse
+    sweeps of the factored tangent, each a tangent sweep of the inputs
+    that a direction of q runs on dual numbers, without their values."""
     model, *_ = run_worm(worm_exe, n_cg, False)
     counts = run_worm(worm_exe, n_cg, False)[5]
     step = device_step.step_op_kinds(model)
     assert counts[0] == {k: step.get(k, 0) for k in KINDS}
     frozen = device_step.frozen_step_op_kinds(model, n_cg)
     assert counts[1] == {k: frozen.get(k, 0) for k in KINDS}
-    primal, values, tangent, qx, m = device_step._vjp_parts(model, n_cg)
-    assert counts[2] == {k: primal.get(k, 0) for k in KINDS}
+    for got, group in ((counts[2], device_step.K5_GROUP), (counts[3], 1)):
+        want = device_step.vjp_point_op_kinds(model, n_cg, group)
+        assert got == {k: want.get(k, 0) for k in KINDS}
+    p = device_step._vjp_parts(model, n_cg, 1)
     k_dirs = 2 * model.nq + model.num_actions
-    assert sum(counts[3].values()) == k_dirs * (values + tangent + model.nq * 4 * m)
-    assert sum(counts[2].values()) + sum(counts[3].values()) == \
-        device_step.vjp_point_ops(model, n_cg)
+    dual = {c: sum(p[c].values()) + sum(device_step._tangent_kinds(p[c]).values())
+            for c in ("col", "qcol")}
+    primal = (sum(counts[3].values()) - k_dirs * (dual["col"] + sum(p["contract"].values()))
+              - model.nq * (dual["qcol"] + sum(p["qcontract"].values())))
+    sweep = dual["col"] + dual["qcol"] - sum(p["col"].values()) - sum(p["qcol"].values())
     least = device_step.vjp_point_least_ops(model, n_cg)
-    assert least == sum(counts[2].values()) + qx + model.nq * (tangent + 4 * m)
-    assert qx < values and sum(counts[2].values()) < least < device_step.vjp_point_ops(model, n_cg)
+    assert least == primal + model.nq * sweep
+    assert least < sum(counts[3].values()) < sum(counts[2].values())
 
 
 def test_pack_model_carries_the_worm_slots():

@@ -22,6 +22,7 @@ and holding each one against its plain PyTorch version:
     linearize), K2 on frozen classes with contact rows and K1; the same
     replan with ``ILQRConfig(linearize="jvp")``, whose linearize is K3's
     classes= form (K4's kernel at PCG depth m + 6), and with
+    ``linearize="split"``, K4's kernel at the replan's PCG depth, and with
     ``linearize="chain"``, whose linearize is K8 (``ops/lane_chain.py``
     ``chained_linearize_vjp``, K5's kernel); and K9 (``ops/lane_chain.py``
     ``chained_step_rollout``, K2's kernel at one alpha with zero gains) at
@@ -77,8 +78,9 @@ Phases:
      on 256 sliding worm points whose friction rows ride the cone, at PCG
      depths 1 and 2, with no row excused (f64 rel 1e-9, f32 rel 2e-4);
      then each kernel at B=2048 in f32 with kernel and plain times. It
-     first prints the lane-group layout of K2's worm instance and K5
-     (lanes per group, groups per block, shared bytes per block);
+     first prints the lane-group layouts of K2's, K4's and K5's worm
+     instances and of K7 (lanes per group, groups per block, shared bytes
+     per block);
   9. the worm replan in f64, kernel path against plain path, B=256, from
      cold (two pointwise refreshes): costs rel 1e-10, u as in phase 6,
      no world above its initial cost;
@@ -97,7 +99,9 @@ Phases:
      in f32 at B=2048, timed there; then the worm replan with
      linearize="jvp" in f32 at B=2048, warm from phase 10's cold replan,
      with launch counts (K3 4, K5 0), then three warm replans timed as in
-     phase 10;
+     phase 10; then K4 at the replan's PCG depth 12 on the worm's inputs
+     the same way (f64 at B=64, f32 at B=2048, timed) and the worm replan
+     with linearize="split" (K4 4, K5 0) as with "jvp";
  12. K8 on the 256 sliding points at PCG depths 1 and 2, no row excused;
      K9 against its plain version in f64 at B=512 on the worm's inputs with
      some controls 40 times larger (beyond the +-100 limits), phase 8's
@@ -834,12 +838,15 @@ def linearize_classes_plain(model, xs, u, classes):
 # the kernels phases 11 and 12 add: K3 with classes, K8 and K9, each held as
 # the worm kernels are (compare_worm)
 SLICE_KERNELS = {"linearize[classes]": linearize_classes,
+                 "linearize_split[worm]": linearize_split,
                  "chained_linearize_vjp": chained_linearize_vjp,
                  "chained_step_rollout": chained_step_rollout}
 SLICE_PLAIN = {"linearize[classes]": linearize_classes_plain,
+               "linearize_split[worm]": linearize_split_plain,
                "chained_linearize_vjp": chained_linearize_vjp_plain,
                "chained_step_rollout": chained_step_rollout_plain}
 SLICE_COUNTER = {"linearize[classes]": "linearize",
+                 "linearize_split[worm]": "linearize_split",
                  "chained_linearize_vjp": "chained_linearize_vjp",
                  "chained_step_rollout": "chained_step_rollout"}
 # every kernel compare_worm holds to its plain version
@@ -853,8 +860,10 @@ CHECKED_PLAIN = dict(WORM_PLAIN, **SLICE_PLAIN)
 EXPECTED_WORM_WARM = dict(_NONE, riccati_backward=WORM_ITERS, rollout_gains=WORM_ITERS + 1,
                           linearize_vjp=WORM_ITERS, pgs_batched=1)
 EXPECTED_WORM_COLD = dict(EXPECTED_WORM_WARM, rollout_gains=WORM_ITERS + 3, pgs_batched=3)
-# linearize="jvp" takes K3's classes= form (K4 at depth m + 6), "chain" K8
+# linearize="jvp" takes K3's classes= form (K4 at depth m + 6), "split" K4
+# at the replan's PCG depth, "chain" K8
 EXPECTED_JVP_WARM = dict(EXPECTED_WORM_WARM, linearize_vjp=0, linearize=WORM_ITERS)
+EXPECTED_SPLIT_WARM = dict(EXPECTED_WORM_WARM, linearize_vjp=0, linearize_split=WORM_ITERS)
 EXPECTED_CHAIN_COLD = dict(EXPECTED_WORM_COLD, linearize_vjp=0,
                            chained_linearize_vjp=WORM_ITERS)
 EXPECTED_CHAIN_WARM = dict(EXPECTED_WORM_WARM, linearize_vjp=0,
@@ -870,6 +879,8 @@ REPLACES.update({
                                "nimblephysics_tpu/ops/pallas_riccati.py:329"),
     "linearize[classes]": ("nimblephysics_tpu_torch/csrc/linearize.cu",
                            "nimblephysics_tpu/ops/pallas_linearize.py:205"),
+    "linearize_split[worm]": ("nimblephysics_tpu_torch/csrc/linearize.cu",
+                              "nimblephysics_tpu/ops/pallas_linearize.py:335"),
     "chained_linearize_vjp": ("nimblephysics_tpu_torch/csrc/linearize.cu",
                               "nimblephysics_tpu/ops/lane_chain.py:738"),
     "chained_step_rollout": ("nimblephysics_tpu_torch/csrc/rollout.cu",
@@ -884,16 +895,22 @@ _K2_GROUPS = ("lane groups (csrc/frozen_group.cuh): one group per {} with the fr
 _K5_GROUPS = ("one fused kernel, a lane group per point (csrc/frozen_group.cuh): the primal "
               "and nq adjoint PCGs over one Qf in shared memory, the tangent through the "
               "factors of A, one lane per direction of (x, u)")
+_K4_GROUPS = ("at m = 28 a lane group per point (csrc/frozen_group.cuh): the primal PCG, the "
+              "tangent right-hand sides through the factors of A, one lane per direction of "
+              "(x, u), then the nx + na tangent PCGs over one Qf in shared memory")
 DESIGN = {
     "riccati_backward": _THREAD.format("world"), "linearize": _THREAD.format("(point, direction)"),
     "rollout_gains": _THREAD.format("(alpha, world)"),
     "linearize_split": _THREAD.format("(point, direction)"),
     "rollout_classes": _THREAD.format("world"),
     "rollout_gains[classes]": _THREAD.format("(alpha, world)"),
-    "pgs_batched": _THREAD.format("LCP, its matrix in shared memory"),
+    "pgs_batched": ("a lane group per LCP (csrc/lcp.cu): the rows on the lanes, each lane's "
+                    "rows of A in registers, the residual kept current by one broadcast per "
+                    "row update"),
     "linearize_vjp": _K5_GROUPS, "rollout_gains[worm]": _K2_GROUPS.format("(alpha, world)"),
     "riccati_backward[worm]": _THREAD.format("world"),
-    "linearize[classes]": "K4's kernel at PCG depth m + 6, " + _THREAD.format("(point, direction)"),
+    "linearize[classes]": "K4's kernel at PCG depth m + 6: " + _K4_GROUPS,
+    "linearize_split[worm]": "K4's kernel at PCG depth 12: " + _K4_GROUPS,
     "chained_linearize_vjp": "K5's kernel: " + _K5_GROUPS,
     "chained_step_rollout": "K2's kernel at one alpha: " + _K2_GROUPS.format("world"),
 }
@@ -934,17 +951,23 @@ def worm_least_work(model, B, T, A, itemsize, n_lcp_iters=WORM_LCP_ITERS, cg=WOR
 def slice_least_work(model, B, T, itemsize, cg=WORM_CG):
     """(bytes, operations) of phases 11 and 12's kernels at the worm's
     shapes, as worm_least_work. K3 with classes: K4's function at the PCG
-    depth m + 6 (contact_least_work). K8: K5's (its bound at PCG depth cg).
+    depth m + 6, K4 on the worm the same at the PCG depth cg: (xs, u, cm,
+    us) read and (fx, fu) written once, ops/device_step.py
+    jvp_point_least_ops per point (the primal once, then per direction of
+    (x, u) the tangent sweep of its inputs, its right-hand side through the
+    factors of A, its PCG and its column; frozen_step_ops' nx + na
+    tangents of the whole frozen step, contact_least_work's count, form
+    the dual A and Qf per direction). K8: K5's (its bound at PCG depth cg).
     K9: x0, u and the classes read, xs and the cost written once; per
     (world, t) one frozen step at depth cg and the running cost (the goal
     subtracted, squared, weighted and summed over x and u)."""
     nx, na, m = 2 * model.nq, model.num_actions, lcp_dim(model)
     n = B * T
-    frozen, tangent = device_step.frozen_step_ops(model, m + 6)
     frozen_cg, _ = device_step.frozen_step_ops(model, cg)
     lin_bytes = itemsize * n * (nx + na + 2 * m + nx * nx + nx * na)
     return {
-        "linearize[classes]": (lin_bytes, n * (frozen + (nx + na) * tangent)),
+        "linearize[classes]": (lin_bytes, n * device_step.jvp_point_least_ops(model, m + 6)),
+        "linearize_split[worm]": (lin_bytes, n * device_step.jvp_point_least_ops(model, cg)),
         "chained_linearize_vjp": (lin_bytes, n * device_step.vjp_point_least_ops(model, cg)),
         "chained_step_rollout": (itemsize * (B * nx + n * (na + 2 * m) + B * (T + 1) * nx + B),
                                  n * (frozen_cg + 4 * nx + 3 * na)),
@@ -1072,7 +1095,8 @@ def lcp_class_near(x, fs, findex):
 # The argument a rounding-level shift moves, per worm kernel: K7's b, the
 # linearizes' states, K2's and K9's x0 (K1's inputs are no contact point's).
 WORM_SHIFTED = {"pgs_batched": 1, "linearize_vjp": 1, "rollout_gains[worm]": 3,
-                "linearize[classes]": 1, "chained_linearize_vjp": 1, "chained_step_rollout": 2}
+                "linearize[classes]": 1, "linearize_split[worm]": 1, "chained_linearize_vjp": 1,
+                "chained_step_rollout": 2}
 
 
 def _row_errors(name, outs, plains):
@@ -1288,11 +1312,14 @@ def phase_11_12(dev, records, work, warm, plain, full_w):
             if not ok:
                 raise AssertionError(f"linearize_split[worm] {dname} disagrees on the cone points")
     check_no_instance(dev)
-    # K3 with classes= on the worm's own inputs at depth m + 6, f64
+    # K3 with classes= on the worm's own inputs at depth m + 6, and K4 at the
+    # replan's depth, f64
     model, pre, u, classes, _ = worm_kernel_inputs(dev, WORM_B_SLICE, H, torch.float64)[
         "linearize_vjp"][0]
     check_slice_kernel("linearize[classes]", (model, pre, u, classes), {}, "float64",
                        f"float64, B={WORM_B_SLICE}")
+    check_slice_kernel("linearize_split[worm]", (model, pre, u, classes, WORM_CG), {}, "float64",
+                       f"float64, B={WORM_B_SLICE}, PCG depth {WORM_CG}")
     model, pre, u, classes, _ = full_w["linearize_vjp"][0]
     args = (model, pre, u, classes)
     abs_err = check_slice_kernel("linearize[classes]", args, {}, "float32",
@@ -1305,6 +1332,18 @@ def phase_11_12(dev, records, work, warm, plain, full_w):
     counts_jvp, rate_jvp = slice_f32_replan(dev, "jvp", EXPECTED_JVP_WARM, 'linearize="jvp"',
                                             warm)
     counts["linearize[classes]"] = counts_jvp["linearize"]
+    # K4 at the replan's PCG depth, f32 at full width, and its replan
+    args12 = (model, pre, u, classes, WORM_CG)
+    abs_err = check_slice_kernel("linearize_split[worm]", args12, {}, "float32",
+                                 f"float32, B={WORM_B}, PCG depth {WORM_CG}")
+    ms = time_ms(lambda: linearize_split(*args12), 3)
+    plain_ms = time_ms(lambda: linearize_split_plain(*args12), 1)
+    records["linearize_split[worm]"] = (abs_err, ms, plain_ms)
+    log(f"  linearize_split[worm] f32, B={WORM_B}, T={H}, PCG depth {WORM_CG}: kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms")
+    counts_split, rate_split = slice_f32_replan(dev, "split", EXPECTED_SPLIT_WARM,
+                                                'linearize="split"', warm)
+    counts["linearize_split[worm]"] = counts_split["linearize_split"]
 
     log(f"{elapsed()} phase 12: K8 (chained_linearize_vjp) and K9 (chained_step_rollout) "
         f"against their plain versions; the worm replan with linearize=\"chain\"")
@@ -1365,7 +1404,7 @@ def phase_11_12(dev, records, work, warm, plain, full_w):
                                                 'linearize="chain"', warm)
     counts["chained_linearize_vjp"] = counts_chain["chained_linearize_vjp"]
     work.update(slice_least_work(worm_model(dev, torch.float32), WORM_B, H, 4))
-    return counts, {"jvp": rate_jvp, "chain": rate_chain}
+    return counts, {"jvp": rate_jvp, "split": rate_split, "chain": rate_chain}
 
 
 def main() -> int:
@@ -1546,7 +1585,9 @@ def main() -> int:
     log(f"{elapsed()} phase 8: the worm path's kernels against their plain versions, "
         f"jump worm, B={WORM_B_CHECK}, T={H}")
     for name, groups in (("rollout", f"A x B = {len(WORM_ALPHAS)} x {WORM_B}"),
-                         ("linearize_vjp", f"B x T = {WORM_B} x {H}")):
+                         ("linearize_vjp", f"B x T = {WORM_B} x {H}"),
+                         ("linearize_split", f"B x T = {WORM_B} x {H}"),
+                         ("pgs", f"LCP of the B x T = {WORM_B} x {H}")):
         shapes = {d: _build.group_shape(name, dt) for d, dt in (("f32", torch.float32),
                                                                 ("f64", torch.float64))}
         log(f"  {name} worm instance on lane groups: one group per {groups} at the path's "
@@ -1676,8 +1717,9 @@ def main() -> int:
     log(f"{elapsed()} done: contact-free {rate:.1f} solves/s (B={B_FULL}); contact "
         f"{contact_rates[False]:.1f} (stock limits) and {contact_rates[True]:.1f} (narrowed) "
         f"solves/s (B={B_CONTACT}); worm {worm_rate:.1f} solves/s (B={WORM_B}), with "
-        f"linearize=\"jvp\" {slice_rates['jvp']:.1f}, with \"chain\" "
-        f"{slice_rates['chain']:.1f}; build {nvcc_s:.1f} s")
+        f"linearize=\"jvp\" {slice_rates['jvp']:.1f}, with \"split\" "
+        f"{slice_rates['split']:.1f}, with \"chain\" {slice_rates['chain']:.1f}; build "
+        f"{nvcc_s:.1f} s")
     log(smi)
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -41,6 +41,14 @@ NPTT_HD bool nisnan(T x) {
 #endif
 }
 
+// The unroll count of a loop of `trips` iterations: all of them where
+// `full`, else none (1). Each #pragma names its own loop's trip count, at
+// least 2 (a count of 1 disables unrolling, and would keep a one-trip
+// loop, such as one over the cartpole's single action, as a loop): a count
+// of 64 everywhere left the cartpole's K6 3.1x slower than a plain #pragma
+// unroll (scripts/torch_unroll_variants.py, PERF.md section 6).
+NPTT_HD constexpr int unroll_by(bool full, int trips) { return full ? (trips > 2 ? trips : 2) : 1; }
+
 // Forward-mode dual number: a value and one tangent. The linearize kernel
 // runs the device step on it, one basis direction per thread.
 template <typename T>

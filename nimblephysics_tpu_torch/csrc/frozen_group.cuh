@@ -1,4 +1,4 @@
-// The lane-group frozen solve of K2 (rollout.cu) and K5 (linearize.cu)
+// The lane-group frozen solve of K2 (rollout.cu), K4 and K5 (linearize.cu)
 // where the LCP's rows stay rolled (step.cuh group_layout: the jump worm's
 // m = 28).
 //
@@ -35,151 +35,28 @@
 //     f64 (ROADMAP queue C), so the group solve repeats the one-thread
 //     solve's arithmetic operation for operation;
 //   * several right-hand sides share one pass over Qf (K5's primal and nq
-//     adjoint solves), each with its own alpha and beta.
+//     adjoint solves, K4's nx + na tangent solves), each with its own alpha
+//     and beta.
 //
-// The group is a template parameter with one interface, sync(), bcast(),
-// sum() and max(): WarpGroup on the card (__syncwarp, __shfl_sync and
-// __shfl_xor_sync within the group's lanes), HostGroup in the host build of
-// tests/test_torch_device_step.py, which runs the same bodies with one host
-// thread per lane: sync() is a barrier, and each shuffle exchanges the
-// lanes' values through an array, the butterflies in the device's order.
+// The group is a template parameter (lane_group.cuh: WarpGroup on the
+// card, HostGroup in the host build of tests/test_torch_device_step.py).
 #pragma once
 
+#include "lane_group.cuh"
 #include "step.cuh"
 
-#ifndef __CUDACC__
-#include <condition_variable>
-#include <cstring>
-#include <mutex>
-#include <thread>
-#include <vector>
-#endif
-
 namespace nptt {
-
-NPTT_HD constexpr int log2_of(int g) { return g > 1 ? 1 + log2_of(g / 2) : 0; }
 
 // The lanes of each group, and the groups of one block: on the H100 K2's
 // worm instance ran fastest at 8 lanes and K5 at 16, of 8, 16 and 32
 // (scripts/torch_group_variants.py, PERF.md section 6).
 constexpr int kK2Group = 8, kK5Group = 16, kGroupsPerBlock = 4;
-
-#ifdef __CUDACC__
-// G lanes of one warp (G = 8, 16 or 32, aligned within the warp).
-template <int G>
-struct WarpGroup {
-  static_assert(G == 8 || G == 16 || G == 32, "a group is 8, 16 or 32 lanes of one warp");
-  int lane, base;  // the lane in the group; the warp lane of the group's lane 0
-  unsigned mask;
-  NPTT_HD void sync() const {
-#ifdef __CUDA_ARCH__
-    __syncwarp(mask);
-#endif
-  }
-  // lane src's v on every lane of the group
-  template <typename S>
-  NPTT_HD S bcast(S v, int src) const {
-#ifdef __CUDA_ARCH__
-    return __shfl_sync(mask, v, base + src);
-#else
-    return v;
-#endif
-  }
-  // v[k] summed over the group's lanes, every lane getting the same sums
-  template <typename S, int N>
-  NPTT_HD void sum(S (&v)[N]) const {
-#ifdef __CUDA_ARCH__
-#pragma unroll (unroll_by(true, log2_of(G)))
-    for (int o = G / 2; o > 0; o >>= 1)
-#pragma unroll (unroll_by(true, N))
-      for (int k = 0; k < N; ++k) v[k] = v[k] + __shfl_xor_sync(mask, v[k], o);
-#endif
-  }
-  template <typename S>
-  NPTT_HD S max(S v) const {
-#ifdef __CUDA_ARCH__
-#pragma unroll (unroll_by(true, log2_of(G)))
-    for (int o = G / 2; o > 0; o >>= 1) v = pmax(v, __shfl_xor_sync(mask, v, o));
-#endif
-    return v;
-  }
-};
-
-// The calling thread's lane in its group of G, and the group's lane mask.
-template <int G>
-__device__ __forceinline__ WarpGroup<G> warp_group() {
-  const int w = threadIdx.x & 31;
-  const unsigned mask = G == 32 ? 0xffffffffu : (((1u << G) - 1u) << (w & ~(G - 1)));
-  return WarpGroup<G>{w & (G - 1), w & ~(G - 1), mask};
-}
-#else
-// The host build's group: HostGroup<G>::run calls body(group) on G
-// threads, one per lane.
-struct HostGroupState {
-  std::mutex mu;
-  std::condition_variable cv;
-  int waiting = 0;
-  long generation = 0;
-  std::vector<unsigned char> slots;
-};
-
-template <int G>
-struct HostGroup {
-  int lane;
-  HostGroupState* st;
-  void sync() const {
-    std::unique_lock<std::mutex> lk(st->mu);
-    const long gen = st->generation;
-    if (++st->waiting == G) {
-      st->waiting = 0;
-      ++st->generation;
-      st->cv.notify_all();
-    } else {
-      st->cv.wait(lk, [&] { return st->generation != gen; });
-    }
-  }
-  // one butterfly step: every lane gets lane ^ o's values
-  template <typename S, int N>
-  void exchange(const S (&v)[N], int o, S (&w)[N]) const {
-    static_assert(N * sizeof(S) <= 1024, "exchange slots hold 1 KiB per lane");
-    std::memcpy(st->slots.data() + lane * 1024, v, sizeof(v));
-    sync();
-    std::memcpy(w, st->slots.data() + (lane ^ o) * 1024, sizeof(w));
-    sync();
-  }
-  template <typename S>
-  S bcast(S v, int src) const {
-    S a[1] = {v}, w[1];
-    exchange(a, lane ^ src, w);
-    return w[0];
-  }
-  template <typename S, int N>
-  void sum(S (&v)[N]) const {
-    for (int o = G / 2; o > 0; o >>= 1) {
-      S w[N];
-      exchange(v, o, w);
-      for (int k = 0; k < N; ++k) v[k] = v[k] + w[k];
-    }
-  }
-  template <typename S>
-  S max(S v) const {
-    for (int o = G / 2; o > 0; o >>= 1) {
-      S a[1] = {v}, w[1];
-      exchange(a, o, w);
-      v = pmax(v, w[0]);
-    }
-    return v;
-  }
-  template <class F>
-  static void run(F body) {
-    HostGroupState st;
-    st.slots.resize(G * 1024);
-    std::vector<std::thread> lanes;
-    for (int l = 0; l < G; ++l) lanes.emplace_back([&st, &body, l] { body(HostGroup<G>{l, &st}); });
-    for (auto& t : lanes) t.join();
-  }
-};
-#endif
+// K4's worm instance: the lanes of its group per point, and the tangent
+// right-hand sides per pass over Qf (nx + na of them in all). On the H100
+// 16 lanes with two passes of 5 ran K3 classes= in 62.9 ms, 32 lanes with
+// one pass of 10 in 93.9 and 16 with one of 10 (more spills) in 122.6
+// (scripts/torch_group_variants.py, PERF.md section 6).
+constexpr int kK4Group = 16, kK4Rhs = 5;
 
 // The rows a lane owns: r = lane + G o < M for o < kN.
 template <int M, int G>
@@ -369,13 +246,14 @@ NPTT_HD void group_normal_eqs(const Grp& g, Sh& sh, const LaneRows<T, S, NQ, M, 
 }
 
 // sum[s] = a[s][0] b[s][0] + ... + a[s][M - 1] b[s][M - 1] in that order
-// (step.cuh pcg's and frozen_step's), a and b in shared memory, NBV = 1
-// taking b[0] for every s: lane s % G sums s, then every lane gets the
-// sums.
-template <typename T, typename S, int M, int N, int NBV, int G, class Grp>
-NPTT_HD void group_seq_dot(const Grp& g, const S (&a)[N][M], const S (&b)[NBV][M],
+// (step.cuh pcg's and frozen_step's), a and b in shared memory (their first
+// N rows), NBV = 1 taking b[0] for every s: lane s % G sums s, then every
+// lane gets the sums.
+template <typename T, typename S, int M, int N, int NBV, int G, class Grp, int NA_, int NB_>
+NPTT_HD void group_seq_dot(const Grp& g, const S (&a)[NA_][M], const S (&b)[NB_][M],
                            S (&sum)[N]) {
   static_assert(NBV == N || NBV == 1, "b holds one vector, or one per sum");
+  static_assert(NA_ >= N && NB_ >= NBV, "a and b hold at least the summed rows");
   constexpr int kPer = (N + G - 1) / G;
   S mine[kPer];
 #pragma unroll (unroll_by(true, kPer))

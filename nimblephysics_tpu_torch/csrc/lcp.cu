@@ -10,28 +10,43 @@
 //
 // Bound on this card: the sweeps' arithmetic and their latency. Each LCP
 // needs iters * m * m multiply-adds in a chain of iters * m dependent row
-// updates, and its matrix (m * m values, 3.1 KB in f32 at m = 28) is read
-// iters times. Design: one thread per LCP; a block of NT threads first
-// copies its NT matrices (contiguous in the (N, m, m) input) into shared
-// memory, coalesced, laid out [row][column][thread] so that the threads of
-// a warp read neighbouring words (no bank conflicts); x and the row data
-// stay in registers through all sweeps, with the rows unrolled (m is a
-// template constant), and the dot product is summed in row order like
-// pgs_solve. findex is data (same for every thread); the coupled normal
-// impulse is picked from the register array by an unrolled select. NT is
-// set so that the block's matrices fill about 200 KB of shared memory (64
-// LCPs in f32, 32 in f64 at m = 28): one block per SM.
+// updates. With one thread per LCP each row update is an m-long dependent
+// chain of FMAs over the LCP's matrix, which at m = 28 fills shared memory
+// at 2 warps per SM (31.5 ms for the worm's 204,800 LCPs, PERF.md section
+// 6). Design: a lane group (lane_group.cuh) of kK7Group lanes per LCP.
+// Lane l owns rows r = l + G o < m and keeps, in registers, row r of A
+// (loaded once), x_r and the residual w_r = (A x - b)_r, kept current
+// instead of recomputed:
+//   1. w = A x0 - b, each lane its own rows (in pgs_solve's order);
+//   2. row i: its owner forms x_i' = clip(x_i - w_i inv_diag_i, lo, hi);
+//      on a friction row the coupled x_f comes from its owner by one
+//      shuffle (findex is the same for every LCP, so the branch is
+//      uniform);
+//   3. the owner broadcasts delta = x_i' - x_i (one shuffle);
+//   4. every lane updates w_r += A(r, i) delta.
+// That is 1-2 shuffles and a few instructions per row instead of an m-long
+// chain: the same Gauss-Seidel iteration in exact arithmetic, rounded
+// otherwise (the residual is updated, not recomputed: in f64 the
+// solutions stay within rel 1e-13 of pgs_solve's on the worm's LCPs,
+// tests/test_torch_device_step.py). The row updates of one LCP stay a
+// dependent chain through the shuffles, so the card needs many LCPs in
+// flight. pgs_lcp, the one-thread body, stays for the host tests.
 //
 // Least work per call (chip_smoke.py): (A, b, lo, hi, fscale, x0, findex)
 // read and x written once; per LCP and sweep, m dot products of length m
 // and the row update (pgs_sweep_ops in chip_smoke.py).
-#include "common.cuh"
+#include "lane_group.cuh"
 
 // The LCP sizes the kernel is built for; the wrapper refuses any other.
 // The jump worm: 8 contact slots and 2 limited dofs, 28 rows.
 #define NPTT_PGS_SIZES(X) X(28)
 
 namespace nptt {
+
+// The lanes of K7's group per LCP: on the H100 32 lanes (72 registers in
+// f32) took 7.6 ms for the worm's LCPs, 16 (128 registers) 8.8 and 8 (221)
+// 9.8 (scripts/torch_group_variants.py, PERF.md section 6).
+constexpr int kK7Group = 32;
 
 // One LCP's sweeps; its A(i, j) is As[(i M + j) stride].
 template <typename T, int M>
@@ -74,46 +89,85 @@ NPTT_HD void pgs_lcp(const T* __restrict__ As, int stride, const T* __restrict__
   for (int i = 0; i < M; ++i) out[i] = x[i];
 }
 
-#ifdef __CUDACC__
-template <typename T> struct PgsBlock;
-template <> struct PgsBlock<float> { static constexpr int kThreads = 64; };
-template <> struct PgsBlock<double> { static constexpr int kThreads = 32; };
-
-template <typename T, int M>
-__global__ void pgs_kernel(long long n, int iters, const T* __restrict__ A,
-                           const T* __restrict__ b, const T* __restrict__ lo,
-                           const T* __restrict__ hi, const T* __restrict__ fs,
-                           const T* __restrict__ x0, const int* __restrict__ findex,
-                           T* __restrict__ out) {
-  constexpr int NT = PgsBlock<T>::kThreads, MM = M * M;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* As = reinterpret_cast<T*>(smem_raw);
-  const long long first = (long long)blockIdx.x * NT;
-  const int n_here = (int)(n - first < NT ? n - first : NT);
-  const T* Ab = A + first * MM;
-  for (int idx = threadIdx.x; idx < n_here * MM; idx += NT) {
-    const int l = idx / MM, e = idx % MM;
-    As[e * NT + l] = Ab[idx];
+// K7's body for one LCP on a lane group of G (see the note above); A
+// (M x M, row-major), b, lo, hi, fs, x0 and out the LCP's own.
+template <typename T, int M, int G, class Grp>
+NPTT_HD void pgs_group(const Grp& g, const T* __restrict__ A, const T* __restrict__ b,
+                       const T* __restrict__ lo, const T* __restrict__ hi,
+                       const T* __restrict__ fs, const T* __restrict__ x0,
+                       const int* __restrict__ findex, int iters, T* __restrict__ out) {
+  constexpr int kN = (M + G - 1) / G;
+  T a[kN][M], x[kN], w[kN], inv_diag[kN], lo_r[kN], hi_r[kN], fs_r[kN];
+#pragma unroll (unroll_by(true, kN))
+  for (int o = 0; o < kN; ++o) {
+    const int r = g.lane + G * o;
+    x[o] = w[o] = inv_diag[o] = lo_r[o] = hi_r[o] = fs_r[o] = T(0);
+#pragma unroll (unroll_by(true, M))
+    for (int j = 0; j < M; ++j) a[o][j] = T(0);
+    if (r >= M) continue;
+#pragma unroll (unroll_by(true, M))
+    for (int j = 0; j < M; ++j) a[o][j] = A[r * M + j];
+    x[o] = x0[r];
+    lo_r[o] = lo[r];
+    hi_r[o] = hi[r];
+    fs_r[o] = fs[r];
+    const T d = A[r * M + r];
+    const T id = T(1) / d;
+    inv_diag[o] = nabs(d) > T(1e-12) ? id : T(0);
+    T acc = a[o][0] * x0[0];
+#pragma unroll (unroll_by(true, M - 1))
+    for (int j = 1; j < M; ++j) acc = acc + a[o][j] * x0[j];
+    w[o] = acc - b[r];
   }
-  __syncthreads();
-  const int t = threadIdx.x;
-  if (t >= n_here) return;
-  const long long g = first + t;
-  pgs_lcp<T, M>(As + t, NT, b + g * M, lo + g * M, hi + g * M, fs + g * M, x0 + g * M, findex,
-                iters, out + g * M);
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll (unroll_by(true, M))
+    for (int i = 0; i < M; ++i) {
+      const int oi = i / G, li = i % G;  // row i's owner: lane li, its slot oi
+      T lo_i = lo_r[oi], hi_i = hi_r[oi];
+      const int f = findex[i];
+      if (f >= 0) {
+        T mine = x[0];
+#pragma unroll (unroll_by(true, kN))
+        for (int o = 1; o < kN; ++o)
+          if (o == f / G) mine = x[o];
+        const T f_hi = fs_r[oi] * pmax(g.bcast(mine, f % G), T(0));
+        lo_i = -f_hi;
+        hi_i = f_hi;
+      }
+      const T xi = nclip(x[oi] - w[oi] * inv_diag[oi], lo_i, hi_i);
+      const T delta = g.bcast(xi - x[oi], li);
+      if (g.lane == li) x[oi] = xi;
+#pragma unroll (unroll_by(true, kN))
+      for (int o = 0; o < kN; ++o) w[o] = w[o] + a[o][i] * delta;
+    }
+  }
+#pragma unroll (unroll_by(true, kN))
+  for (int o = 0; o < kN; ++o)
+    if (g.lane + G * o < M) out[g.lane + G * o] = x[o];
 }
 
+#ifdef __CUDACC__
+template <typename T, int M, int G>
+__global__ void pgs_group_kernel(long long n, int iters, const T* __restrict__ A,
+                                 const T* __restrict__ b, const T* __restrict__ lo,
+                                 const T* __restrict__ hi, const T* __restrict__ fs,
+                                 const T* __restrict__ x0, const int* __restrict__ findex,
+                                 T* __restrict__ out) {
+  const long long l = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (l >= n) return;  // a whole group leaves: its lanes' mask holds only them
+  pgs_group<T, M, G>(warp_group<G>(), A + l * M * M, b + l * M, lo + l * M, hi + l * M,
+                     fs + l * M, x0 + l * M, findex, iters, out + l * M);
+}
+
+// K7: one lane group of kK7Group per LCP, 128 threads per block.
 template <typename T, int M>
 static int launch_pgs(long long n, int iters, const void* A, const void* b, const void* lo,
                       const void* hi, const void* fs, const void* x0, const void* findex,
                       void* out, cudaStream_t stream) {
-  constexpr int NT = PgsBlock<T>::kThreads;
-  const size_t smem = sizeof(T) * NT * M * M;
-  cudaError_t err = cudaFuncSetAttribute(pgs_kernel<T, M>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (n + NT - 1) / NT;
-  pgs_kernel<T, M><<<(unsigned)blocks, NT, smem, stream>>>(
+  constexpr int G = kK7Group, threads = 128;
+  const long long blocks = (n * G + threads - 1) / threads;
+  pgs_group_kernel<T, M, G><<<(unsigned)blocks, threads, 0, stream>>>(
       n, iters, (const T*)A, (const T*)b, (const T*)lo, (const T*)hi, (const T*)fs, (const T*)x0,
       (const int*)findex, (T*)out);
   return (int)cudaGetLastError();
@@ -137,5 +191,16 @@ extern "C" int nptt_pgs(int is_double, int m, long long n, int iters, const void
   NPTT_PGS_SIZES(NPTT_PGS_CASE)
 #undef NPTT_PGS_CASE
   return -1;
+}
+#endif
+
+#ifdef __CUDACC__
+// K7's lane-group layout: out = (lanes per group, groups per block, shared
+// bytes per block).
+extern "C" int nptt_pgs_group_shape(int is_double, long long* out) {
+  out[0] = nptt::kK7Group;
+  out[1] = 128 / nptt::kK7Group;
+  out[2] = 0;
+  return 0;
 }
 #endif

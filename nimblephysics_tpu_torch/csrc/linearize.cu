@@ -22,15 +22,44 @@
 // point, the class mask of the point read from cm (N, M). Replaces
 // nimblephysics_tpu/ops/pallas_linearize.py :: linearize_pallas_split,
 // whose primal/tangent kernel split existed only for the TPU compiler's
-// kernel-size limit (ops/jvp_split.py); Hopper has no such limit, so K4
-// keeps K3's layout: one thread per (point, direction) on Dual<T>. Its
-// tangent through solve_frozen is the implicit one of the JAX package's
-// lax.custom_linear_solve (the Dual overload of solve_frozen), not the
-// derivative of the truncated CG. Bound on this card: arithmetic. Least
-// work (chip_smoke.py least_work): (xs, u, cm) read and (fx, fu) written
-// once; per point one plain frozen step and nx + na tangents
-// (ops/device_step.py frozen_step_ops). Like K3 it repeats the primal in
-// each of a point's threads.
+// kernel-size limit (ops/jvp_split.py); Hopper has no such limit. K3 with
+// classes= runs this kernel at the PCG depth m + 6. Its tangent through
+// solve_frozen is the implicit one of the JAX package's
+// lax.custom_linear_solve, not the derivative of the truncated CG: with
+// the normal equations N x_C = Qf^T rhs, N = Qf^T Qf + reg I, and S the
+// truncated PCG, direction d has
+//   dx_C = S(t_d),  t_d = dQf^T (rhs - Qf x_C) + Qf^T (drhs - dQf x_C)
+//                          - dreg x_C.
+// The PCG's alphas depend on its right-hand side, so each of the nx + na
+// directions runs its own PCG. Bound on this card: arithmetic (the nx +
+// na PCGs, then the directions' dual inputs).
+//   * Where the rows unroll (the cartpole's m = 4): K3's layout, one
+//     thread per (point, direction) running frozen_step on Dual<T> (the
+//     Dual overload of solve_frozen takes the tangent above), repeating
+//     the primal in each of a point's threads.
+//   * Where group_layout(M) holds (the worm's m = 28), one thread per
+//     (point, direction) keeps the dense dual A and Qf in local memory
+//     (20 KB of stack in f32) and walks them in each PCG iteration (595 ms
+//     for the worm's 204,800 points at depth 34, PERF.md section 6).
+//     Instead one lane group (frozen_group.cuh) of kK4Group lanes per
+//     point, as K5: the primal once (lane 0's dynamics, the rows on the
+//     lanes, Qf in shared memory, the primal PCG) and the vectors every
+//     direction contracts against, x~ = R x_C, z = C (rhs - Qf x_C), w =
+//     MJ x~, pz = M^-T J^T z and v' = v* + w; then lane d < nx + na runs
+//     direction d's inputs on Dual<T> (forward_dynamics for dv*; on a
+//     direction of q also mass_matrix and the contact rows, streamed slot
+//     by slot) and contracts them at once into t_d through the factors of
+//     A (dQf = C dA R, dA = dJ MJ + J dMJ, dMJ = M^-1 (dJ^T - dM MJ);
+//     jvp_rhs): no dual A, no M-sized dual array, no scratch in device
+//     memory; then the nx + na tangent PCGs run as right-hand sides over
+//     the one Qf, kK4Rhs per pass, each with its own alpha and beta and
+//     the primal's preconditioner; last, dv' = dv* + dMJ x~ + MJ R dx_C
+//     and the q' rows [I, dt I] and 0 (q' = q + dt v).
+// Least work (chip_smoke.py contact_least_work and slice_least_work):
+// (xs, u, cm, us) read and (fx, fu) written once; per point on the
+// cartpole one plain frozen step and nx + na tangents of it
+// (ops/device_step.py frozen_step_ops), on the worm the factored form's
+// (ops/device_step.py jvp_point_least_ops).
 //
 // K5: (fx, fu) of the frozen-class step by row-VJPs of its v' half.
 // Replaces nimblephysics_tpu/ops/pallas_linearize.py :: linearize_pallas_vjp,
@@ -165,28 +194,26 @@ NPTT_HD void accumulate(S& acc, int o, S prod) {
 }
 
 // sign(Qf_ij) where |Qf_ij| attains max|Qf| = mx, else 0
-template <typename T, class Sh>
-NPTT_HD T tie_sign(const Sh& sh, int i, int j, T mx) {
-  const T q = val(sh.fs.Qf[i][j]);
+template <typename T, typename R, int M>
+NPTT_HD T tie_sign(const R (&Qf)[M][M + 1], int i, int j, T mx) {
+  const T q = val(Qf[i][j]);
   return nabs(q) == mx ? (q >= T(0) ? T(1) : T(-1)) : T(0);
 }
 
-// The terms of jnp's tie rule for max|Qf| in G_k and H_k (see the K5 note
-// above): dreg = 2 eps qs share sum over the tied entries (i, j) of
-// sign(Qf_ij) dQf_ij, dQf = C dA R. Runs only where an entry with
-// cmask_i = cmask_j = 1 attains max|Qf| >= 1 (the group decides alike).
-template <typename T, typename R, int NB, int NQ, int M, int NS, int G, class Grp>
-NPTT_HD void vjp_tie_terms(const Grp& g, VjpShared<R, NB, NQ, M>& sh, const T* cm, const T* us,
-                           R mx, const R (&Mi)[NQ][NQ], const R* lamxc) {
-  constexpr int kN = Owned<M, G>::kN, C0 = 3 * NS;
-  const T mxv = val(mx);
+// The share of each entry of Qf that attains max|Qf| = mx in the tangent
+// of max(max|Qf|, 1) under jnp's tie rule: 1 / count (mx > 1), 0.5 / count
+// (mx == 1), else 0; also 0 where no tied entry has cmask_i = cmask_j = 1,
+// the only entries with a tangent. The group decides alike.
+template <typename T, typename R, int M, int G, class Grp>
+NPTT_HD T tie_share(const Grp& g, const R (&Qf)[M][M + 1], const T* cm, T mxv) {
+  constexpr int kN = Owned<M, G>::kN;
   T cnt = T(0), live = T(0);
 #pragma unroll (unroll_by(true, kN))
   for (int o = 0; o < kN; ++o) {
     const int i = g.lane + G * o;
     if (i >= M) continue;
     for (int j = 0; j < M; ++j)
-      if (nabs(val(sh.fs.Qf[i][j])) == mxv) {
+      if (nabs(val(Qf[i][j])) == mxv) {
         cnt = cnt + T(1);
         if (cm[i] != T(0) && cm[j] != T(0)) live = T(1);
       }
@@ -194,34 +221,45 @@ NPTT_HD void vjp_tie_terms(const Grp& g, VjpShared<R, NB, NQ, M>& sh, const T* c
   T tie[2] = {cnt, live};
   g.sum(tie);
   const T share = mxv > T(1) ? T(1) / tie[0] : (mxv == T(1) ? T(0.5) / tie[0] : T(0));
-  if (share == T(0) || tie[1] == T(0)) return;
-  const T qs = mxv > T(1) ? mxv : T(1);
-  R coef[NQ], Hs[NQ * NQ];
-  for (int k = 0; k < NQ; ++k) coef[k] = -(T(2) * Prec<T>::eps() * qs * share) * lamxc[k];
+  return tie[1] == T(0) ? T(0) : share;
+}
+
+// The terms of jnp's tie rule for max|Qf| (see the K5 note above): with
+// omega = the sum over the tied entries (i, j) of sign(Qf_ij) dQf_ij, dQf =
+// C dA R, Gc[k] (on the contact rows, dJ's coefficients) and Hc[k] (dM's)
+// gain coef_k times omega's coefficients. MJR[e][j] = (MJ R)[e][j], J the
+// rows of J, both in shared memory; Mi = M^-1.
+template <typename T, typename R, int NQ, int M, int NS, int G, int NK, int NPR, class Grp>
+NPTT_HD void tie_terms(const Grp& g, const R (&Qf)[M][M + 1], const R (&MJR)[NPR][M],
+                       const R (&J)[M][NQ], const T* cm, const T* us, T mxv,
+                       const R (&Mi)[NQ][NQ], const R (&coef)[NK], R (&Gc)[NK][M][NQ],
+                       R (&Hc)[NK][NQ][NQ]) {
+  static_assert(NPR >= NQ, "MJR holds the nq rows of MJ R");
+  constexpr int kN = Owned<M, G>::kN, C0 = 3 * NS;
+  R Hs[NQ * NQ];
   for (int e = 0; e < NQ * NQ; ++e) Hs[e] = R(T(0));
 #pragma unroll (unroll_by(true, kN))
   for (int o = 0; o < kN; ++o) {
     const int i = g.lane + G * o;
     if (i >= M || cm[i] == T(0)) continue;
-    // row i: MJ R omega_i = sum over tied j of sign_ij (MJ R)[:, j], with
-    // (MJ R)[e][j] in sh.fs.p
+    // row i: MJ R omega_i = sum over tied j of sign_ij (MJ R)[:, j]
     R mw[NQ];
     bool any = false;
     for (int j = 0; j < M; ++j) {
-      const T sij = tie_sign<T>(sh, i, j, mxv);
+      const T sij = tie_sign<T>(Qf, i, j, mxv);
       if (sij == T(0) || cm[j] == T(0)) continue;
       for (int e = 0; e < NQ; ++e) {
-        const R term = sij * sh.fs.p[e][j];
+        const R term = sij * MJR[e][j];
         mw[e] = any ? mw[e] + term : term;
       }
       any = true;
     }
     if (!any) continue;
     for (int e = 0; e < NQ; ++e) {
-      const R cj = cm[i] * sh.J[i][e];
+      const R cj = cm[i] * J[i][e];
       for (int f = 0; f < NQ; ++f) Hs[e * NQ + f] = Hs[e * NQ + f] + cj * mw[f];
       if (i < C0)
-        for (int k = 0; k < NQ; ++k) sh.G[k][i][e] = sh.G[k][i][e] + coef[k] * (cm[i] * mw[e]);
+        for (int k = 0; k < NK; ++k) Gc[k][i][e] = Gc[k][i][e] + coef[k] * (cm[i] * mw[e]);
     }
   }
 #pragma unroll (unroll_by(true, kN))
@@ -235,11 +273,11 @@ NPTT_HD void vjp_tie_terms(const Grp& g, VjpShared<R, NB, NQ, M>& sh, const T* c
     bool any = false;
     for (int i = 0; i < M; ++i) {
       if (cm[i] == T(0)) continue;
-      const T om = tie_sign<T>(sh, i, l, mxv) * (cm[l] * cm[l]) +
-                   (l % 3 != 0 ? tie_sign<T>(sh, i, f, mxv) * (cm[f] * cm[f]) * us[l] : T(0));
+      const T om = tie_sign<T>(Qf, i, l, mxv) * (cm[l] * cm[l]) +
+                   (l % 3 != 0 ? tie_sign<T>(Qf, i, f, mxv) * (cm[f] * cm[f]) * us[l] : T(0));
       if (om == T(0)) continue;
       for (int e = 0; e < NQ; ++e) {
-        const R term = (cm[i] * om) * sh.J[i][e];
+        const R term = (cm[i] * om) * J[i][e];
         ul[e] = any ? ul[e] + term : term;
       }
       any = true;
@@ -248,18 +286,33 @@ NPTT_HD void vjp_tie_terms(const Grp& g, VjpShared<R, NB, NQ, M>& sh, const T* c
     for (int e = 0; e < NQ; ++e) {
       R mu = Mi[0][e] * ul[0];
       for (int h = 1; h < NQ; ++h) mu = mu + Mi[h][e] * ul[h];
-      for (int k = 0; k < NQ; ++k) sh.G[k][l][e] = sh.G[k][l][e] + coef[k] * mu;
+      for (int k = 0; k < NK; ++k) Gc[k][l][e] = Gc[k][l][e] + coef[k] * mu;
     }
   }
   g.sum(Hs);
-  for (int L = g.lane; L < NQ * NQ; L += G) {
+  for (int L = g.lane; L < NK * NQ; L += G) {
     const int k = L / NQ, e = L % NQ;
     for (int f = 0; f < NQ; ++f) {
       R ht = Mi[0][e] * Hs[f];
       for (int h = 1; h < NQ; ++h) ht = ht + Mi[h][e] * Hs[h * NQ + f];
-      sh.H[k][e][f] = sh.H[k][e][f] - coef[k] * ht;
+      Hc[k][e][f] = Hc[k][e][f] - coef[k] * ht;
     }
   }
+}
+
+// K5's tie terms: coef_k = -2 eps qs share lam_k . x_C (the tangent of
+// -reg lam_k^T x_C in row k), where an entry with cmask_i = cmask_j = 1
+// attains max|Qf| >= 1.
+template <typename T, typename R, int NB, int NQ, int M, int NS, int G, class Grp>
+NPTT_HD void vjp_tie_terms(const Grp& g, VjpShared<R, NB, NQ, M>& sh, const T* cm, const T* us,
+                           R mx, const R (&Mi)[NQ][NQ], const R* lamxc) {
+  const T mxv = val(mx);
+  const T share = tie_share<T, R, M, G>(g, sh.fs.Qf, cm, mxv);
+  if (share == T(0)) return;
+  const T qs = mxv > T(1) ? mxv : T(1);
+  R coef[NQ];
+  for (int k = 0; k < NQ; ++k) coef[k] = -(T(2) * Prec<T>::eps() * qs * share) * lamxc[k];
+  tie_terms<T, R, NQ, M, NS, G>(g, sh.fs.Qf, sh.fs.p, sh.J, cm, us, mxv, Mi, coef, sh.G, sh.H);
 }
 
 // Column d of the v' rows at point n: the step's inputs on Dual<R> seeded
@@ -472,6 +525,302 @@ NPTT_HD void linearize_vjp_group(const Grp& g, VjpShared<R, NB, NQ, M>& sh, long
   g.sync();
 }
 
+// K4's shared memory per point where group_layout(M) holds: the frozen
+// solve's, with NP right-hand sides; the rows of J; the point's fixed
+// vectors; the tie rule's coefficients; per direction d of (x, u) its
+// tangent right-hand side t_d (then dx_C), its s_d and u_d, and per
+// direction of q the products of its dJ rows with v' and pz.
+template <typename S, int NB, int NQ, int NA, int M, int NS, int NP>
+struct JvpShared {
+  static constexpr int K = 2 * NQ + NA, C0 = 3 * NS;
+  FrozenShared<S, NB, NQ, M, NP> fs;
+  S J[M][NQ];
+  S xc[M], xt[M], z[M];     // x_C, x~ = R x_C, z = C (rhs - Qf x_C)
+  S vn[NQ], w[NQ], pz[NQ];  // v' = v* + w, w = MJ x~, pz = M^-T J^T z
+  S MJR[NQ][M], Gt[1][M][NQ], Ht[1][NQ][NQ];
+  S t[K][M], s[K][M], u[K][NQ];
+  S dJv[NQ][C0], dJp[NQ][C0];
+};
+
+// Direction d's tangent right-hand side (K4 at the worm's shape, one lane
+// per direction): the step's inputs on Dual<R> seeded with e_d (as
+// vjp_column: forward_dynamics for dv*; for a direction of q also
+// mass_matrix and the contact rows, streamed slot by slot) contracted at
+// once with the point's fixed vectors into
+//   t_d = R^T (MJ^T k + dJ pz) + Qf^T s - dreg x_C,
+//   s = -C (dJ v' + J u),  u = dv* + h,
+//   h = M^-1 (dJ^T x~ - dM w),  k = dJ^T z - dM pz,
+// t_d into sh.t[d] and u into sh.u[d]. dJ and dM vanish on the directions
+// of v and u; dreg = <Gt, dJ> + <Ht, dM> where the tie rule is live.
+template <typename T, typename R, int NB, int NQ, int NA, int M, int NS, int NP>
+NPTT_HD void jvp_rhs(JvpShared<R, NB, NQ, NA, M, NS, NP>& sh, int d, long long n,
+                     const T* __restrict__ P, const int* __restrict__ I,
+                     const T* __restrict__ xs, const T* __restrict__ u, const T* cm, const T* us,
+                     bool tie) {
+  using L = StepLayout<NB, NQ, NA>;
+  constexpr int NX = 2 * NQ, C0 = 3 * NS;
+  const T dt = P[L::kDt];
+  Dual<R> q[NQ], v[NQ], uu[NA], Rd[NB][9], pd[NB][3], qdd[NQ];
+  R uv[NQ], kv[NQ], dreg = R(T(0));
+#pragma unroll (unroll_by(true, NQ))
+  for (int e = 0; e < NQ; ++e) kv[e] = R(T(0));
+#pragma unroll (unroll_by(true, NQ))
+  for (int i = 0; i < NQ; ++i) {
+    q[i] = Dual<R>(R(xs[n * NX + i]), R(T(d == i ? 1 : 0)));
+    v[i] = Dual<R>(R(xs[n * NX + NQ + i]), R(T(d == NQ + i ? 1 : 0)));
+  }
+#pragma unroll (unroll_by(true, NA))
+  for (int a = 0; a < NA; ++a) uu[a] = Dual<R>(R(u[n * NA + a]), R(T(d == NX + a ? 1 : 0)));
+  constexpr bool UR = true;
+  forward_dynamics<T, Dual<R>, NB, NQ, NA, UR>(P, I, q, v, uu, Rd, pd, qdd);
+#pragma unroll (unroll_by(true, NQ))
+  for (int e = 0; e < NQ; ++e) uv[e] = (v[e] + dt * qdd[e]).d;
+  if (d < NQ) {
+    Dual<R> Mm[NQ][NQ], Rw[NB][9], pw[NB][3];
+    mass_matrix<T, Dual<R>, NB, NQ, NA, UR>(P, I, Rd, pd, Mm);
+    world_frames<T, Dual<R>, NB, NQ, NA, UR>(I, Rd, pd, Rw, pw);
+    R e1[NQ], e2[NQ];
+#pragma unroll (unroll_by(true, NQ))
+    for (int e = 0; e < NQ; ++e) e1[e] = e2[e] = R(T(0));
+#pragma unroll 1
+    for (int s = 0; s < NS; ++s) {
+      Dual<R> Jp[3][NQ];
+      slot_jacobian<T, Dual<R>, NB, NQ, NA, M, NS, UR>(P, I, Rw, pw, s, Jp);
+#pragma unroll (unroll_by(true, 3))
+      for (int dd = 0; dd < 3; ++dd) {
+        const int r = 3 * s + dd;
+        T dir[3];
+        Dual<R> Jr[NQ];
+        slot_direction<T, NB, NQ, NA, M, NS>(P, s, dd, dir);
+        slot_row<true>(dir, Jp, Jr);
+        R jv = Jr[0].d * sh.vn[0], jp = Jr[0].d * sh.pz[0];
+#pragma unroll (unroll_by(true, NQ - 1))
+        for (int e = 1; e < NQ; ++e) {
+          jv = jv + Jr[e].d * sh.vn[e];
+          jp = jp + Jr[e].d * sh.pz[e];
+        }
+        sh.dJv[d][r] = jv;
+        sh.dJp[d][r] = jp;
+#pragma unroll (unroll_by(true, NQ))
+        for (int e = 0; e < NQ; ++e) {
+          e1[e] = e1[e] + sh.xt[r] * Jr[e].d;
+          e2[e] = e2[e] + sh.z[r] * Jr[e].d;
+        }
+        if (tie) {
+#pragma unroll (unroll_by(true, NQ))
+          for (int e = 0; e < NQ; ++e) dreg = dreg + sh.Gt[0][r][e] * Jr[e].d;
+        }
+      }
+    }
+    R g1[NQ];
+#pragma unroll (unroll_by(true, NQ))
+    for (int e = 0; e < NQ; ++e) {
+      R mw = Mm[e][0].d * sh.w[0], mp = Mm[e][0].d * sh.pz[0];
+#pragma unroll (unroll_by(true, NQ - 1))
+      for (int f = 1; f < NQ; ++f) {
+        mw = mw + Mm[e][f].d * sh.w[f];
+        mp = mp + Mm[e][f].d * sh.pz[f];
+      }
+      g1[e] = e1[e] - mw;
+      kv[e] = e2[e] - mp;
+      if (tie) {
+#pragma unroll (unroll_by(true, NQ))
+        for (int f = 0; f < NQ; ++f) dreg = dreg + sh.Ht[0][e][f] * Mm[e][f].d;
+      }
+    }
+#pragma unroll (unroll_by(true, NQ))
+    for (int e = 0; e < NQ; ++e) {
+      R h = sh.fs.Mi[e][0] * g1[0];
+#pragma unroll (unroll_by(true, NQ - 1))
+      for (int f = 1; f < NQ; ++f) h = h + sh.fs.Mi[e][f] * g1[f];
+      uv[e] = uv[e] + h;
+    }
+  }
+#pragma unroll (unroll_by(true, NQ))
+  for (int e = 0; e < NQ; ++e) sh.u[d][e] = uv[e];
+#pragma unroll (unroll_by(true, M))
+  for (int i = 0; i < M; ++i) {
+    R si = sh.J[i][0] * uv[0];
+#pragma unroll (unroll_by(true, NQ - 1))
+    for (int e = 1; e < NQ; ++e) si = si + sh.J[i][e] * uv[e];
+    if (d < NQ && i < C0) si = si + sh.dJv[d][i];
+    sh.s[d][i] = -(cm[i] * si);
+  }
+  // g_l = MJ[:, l] . k + dJ_l . pz (directions of q)
+  auto g_at = [&](int l) {
+    R gl = sh.fs.MJ[0][l] * kv[0];
+#pragma unroll (unroll_by(true, NQ - 1))
+    for (int e = 1; e < NQ; ++e) gl = gl + sh.fs.MJ[e][l] * kv[e];
+    return l < C0 ? gl + sh.dJp[d][l] : gl;
+  };
+#pragma unroll (unroll_by(true, M))
+  for (int j = 0; j < M; ++j) {
+    R acc = sh.fs.Qf[0][j] * sh.s[d][0];
+#pragma unroll (unroll_by(true, M - 1))
+    for (int i = 1; i < M; ++i) acc = acc + sh.fs.Qf[i][j] * sh.s[d][i];
+    if (d < NQ) {
+      R gr = g_at(j);
+      if (j < C0 && j % 3 == 0) gr = (gr + us[j + 1] * g_at(j + 1)) + us[j + 2] * g_at(j + 2);
+      acc = acc + cm[j] * (cm[j] * gr);
+    }
+    if (tie) acc = acc - dreg * sh.xc[j];
+    sh.t[d][j] = acc;
+  }
+}
+
+// Column d at point n: the v' rows dv' = u_d + MJ R dx_C,d, the q' rows
+// [I, dt I] and 0 (q' = q + dt v).
+template <typename T, typename R, int NB, int NQ, int NA, int M, int NS, int NP>
+NPTT_HD void jvp_column(const JvpShared<R, NB, NQ, NA, M, NS, NP>& sh, int d, long long n,
+                        const T* __restrict__ P, const T* cm, const T* us, R* __restrict__ fx,
+                        R* __restrict__ fu) {
+  using L = StepLayout<NB, NQ, NA>;
+  constexpr int NX = 2 * NQ;
+  const T dt = P[L::kDt];
+  R col[NQ];
+  const R dx0 = r_apply<T, R, M, NS>(cm, us, sh.t[d], 0);
+#pragma unroll (unroll_by(true, NQ))
+  for (int e = 0; e < NQ; ++e) col[e] = sh.fs.MJ[e][0] * dx0;
+#pragma unroll (unroll_by(true, M - 1))
+  for (int r = 1; r < M; ++r) {
+    const R dx = r_apply<T, R, M, NS>(cm, us, sh.t[d], r);
+#pragma unroll (unroll_by(true, NQ))
+    for (int e = 0; e < NQ; ++e) col[e] = col[e] + sh.fs.MJ[e][r] * dx;
+  }
+#pragma unroll (unroll_by(true, NQ))
+  for (int k = 0; k < NQ; ++k) {
+    const R row = sh.u[d][k] + col[k];
+    if (d < NX) {
+      fx[(n * NX + NQ + k) * NX + d] = row;
+      fx[(n * NX + k) * NX + d] = R(d == k ? T(1) : (d == NQ + k ? dt : T(0)));
+    } else {
+      fu[(n * NX + NQ + k) * NA + (d - NX)] = row;
+      fu[(n * NX + k) * NA + (d - NX)] = R(T(0));
+    }
+  }
+}
+
+// K4's body for point n on one lane group of G where group_layout(M)
+// holds, NP tangent right-hand sides per pass over Qf (R the arithmetic
+// type, as K5's).
+template <typename T, typename R, int NB, int NQ, int NA, int M, int NS, int G, int NP, class Grp>
+NPTT_HD void linearize_jvp_group(const Grp& g, JvpShared<R, NB, NQ, NA, M, NS, NP>& sh,
+                                 long long n, int n_cg, const T* __restrict__ P,
+                                 const int* __restrict__ I, const T* __restrict__ xs,
+                                 const T* __restrict__ u, const T* __restrict__ cm_all,
+                                 const T* __restrict__ us_all, R* __restrict__ fx,
+                                 R* __restrict__ fu) {
+  constexpr int NX = 2 * NQ, K = NX + NA, C0 = 3 * NS, kN = Owned<M, G>::kN;
+  static_assert(K % NP == 0, "the tangent right-hand sides fill whole passes");
+  const T* cm = cm_all + n * M;
+  const T* us = us_all + n * M;
+  R x[NX], ua[NA], qn[NQ], vs[NQ], Mi[NQ][NQ], mx, reg, diagM[kN], bb[1][kN], sol[1][kN];
+  LaneRows<T, R, NQ, M, G> rw;
+#pragma unroll (unroll_by(true, NX))
+  for (int i = 0; i < NX; ++i) x[i] = R(xs[n * NX + i]);
+#pragma unroll (unroll_by(true, NA))
+  for (int a = 0; a < NA; ++a) ua[a] = R(u[n * NA + a]);
+  // the primal: x_C as group_frozen_step solves it
+  group_inputs<T, R, NB, NQ, NA, M, NS, G>(g, sh.fs, P, I, x, x + NQ, ua, qn, vs, Mi, rw);
+  group_normal_eqs<T, R, NQ, M, NS, G>(g, sh.fs, rw, cm, us, mx, reg, diagM, bb[0]);
+  group_pcg<T, R, M, 1, G>(g, sh.fs, reg, diagM, bb, n_cg, sol);
+#pragma unroll (unroll_by(true, kN))
+  for (int o = 0; o < kN; ++o) {
+    const int i = g.lane + G * o;
+    if (i >= M) continue;
+    sh.xc[i] = sol[0][o];
+#pragma unroll (unroll_by(true, NQ))
+    for (int e = 0; e < NQ; ++e) sh.J[i][e] = rw.J[o][e];
+  }
+  g.sync();
+  // per owned row: x~ = R x_C, z = C (rhs - Qf x_C); then their sums over
+  // the rows (red): w = MJ x~ and J^T z
+  R red[2 * NQ];
+#pragma unroll (unroll_by(true, 2 * NQ))
+  for (int e = 0; e < 2 * NQ; ++e) red[e] = R(T(0));
+#pragma unroll (unroll_by(true, kN))
+  for (int o = 0; o < kN; ++o) {
+    const int i = g.lane + G * o;
+    if (i >= M) continue;
+    const R xt = r_apply<T, R, M, NS>(cm, us, sh.xc, i);
+    R y = sh.fs.Qf[i][0] * sh.xc[0];
+#pragma unroll (unroll_by(true, M - 1))
+    for (int j = 1; j < M; ++j) y = y + sh.fs.Qf[i][j] * sh.xc[j];
+    const R zi = cm[i] * (sh.fs.rhs[i] - y);
+    sh.xt[i] = xt;
+    sh.z[i] = zi;
+#pragma unroll (unroll_by(true, NQ))
+    for (int e = 0; e < NQ; ++e) {
+      accumulate(red[e], o, rw.MJ[o][e] * xt);
+      accumulate(red[NQ + e], o, rw.J[o][e] * zi);
+    }
+  }
+  g.sum(red);
+  if (g.lane == 0) {
+#pragma unroll (unroll_by(true, NQ))
+    for (int f = 0; f < NQ; ++f) {
+      R pz = Mi[0][f] * red[NQ];
+#pragma unroll (unroll_by(true, NQ - 1))
+      for (int e = 1; e < NQ; ++e) pz = pz + Mi[e][f] * red[NQ + e];
+      sh.pz[f] = pz;
+      sh.w[f] = red[f];
+      sh.vn[f] = vs[f] + red[f];
+    }
+  }
+  // jnp's tie rule for max|Qf|, where it is live: dreg's coefficients
+  // 2 eps qs share (Gt on dJ, Ht on dM)
+  const T mxv = val(mx);
+  const T share = tie_share<T, R, M, G>(g, sh.fs.Qf, cm, mxv);
+  const bool tie = share != T(0);
+  if (tie) {
+    const T qs = mxv > T(1) ? mxv : T(1);
+    const R coef[1] = {R(T(2) * Prec<T>::eps() * qs * share)};
+#pragma unroll (unroll_by(true, kN))
+    for (int o = 0; o < kN; ++o) {
+      const int j = g.lane + G * o;
+      if (j >= M) continue;
+#pragma unroll (unroll_by(true, NQ))
+      for (int e = 0; e < NQ; ++e) {
+        R y = sh.fs.MJ[e][j];
+        if (j < C0 && j % 3 == 0)
+          y = (y + us[j + 1] * sh.fs.MJ[e][j + 1]) + us[j + 2] * sh.fs.MJ[e][j + 2];
+        sh.MJR[e][j] = cm[j] * (cm[j] * y);
+        sh.Gt[0][j][e] = R(T(0));
+      }
+    }
+    for (int e = g.lane; e < NQ; e += G)
+      for (int f = 0; f < NQ; ++f) sh.Ht[0][e][f] = R(T(0));
+    g.sync();
+    tie_terms<T, R, NQ, M, NS, G>(g, sh.fs.Qf, sh.MJR, sh.J, cm, us, mxv, Mi, coef, sh.Gt, sh.Ht);
+  }
+  g.sync();
+  // the tangent right-hand sides, one lane per direction of (x, u)
+  for (int d = g.lane; d < K; d += G) jvp_rhs<T, R, NB, NQ, NA, M, NS>(sh, d, n, P, I, xs, u, cm, us, tie);
+  g.sync();
+  // the nx + na tangent PCGs over the one Qf, NP per pass, each with its
+  // own alpha and beta and the primal's preconditioner: dx_C into sh.t
+#pragma unroll 1
+  for (int pass = 0; pass < K / NP; ++pass) {
+    R tb[NP][kN], dxc[NP][kN];
+#pragma unroll (unroll_by(true, NP))
+    for (int r = 0; r < NP; ++r)
+#pragma unroll (unroll_by(true, kN))
+      for (int o = 0; o < kN; ++o) {
+        const int i = g.lane + G * o;
+        tb[r][o] = i < M ? sh.t[pass * NP + r][i] : R(T(0));
+      }
+    group_pcg<T, R, M, NP, G>(g, sh.fs, reg, diagM, tb, n_cg, dxc);
+#pragma unroll (unroll_by(true, NP))
+    for (int r = 0; r < NP; ++r)
+#pragma unroll (unroll_by(true, kN))
+      for (int o = 0; o < kN; ++o)
+        if (g.lane + G * o < M) sh.t[pass * NP + r][g.lane + G * o] = dxc[r][o];
+  }
+  g.sync();
+  for (int d = g.lane; d < K; d += G) jvp_column<T, R, NB, NQ, NA, M, NS>(sh, d, n, P, cm, us, fx, fu);
+  g.sync();
+}
+
 #ifdef __CUDACC__
 template <typename T, int NB, int NQ, int NA>
 __global__ void linearize_kernel(long long n_threads, const T* __restrict__ P,
@@ -504,16 +853,47 @@ __global__ void linearize_split_kernel(long long n_threads, int n_cg, const T* _
     linearize_split_thread<T, NB, NQ, NA, M, NS>(tid, n_cg, P, I, xs, u, cm, ucl, fx, fu);
 }
 
+template <typename T, int NB, int NQ, int NA, int M, int NS, int G, int NP>
+__global__ void linearize_jvp_group_kernel(long long n_points, int n_cg, const T* __restrict__ P,
+                                           const int* __restrict__ I, const T* __restrict__ xs,
+                                           const T* __restrict__ u, const T* __restrict__ cm,
+                                           const T* __restrict__ ucl, T* __restrict__ fx,
+                                           T* __restrict__ fu) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long n = (long long)blockIdx.x * kGroupsPerBlock + threadIdx.x / G;
+  if (n >= n_points) return;  // a whole group leaves: its lanes' mask holds only them
+  auto* sh = reinterpret_cast<JvpShared<T, NB, NQ, NA, M, NS, NP>*>(smem) + threadIdx.x / G;
+  linearize_jvp_group<T, T, NB, NQ, NA, M, NS, G, NP>(warp_group<G>(), *sh, n, n_cg, P, I, xs, u,
+                                                      cm, ucl, fx, fu);
+}
+
+// K4: one thread per (point, direction) where the rows unroll (the
+// cartpole's m = 4); where group_layout(M) holds, one lane group of
+// kK4Group per point, kGroupsPerBlock groups per block, each with its
+// JvpShared in dynamic shared memory.
 template <typename T, int NB, int NQ, int NA, int M, int NS>
 static int launch_linearize_split(long long n_points, int n_cg, const void* P, const void* I,
                                   const void* xs, const void* u, const void* cm, const void* ucl,
                                   void* fx, void* fu, cudaStream_t stream) {
-  const long long n_threads = n_points * (2 * NQ + NA);
-  const int threads = 128;
-  const long long blocks = (n_threads + threads - 1) / threads;
-  linearize_split_kernel<T, NB, NQ, NA, M, NS><<<(unsigned)blocks, threads, 0, stream>>>(
-      n_threads, n_cg, (const T*)P, (const int*)I, (const T*)xs, (const T*)u, (const T*)cm,
-      (const T*)ucl, (T*)fx, (T*)fu);
+  if constexpr (group_layout(M)) {
+    constexpr int G = kK4Group, NP = kK4Rhs;
+    const size_t smem = kGroupsPerBlock * sizeof(JvpShared<T, NB, NQ, NA, M, NS, NP>);
+    auto kernel = linearize_jvp_group_kernel<T, NB, NQ, NA, M, NS, G, NP>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const long long blocks = (n_points + kGroupsPerBlock - 1) / kGroupsPerBlock;
+    kernel<<<(unsigned)blocks, kGroupsPerBlock * G, smem, stream>>>(
+        n_points, n_cg, (const T*)P, (const int*)I, (const T*)xs, (const T*)u, (const T*)cm,
+        (const T*)ucl, (T*)fx, (T*)fu);
+  } else {
+    const long long n_threads = n_points * (2 * NQ + NA);
+    const int threads = 128;
+    const long long blocks = (n_threads + threads - 1) / threads;
+    linearize_split_kernel<T, NB, NQ, NA, M, NS><<<(unsigned)blocks, threads, 0, stream>>>(
+        n_threads, n_cg, (const T*)P, (const int*)I, (const T*)xs, (const T*)u, (const T*)cm,
+        (const T*)ucl, (T*)fx, (T*)fu);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -616,6 +996,22 @@ extern "C" int nptt_linearize_vjp_group_shape(int is_double, long long* out) {
   out[1] = nptt::kGroupsPerBlock;                                                    \
   out[2] = nptt::kGroupsPerBlock * (is_double ? sizeof(nptt::VjpShared<double, NB, NQ, M>) \
                                               : sizeof(nptt::VjpShared<float, NB, NQ, M>));
+  NPTT_WORM_SHAPES(NPTT_SHAPE)
+#undef NPTT_SHAPE
+  return 0;
+}
+#endif
+
+#ifdef __CUDACC__
+// K4's lane-group layout at the worm's shape: out = (lanes per group,
+// groups per block, shared bytes per block).
+extern "C" int nptt_linearize_split_group_shape(int is_double, long long* out) {
+#define NPTT_SHAPE(NB, NQ, NA, M, NS)                                                          \
+  out[0] = nptt::kK4Group;                                                                    \
+  out[1] = nptt::kGroupsPerBlock;                                                             \
+  out[2] = nptt::kGroupsPerBlock *                                                            \
+           (is_double ? sizeof(nptt::JvpShared<double, NB, NQ, NA, M, NS, nptt::kK4Rhs>)      \
+                      : sizeof(nptt::JvpShared<float, NB, NQ, NA, M, NS, nptt::kK4Rhs>));
   NPTT_WORM_SHAPES(NPTT_SHAPE)
 #undef NPTT_SHAPE
   return 0;

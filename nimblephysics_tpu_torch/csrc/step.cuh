@@ -67,14 +67,6 @@ struct StepLayout {
   static constexpr bool kUnroll = NB <= 2 && NQ <= 2;
 };
 
-// The unroll count of a loop of `trips` iterations: all of them where
-// `full`, else none (1). Each #pragma names its own loop's trip count, at
-// least 2 (a count of 1 disables unrolling, and would keep a one-trip
-// loop, such as one over the cartpole's single action, as a loop): a count
-// of 64 everywhere left the cartpole's K6 3.1x slower than a plain #pragma
-// unroll (scripts/torch_unroll_variants.py, PERF.md section 6).
-NPTT_HD constexpr int unroll_by(bool full, int trips) { return full ? (trips > 2 ? trips : 2) : 1; }
-
 // out = R x, R row-major 3x3
 template <bool U, typename M, typename X, typename O>
 NPTT_HD void mv3(const M* R, const X* x, O* out) {
@@ -517,10 +509,11 @@ NPTT_HD void device_step(const T* __restrict__ P, const int* __restrict__ I,
 //   frozen_step: the smooth step on frozen LCP classes (ops/frozen_contact.py
 //     frozen_contact_step with the planner assembly): every row gated on,
 //     impulses from solve_frozen (regularised normal equations by Jacobi-
-//     preconditioned CG). K2 with classes runs it on T, K4 on Dual<T>,
-//     where solve_frozen takes the implicit tangent of the linear solve;
-//     K5 (linearize.cu) runs its inputs on T and Dual<T> and takes the
-//     transposed solve itself.
+//     preconditioned CG). K2 with classes runs it on T, K4 on Dual<T>
+//     (the cartpole's), where solve_frozen takes the implicit tangent of
+//     the linear solve; K4's worm instance and K5 (linearize.cu) run its
+//     inputs on T and Dual<T> and take the solve's tangent or transpose
+//     themselves.
 //   class_step: the full step of the class rollout (ops/frozen_contact.py
 //     step_with_classes_for_trace): rows gated by the limits, impulses from
 //     direct_boxed_solve_lane, then the class of each row. K6 runs it, for
@@ -557,9 +550,9 @@ NPTT_HD constexpr int row_unroll(int m, int trips, int rolled = 1) {
   return m <= 8 ? unroll_by(true, trips) : rolled;
 }
 
-// Where the rows stay rolled (more than 8 of them, the worm's 28), K2 and
-// K5 run the frozen solve on a lane group (frozen_group.cuh) instead of
-// one thread.
+// Where the rows stay rolled (more than 8 of them, the worm's 28), K2, K4
+// and K5 run the frozen solve on a lane group (frozen_group.cuh) instead
+// of one thread.
 NPTT_HD constexpr bool group_layout(int m) { return m > 8; }
 
 // The (bodies, dofs, actions, rows, slots) shapes the constrained kernels

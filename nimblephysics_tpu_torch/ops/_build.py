@@ -47,6 +47,8 @@ SIGNATURES = {
     "nptt_pgs": [_I, _I, _LL, _I] + [_P] * 9,
     "nptt_rollout_group_shape": [_I, _P],
     "nptt_linearize_vjp_group_shape": [_I, _P],
+    "nptt_linearize_split_group_shape": [_I, _P],
+    "nptt_pgs_group_shape": [_I, _P],
 }
 
 
@@ -164,9 +166,10 @@ def check_shape(name: str, key: str, t, shape: tuple) -> None:
 
 
 def group_shape(name: str, dtype) -> dict:
-    """The lane-group layout of K2's worm instance (``name`` "rollout") or
-    K5's ("linearize_vjp"): lanes per group, groups per block and shared
-    bytes per block (csrc/frozen_group.cuh)."""
+    """The lane-group layout of K2's worm instance (``name`` "rollout"),
+    K4's ("linearize_split"), K5's ("linearize_vjp") or K7's ("pgs"): lanes
+    per group, groups per block and shared bytes per block
+    (csrc/frozen_group.cuh, csrc/lcp.cu)."""
     out = (ctypes.c_longlong * 3)()
     getattr(load(), f"nptt_{name}_group_shape")(int(dtype == torch.float64), out)
     return {"lanes": out[0], "groups_per_block": out[1], "shared_bytes": out[2]}

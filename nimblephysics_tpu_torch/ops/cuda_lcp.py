@@ -4,7 +4,8 @@ Port of ``nimblephysics_tpu/ops/pallas_lcp.py :: pallas_pgs_batched``:
 ``vmap(pgs_solve)`` over a batch of LCPs, a fixed number of sweeps, rows
 in order, friction rows bounded by +-fscale max(x[findex], 0).
 ``pgs_batched`` launches the CUDA kernel of ``csrc/lcp.cu`` on CUDA
-tensors and runs ``pgs_batched_plain`` (``ops/lcp.py`` ``pgs_solve`` on
+tensors (one lane group per LCP, its rows on the lanes, the residual kept
+current) and runs ``pgs_batched_plain`` (``ops/lcp.py`` ``pgs_solve`` on
 the batch) on CPU tensors. The port's ``boxed_lcp(method="gs")`` calls it,
 so the pointwise classification of the contact replan
 (``frozen_contact.classify_points``) solves its LCPs here.

@@ -11,7 +11,8 @@ frozen-class contact step by forward mode) and ``linearize_pallas_vjp``
 ``linearize_split`` and ``linearize_vjp`` launch the CUDA kernels of
 ``csrc/linearize.cu`` on CUDA tensors (``linearize`` with ``classes=``, the
 JAX kernel's monolithic JVP on frozen classes, launches K4's kernel, which
-on Hopper already is one) and run their plain versions,
+on Hopper already is one; at the jump worm's m = 28 K4 and K5 run on lane
+groups, csrc/frozen_group.cuh) and run their plain versions,
 ``torch.func.jacfwd`` (K3, K4) or ``torch.func.jacrev`` (K5) of the plain
 step vmapped over the points, on CPU tensors. The frozen step's solve
 carries the derivatives of a linear solve (ops/frozen_contact.py), as in

@@ -186,8 +186,10 @@ TANGENT_KINDS = {"add": {"add": 1}, "add_c": {}, "mul": {"mul": 2, "add": 1},
                  "mul_c": {"mul_c": 1}, "div": {"div": 1, "mul": 1, "add": 1},
                  "sin": {"cos": 1, "mul": 1}, "cos": {"sin": 1, "mul": 1, "add": 1},
                  "sqrt": {"mul": 1, "div": 1}}
-# csrc/frozen_group.cuh kK5Group: the lanes of K5's group per point
+# csrc/frozen_group.cuh kK5Group and kK4Group: the lanes of K5's and of
+# K4's (worm instance) group per point
 K5_GROUP = 16
+K4_GROUP = 16
 
 
 def _ops(k: int = 1, **kinds) -> Counter:
@@ -473,7 +475,9 @@ def _vjp_parts(model: Model, n_cg: int, g: int) -> dict:
     attains max|Qf| >= 1); "col" and "qcol", the values of one direction's
     dual inputs (every direction's: forward_dynamics and v*; a direction of
     q's besides: mass_matrix, world_frames and the contact rows), and
-    "contract" and "qcontract", the contractions that follow them."""
+    "contract" and "qcontract", the contractions that follow them; "rows",
+    the part of "primal" before the PCGs (the rows and the normal
+    equations, which K4's group body shares)."""
     from nimblephysics_tpu_torch.ops.contact import coulomb_dofs, lcp_dim, limited_dofs
 
     m, nq, ns = lcp_dim(model), model.nq, total_slots(model)
@@ -513,7 +517,7 @@ def _vjp_parts(model: Model, n_cg: int, g: int) -> dict:
     qcol = _mass_matrix_ops(model) + _world_frames_ops(model)
     for jac in _slot_jacobian_ops(model):
         qcol += jac + _ops(3 * nq, mul_c=3, add=2)
-    return {"dyn": dyn, "primal": rows + normal + adjoint + pcg + coeffs,
+    return {"dyn": dyn, "primal": rows + normal + adjoint + pcg + coeffs, "rows": rows + normal,
             "col": col, "contract": _ops(nq, **_dot(nq)),
             "qcol": qcol, "qcontract": _ops(nq ** 3 + 3 * ns * nq * nq, mul=1, add=1)}
 
@@ -548,3 +552,81 @@ def vjp_point_least_ops(model: Model, n_cg: int) -> int:
     p = _vjp_parts(model, n_cg, 1)
     sweep = _tangent_kinds(p["col"] + p["qcol"])
     return sum((p["dyn"] + p["primal"]).values()) + model.nq * sum(sweep.values())
+
+
+def _jvp_parts(model: Model, n_cg: int, g: int) -> dict:
+    """K4's operations for one point by part, as csrc/linearize.cu's
+    linearize_jvp_group does them on a group of g lanes (where
+    group_layout(m) holds): "dyn", the dynamics on lane 0 and every lane's
+    v* and q' (K5's); "primal", the rows, the normal equations, the primal
+    PCG and the fixed vectors x~, z, w = MJ x~, J^T z, pz and v' (without
+    the tie rule of max|Qf|, which adds operations only where an entry of
+    C A R attains max|Qf| >= 1); "col" and "qcol", the values of one
+    direction's dual inputs (K5's); "contract", every direction's tangent
+    right-hand side t = Qf^T s (+ R^T g on directions of q) from its dv*,
+    and "qcontract" what a direction of q adds (the contact rows' and
+    dM's products, h and k); "pcg", the nx + na tangent PCGs; "column",
+    one direction's dv' = u + MJ R dx_C."""
+    from nimblephysics_tpu_torch.ops.contact import lcp_dim
+
+    m, nq, ns = lcp_dim(model), model.nq, total_slots(model)
+    c0, k_dirs = 3 * ns, 2 * nq + model.num_actions
+    v = _vjp_parts(model, n_cg, g)
+    r_apply = _ops(m, mul_c=2) + _ops(2 * ns, mul_c=3, add=1)
+
+    def pcg(nr: int) -> Counter:
+        it = (_ops(nr * m, **_dot(m)) + _ops(nr * m, mul=m + 1, add=m)      # Qp, Ap
+              + _ops(nr, **_dot(m)) + _ops(nr * g, add_c=1, div=1)          # pAp, alpha
+              + _ops(nr * m, mul=2, add=2, div=1)                           # x, r, z
+              + _ops(nr, **_dot(m)) + _ops(nr * g, add_c=1, div=1)          # rz, beta
+              + _ops(nr * m, mul=1, add=1))                                 # p
+        return _ops(nr * m, div=1) + _ops(nr, **_dot(m)) + _ops(n_cg, **it)
+
+    fixed = (r_apply + _ops(m, **_dot(m)) + _ops(m, add=1, mul_c=1)         # x~, Qf x_C, z
+             + _group_sums(m, g, 2 * nq)                                    # w, J^T z
+             + _ops(nq, **_dot(nq)) + _ops(nq, add=1))                      # pz, v'
+    contract = (_ops(m, **_dot(nq)) + _ops(m, mul_c=1, add=1)             # s
+                + _ops(m, **_dot(m)))                                       # Qf^T s
+    qcontract = (_ops(c0, **(_ops(2, **_dot(nq)) + _ops(nq, mul=2, add=2)))  # dJ v', dJ pz, e1, e2
+                 + _ops(nq, **(_ops(2, **_dot(nq)) + _ops(add=2)))          # dM w, dM pz, g1, k
+                 + _ops(nq, **_dot(nq)) + _ops(nq, add=1)                   # h, u
+                 + _ops(c0, add=1)                                          # s: + dJ v'
+                 + _ops(m, **_dot(nq)) + _ops(c0, add=1)                    # g = MJ^T k + dJ pz
+                 + _ops(ns, **(_ops(2, **_dot(nq)) + _ops(add=4, mul_c=2)))  # coupling of g
+                 + _ops(m, mul_c=2, add=1))                                 # R^T g into t
+    return {"dyn": v["dyn"], "primal": v["rows"] + pcg(1) + fixed,
+            "col": v["col"], "contract": contract, "qcol": v["qcol"], "qcontract": qcontract,
+            "pcg": pcg(k_dirs), "column": r_apply + _ops(nq, **_dot(m)) + _ops(nq, add=1)}
+
+
+def jvp_point_op_kinds(model: Model, n_cg: int, group: int = K4_GROUP) -> Counter:
+    """The operations of K4's group body for one point as the code does
+    them, by kind (csrc/linearize.cu linearize_jvp_group on a group of
+    ``group`` lanes): the dynamics, the primal and its fixed vectors, per
+    direction of (x, u) its inputs on dual numbers (a dual operation of a
+    kind adds TANGENT_KINDS[kind]) and the contraction into its tangent
+    right-hand side, the nx + na tangent PCGs, and the columns."""
+    p = _jvp_parts(model, n_cg, group)
+    k = 2 * model.nq + model.num_actions
+    return (p["dyn"] + p["primal"] + p["pcg"]
+            + _ops(k, **(p["col"] + _tangent_kinds(p["col"]) + p["contract"] + p["column"]))
+            + _ops(model.nq, **(p["qcol"] + _tangent_kinds(p["qcol"]) + p["qcontract"])))
+
+
+def jvp_point_least_ops(model: Model, n_cg: int) -> int:
+    """The operations one point of K4's function needs, for its bound: the
+    primal as one thread does it (the dynamics once, the primal PCG with
+    its sums in sequence, the fixed vectors), per direction of (x, u) the
+    tangent sweep of its inputs without their values (forward_dynamics; on
+    a direction of q also mass_matrix and the contact rows), the
+    contraction into its right-hand side and its column, and the nx + na
+    tangent PCGs. It replaces frozen_step_ops' count, nx + na forward-mode
+    tangents of the whole frozen step (the dual A and Qf formed and
+    contracted per direction), which the factored tangent does not need.
+    The kernel also runs each direction's dual inputs with their values
+    (jvp_point_op_kinds)."""
+    p = _jvp_parts(model, n_cg, 1)
+    k = 2 * model.nq + model.num_actions
+    sweep = _ops(k, **(_tangent_kinds(p["col"]) + p["contract"] + p["column"]))
+    qsweep = _ops(model.nq, **(_tangent_kinds(p["qcol"]) + p["qcontract"]))
+    return sum((p["dyn"] + p["primal"] + p["pcg"] + sweep + qsweep).values())

@@ -8,15 +8,16 @@ the PCG iterations, and K5 reads and writes the arrays of those loops by
 run-time indices. A card has no device-side sanitizer
 (``compute-sanitizer`` answers "Device not supported" on the H100), so this
 script builds tests/test_torch_device_step.py's worm harness
-(device_step, frozen_step, the lane-group bodies of K2 and K5 on one host
-thread per lane, K7's thread body, all on f64) three ways with g++ (-O1
+(device_step, frozen_step, the lane-group bodies of K2, K4 and K5 on one
+host thread per lane, K7's thread and group bodies, all on f64) three ways
+with g++ (-O1
 under -fsanitize=address,undefined; -O2 with every local variable filled
 with a pattern, and with zeros, at creation),
 runs each on the tests' worm points (PCG depths 12, 1 and 2) and on
 chip_smoke.py's worm inputs (B=16, T=100, f64, the CPU), and prints the
 sanitizers' verdict, whether the two fills give identical bits (a read of
 an uninitialised variable that reaches a result would part them) and K5's
-largest rel error against its plain version. scripts/torch_unroll_variants.py
+and K4's largest rel errors against their plain versions. scripts/torch_unroll_variants.py
 checks the rolled kernels on the card.
 """
 
@@ -63,7 +64,10 @@ def host() -> int:
     sys.path.insert(0, str(ROOT / "tests"))
     import chip_smoke as cs
     import test_torch_device_step as tds
-    from nimblephysics_tpu_torch.ops.cuda_linearize import linearize_vjp_plain
+    from nimblephysics_tpu_torch.ops.cuda_linearize import (
+        linearize_split_plain,
+        linearize_vjp_plain,
+    )
 
     work = _build.BUILD_ROOT / "host_ub"
     work.mkdir(parents=True, exist_ok=True)
@@ -95,6 +99,10 @@ def host() -> int:
                                      (torch.tensor(cm)[:, None], torch.tensor(us)[:, None]),
                                      n_cg)
         ref = np.concatenate([fx.reshape(n, -1).numpy(), fu.reshape(n, -1).numpy()], axis=1)
+        fx4, fu4 = linearize_split_plain(
+            model, torch.tensor(x)[:, None], torch.tensor(u)[:, None],
+            (torch.tensor(cm)[:, None], torch.tensor(us)[:, None]), n_cg)
+        ref4 = np.concatenate([fx4.reshape(n, -1).numpy(), fu4.reshape(n, -1).numpy()], axis=1)
         rows = {}
         res = {"points": n, "upper_rows": int((np.asarray(us) != 0).sum())}
         for k in HOST_VARIANTS:
@@ -103,12 +111,14 @@ def host() -> int:
             if p.stderr.strip():
                 res[f"{k} stderr"] = p.stderr[-1500:]
             rows[k] = np.array([[float(t) for t in line.split()]
-                                for line in p.stdout.splitlines()[4:4 + n]])
+                                for line in p.stdout.splitlines()[6:6 + n]])
             res[f"{k} nonfinite points"] = int((~np.isfinite(rows[k])).any(axis=1).sum())
         res["fills bit-identical"] = bool(np.array_equal(rows["fill_pattern"], rows["fill_zero"]))
         res["sanitized == fill_zero"] = bool(np.array_equal(rows["asan_ubsan"], rows["fill_zero"]))
         res["K5 max rel err vs plain"] = float(
             np.abs(rows["fill_zero"][:, 24:104] - ref).max() / np.abs(ref).max())
+        res["K4 max rel err vs plain"] = float(
+            np.abs(rows["fill_zero"][:, 104:184] - ref4).max() / np.abs(ref4).max())
         print(label, json.dumps(res), flush=True)
         results[label] = res
     ok = all(r[f"{k} rc"] == 0 and f"{k} stderr" not in r for r in results.values()

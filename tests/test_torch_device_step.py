@@ -8,7 +8,7 @@ numpy with a fixed seed. Also: the packed model follows in-place edits of
 the Model's leaves. Then the constrained steps on the narrowed-limit
 cartpole (K2 with classes, K4, K6) and on the jump worm (a translational2d
 root, 8 box-corner contact slots with friction coupling: K2 with classes,
-K5, and K7's thread body)."""
+K4's and K5's lane-group bodies, and K7's thread and group bodies)."""
 
 import functools
 import pathlib
@@ -516,19 +516,22 @@ def test_pack_model_appends_constraint_rows():
 
 
 # The jump worm's device code: the contact-free step, frozen_step with
-# contact rows and friction coupling (per thread, as K4's worm instance runs
-# it), and the lane-group bodies of csrc/frozen_group.cuh that K2 and K5 run
-# at m = 28: group_frozen_step, K5's linearize_vjp_group and K2's
-# rollout_group, each on one host thread per lane (HostGroup: a barrier for
-# the warp's sync, its shuffles through an exchange array in the device's
-# butterfly order), and K7's thread body, all built for the host. Reads
+# contact rows and friction coupling (per thread), and the lane-group bodies
+# of csrc/frozen_group.cuh that K2, K4 and K5 run at m = 28:
+# group_frozen_step, K5's linearize_vjp_group, K4's linearize_jvp_group and
+# K2's rollout_group, each on one host thread per lane (HostGroup in
+# csrc/lane_group.cuh: a barrier for the warp's sync, its shuffles through
+# an exchange array in the device's butterfly order), and K7's thread body
+# and lane-group body (csrc/lcp.cu), all built for the host. Reads
 # "nb nq na m ns n nr ni n_cg", the packed reals and ints, the cost weights
 # and targets (8 nq + na), then n points (x, u, cmask, us); writes the
 # operation counts by kind of device_step and of frozen_step at the first
-# point on the counting scalar, and of K5's group body there summed over
-# its lanes, on a group of kK5Group lanes and on one of a single lane; then
+# point on the counting scalar, and of K5's and then K4's group bodies there
+# summed over their lanes, each on a group of kK5Group (kK4Group) lanes and
+# on one of a single lane; then
 # per point device_step's, frozen_step's and
-# group_frozen_step's (q', v') and K5's (fx, fu); then K2's group trajectory
+# group_frozen_step's (q', v'), K5's (fx, fu) and K4's (fx, fu) (a group of
+# kK4Group lanes, kK4Rhs tangent solves per pass); then K2's group trajectory
 # of n steps from the first point (the points' u and classes, zero gains)
 # and its cost; then the butterfly sums over groups of 32, 16 and 8 lanes,
 # lane l holding |x[l mod 2 nq]| of the first point, as each lane sees them.
@@ -574,7 +577,8 @@ static void print_butterfly(const std::vector<double>& vals) {
 template <int NB, int NQ, int NA, int M, int NS>
 void run(const double* P, const int* I, const double* w, const std::vector<double>& pts, int n,
          int n_cg) {
-  constexpr int NX = 2 * NQ, E = NX + NA + 2 * M, G2 = nptt::kK2Group, G5 = nptt::kK5Group;
+  constexpr int NX = 2 * NQ, E = NX + NA + 2 * M, G2 = nptt::kK2Group, G5 = nptt::kK5Group,
+                G4 = nptt::kK4Group, NP4 = nptt::kK4Rhs;
   using nptt::C;
   std::vector<double> xs(n * NX), us(n * NA), cms(n * M), ucl(n * M);
   for (int p = 0; p < n; ++p) {
@@ -608,15 +612,38 @@ void run(const double* P, const int* I, const double* w, const std::vector<doubl
       fold_ops();
     });
     print_sum();
+    auto sh4c = std::make_unique<nptt::JvpShared<C, NB, NQ, NA, M, NS, NP4>>();
+    nptt::HostGroup<G4>::run([&](nptt::HostGroup<G4> g) {
+      nptt::linearize_jvp_group<double, C, NB, NQ, NA, M, NS, G4, NP4>(
+          g, *sh4c, 0, n_cg, P, I, xs.data(), us.data(), cms.data(), ucl.data(), fxc.data(),
+          fuc.data());
+      fold_ops();
+    });
+    print_sum();
+    auto sh1c = std::make_unique<nptt::JvpShared<C, NB, NQ, NA, M, NS, NP4>>();
+    nptt::HostGroup<1>::run([&](nptt::HostGroup<1> g) {
+      nptt::linearize_jvp_group<double, C, NB, NQ, NA, M, NS, 1, NP4>(
+          g, *sh1c, 0, n_cg, P, I, xs.data(), us.data(), cms.data(), ucl.data(), fxc.data(),
+          fuc.data());
+      fold_ops();
+    });
+    print_sum();
   }
-  std::vector<double> fx(n * NX * NX), fu(n * NX * NA), qg(n * NQ), vg(n * NQ);
+  std::vector<double> fx(n * NX * NX), fu(n * NX * NA), qg(n * NQ), vg(n * NQ),
+      fx4(n * NX * NX), fu4(n * NX * NA);
   auto sh5 = std::make_unique<nptt::VjpShared<double, NB, NQ, M>>();
   auto sh2 = std::make_unique<nptt::FrozenShared<double, NB, NQ, M, 1>>();
+  auto sh4 = std::make_unique<nptt::JvpShared<double, NB, NQ, NA, M, NS, NP4>>();
   for (long long p = 0; p < n; ++p) {
     nptt::HostGroup<G5>::run([&](nptt::HostGroup<G5> g) {
       nptt::linearize_vjp_group<double, double, NB, NQ, NA, M, NS, G5>(
           g, *sh5, p, n_cg, P, I, xs.data(), us.data(), cms.data(), ucl.data(), fx.data(),
           fu.data());
+    });
+    nptt::HostGroup<G4>::run([&](nptt::HostGroup<G4> g) {
+      nptt::linearize_jvp_group<double, double, NB, NQ, NA, M, NS, G4, NP4>(
+          g, *sh4, p, n_cg, P, I, xs.data(), us.data(), cms.data(), ucl.data(), fx4.data(),
+          fu4.data());
     });
     nptt::HostGroup<G2>::run([&](nptt::HostGroup<G2> g) {
       double qn[NQ], vn[NQ];
@@ -642,6 +669,8 @@ void run(const double* P, const int* I, const double* w, const std::vector<doubl
     for (int i = 0; i < NQ; ++i) printf("%.17g ", vg[p * NQ + i]);
     for (int i = 0; i < NX * NX; ++i) printf("%.17g ", fx[p * NX * NX + i]);
     for (int i = 0; i < NX * NA; ++i) printf("%.17g ", fu[p * NX * NA + i]);
+    for (int i = 0; i < NX * NX; ++i) printf("%.17g ", fx4[p * NX * NX + i]);
+    for (int i = 0; i < NX * NA; ++i) printf("%.17g ", fu4[p * NX * NA + i]);
     printf("\n");
   }
   std::vector<double> xs_ref((n + 1) * NX, 0.0), Kg(n * NA * NX, 0.0), kf(n * NA, 0.0),
@@ -663,21 +692,28 @@ void run(const double* P, const int* I, const double* w, const std::vector<doubl
   print_butterfly<8>(vals);
 }
 
-// K7's thread body: after the worm's input, "m n iters", findex, then n
-// LCPs (A row-major, b, lo, hi, fscale, x0); writes each solution.
+// K7's thread body and its lane-group body (on kK7Group host threads):
+// after the worm's input, "m n iters", findex, then n LCPs (A row-major,
+// b, lo, hi, fscale, x0); writes each LCP's two solutions.
 template <int M>
 void run_pgs() {
+  constexpr int G7 = nptt::kK7Group;
   int m, n, iters;
   if (scanf("%d %d %d", &m, &n, &iters) != 3 || m != M) return;
   std::vector<int> fi(M);
   for (auto& f : fi) if (scanf("%d", &f) != 1) return;
-  std::vector<double> buf(M * M + 5 * M), out(M);
+  std::vector<double> buf(M * M + 5 * M), out(M), outg(M);
   for (int k = 0; k < n; ++k) {
     for (auto& x : buf) if (scanf("%lf", &x) != 1) return;
     const double* b = buf.data() + M * M;
     nptt::pgs_lcp<double, M>(buf.data(), 1, b, b + M, b + 2 * M, b + 3 * M, b + 4 * M,
                              fi.data(), iters, out.data());
+    nptt::HostGroup<G7>::run([&](nptt::HostGroup<G7> g) {
+      nptt::pgs_group<double, M, G7>(g, buf.data(), b, b + M, b + 2 * M, b + 3 * M, b + 4 * M,
+                                     fi.data(), iters, outg.data());
+    });
     for (int i = 0; i < M; ++i) printf("%.17g ", out[i]);
+    for (int i = 0; i < M; ++i) printf("%.17g ", outg[i]);
     printf("\n");
   }
 }
@@ -714,21 +750,32 @@ def worm_exe(tmp_path_factory):
     return exe
 
 
-def worm_points(sliding, n=6, seed=7, mass_scale=1.0):
+def worm_points(sliding, n=6, seed=7, mass_scale=1.0, box_on_link=False):
     """Worm states 3 mm into the floor, moving down, links near their lower
     limits, strong pushes; with ``sliding`` the root also slides (x velocity
     up to 1.5 m/s), so friction rows ride the cone (UPPER); the classes come
     from the port's classify_points. ``mass_scale`` scales the bodies' masses
-    and inertias."""
+    and inertias. With ``box_on_link`` the box rides the first link about
+    the root's centre, that link tilted by 0.3 rad: the contact rows then
+    turn with q (on the stock worm the box sits on the translational root,
+    and dJ/dq = 0)."""
+    from nimblephysics_tpu_torch.models.builders import _tf
+    from nimblephysics_tpu_torch.models.model import make_shape
     from nimblephysics_tpu_torch.ops import frozen_contact as tf
 
     model = builders.jump_worm(dtype=torch.float64, device="cpu")
     if mass_scale != 1.0:
         model = model.replace(mass=model.mass * mass_scale, moment=model.moment * mass_scale)
+    if box_on_link:
+        box = make_shape("box", 1, offset=_tf([0.0, -0.125, 0.0]), params=[0.1, 0.1, 0.1, 0.0],
+                         dtype=torch.float64)
+        model = model.replace(shapes=(box, model.shapes[1]))
     rng = np.random.default_rng(seed)
     q = 0.01 * rng.standard_normal((n, 4))
     q[:, 1] += -0.528
     q[:, 2:] = 0.5 * np.abs(q[:, 2:])
+    if box_on_link:
+        q[:, 2] += 0.3
     v = 0.05 * rng.standard_normal((n, 4))
     v[:, 1] = -0.4
     v[:, 0] = rng.uniform(-1.5, 1.5, n) if sliding else 0.0
@@ -744,16 +791,17 @@ WORM_W = np.concatenate([[0.0, 2.0, 0.0, 0.0], np.zeros(4), np.full(2, 1e-5),
 
 
 @functools.lru_cache(maxsize=None)
-def run_worm(exe, n_cg, sliding, mass_scale=1.0):
+def run_worm(exe, n_cg, sliding, mass_scale=1.0, box_on_link=False):
     """(model, x, u, cmask, us, operation counts of device_step, frozen_step
-    and K5's group body for one point, one row per point, K2's trajectory
-    and cost, the PGS LCPs and K7's thread body's solutions, the butterfly
-    sums over groups of 32, 16 and 8 lanes)."""
+    and K5's and K4's group bodies for one point, one row per point, K2's
+    trajectory and cost, the PGS LCPs and K7's thread and group bodies'
+    solutions side by side, the butterfly sums over groups of 32, 16 and 8
+    lanes)."""
     from nimblephysics_tpu_torch.ops import contact as tc
     from nimblephysics_tpu_torch.ops import dynamics as td
     from nimblephysics_tpu_torch.ops.collide import detect_contacts
 
-    model, x, u, cm, us = worm_points(sliding, mass_scale=mass_scale)
+    model, x, u, cm, us = worm_points(sliding, mass_scale=mass_scale, box_on_link=box_on_link)
     P, I = device_step.pack_model(model)
     m = tc.lcp_dim(model)
     n = x.shape[0]
@@ -777,12 +825,12 @@ def run_worm(exe, n_cg, sliding, mass_scale=1.0):
                       " ".join(repr(float(v)) for v in lcps.ravel())])
     out = subprocess.run([str(exe)], input=text, capture_output=True, text=True,
                          check=True, timeout=120).stdout.splitlines()
-    counts = [dict(zip(KINDS, (int(c) for c in line.split()))) for line in out[:4]]
-    rows = np.array([[float(t) for t in line.split()] for line in out[4:4 + n]])
-    traj = np.array([[float(t) for t in line.split()] for line in out[4 + n:4 + 2 * n]])
-    cost = float(out[4 + 2 * n])
-    sums = [np.array([float(t) for t in line.split()]) for line in out[5 + 2 * n:8 + 2 * n]]
-    pgs = np.array([[float(t) for t in line.split()] for line in out[8 + 2 * n:8 + 3 * n]])
+    counts = [dict(zip(KINDS, (int(c) for c in line.split()))) for line in out[:6]]
+    rows = np.array([[float(t) for t in line.split()] for line in out[6:6 + n]])
+    traj = np.array([[float(t) for t in line.split()] for line in out[6 + n:6 + 2 * n]])
+    cost = float(out[6 + 2 * n])
+    sums = [np.array([float(t) for t in line.split()]) for line in out[7 + 2 * n:10 + 2 * n]]
+    pgs = np.array([[float(t) for t in line.split()] for line in out[10 + 2 * n:10 + 3 * n]])
     return (model, x, u, cm, us, counts, rows, traj, cost,
             (A, b, lo, hi, fs, torch.tensor(x0)), pgs, sums)
 
@@ -836,6 +884,50 @@ def test_linearize_vjp_thread_matches_jacrev(worm_exe, n_cg, sliding):
     assert (rows[:, 24:56] == top).all() and (rows[:, 88:96] == 0).all()
 
 
+def _split_jacfwd(model, x, u, cm, us, n_cg):
+    from nimblephysics_tpu_torch.ops.cuda_linearize import linearize_split_plain
+
+    n = x.shape[0]
+    fx, fu = linearize_split_plain(model, torch.tensor(x)[:, None], torch.tensor(u)[:, None],
+                                   (torch.tensor(cm)[:, None], torch.tensor(us)[:, None]), n_cg)
+    return np.concatenate([fx.reshape(n, -1).numpy(), fu.reshape(n, -1).numpy()], axis=1)
+
+
+@pytest.mark.parametrize("n_cg,sliding", WORM_CASES)
+def test_linearize_jvp_group_matches_jacfwd(worm_exe, n_cg, sliding):
+    """K4's lane-group body at the worm's m = 28 (linearize_jvp_group: the
+    primal PCG, the tangent right-hand sides through the factors of A, one
+    lane per direction, and the nx + na tangent PCGs over one Qf) against
+    jacfwd of the plain frozen step (linearize_split_plain, the implicit
+    tangent of the linear solve), the q' rows [I, dt I] and 0 exactly."""
+    model, x, u, cm, us, _, rows, *_ = run_worm(worm_exe, n_cg, sliding)
+    want = _split_jacfwd(model, x, u, cm, us, n_cg)
+    np.testing.assert_allclose(rows[:, 104:184], want, rtol=1e-11, atol=1e-11)
+    top = np.concatenate([np.eye(4), float(model.dt) * np.eye(4)], axis=1).ravel()
+    assert (rows[:, 104:136] == top).all() and (rows[:, 168:176] == 0).all()
+
+
+@pytest.mark.parametrize("n_cg", (1, 2))
+def test_linearize_group_bodies_where_the_contact_rows_turn(worm_exe, n_cg):
+    """K4's and K5's group bodies on a worm whose box rides its first link
+    (worm_points' box_on_link), at sliding points: there the contact rows
+    turn with q, so the terms of the tangent in dJ (K4's dJ v', dJ^T x~,
+    dJ^T z, dJ pz; K5's G_k) are live, which on the stock worm vanish.
+    Held as on the stock worm: K4 to jacfwd, K5 to jacrev, at 1e-11."""
+    from nimblephysics_tpu_torch.ops.cuda_linearize import linearize_vjp_plain
+
+    model, x, u, cm, us, _, rows, *_ = run_worm(worm_exe, n_cg, True, 1.0, True)
+    n = x.shape[0]
+    np.testing.assert_array_equal(rows[:, 16:24], rows[:, 8:16])
+    np.testing.assert_allclose(rows[:, 104:184], _split_jacfwd(model, x, u, cm, us, n_cg),
+                               rtol=1e-11, atol=1e-11)
+    fx, fu = linearize_vjp_plain(model, torch.tensor(x)[:, None], torch.tensor(u)[:, None],
+                                 (torch.tensor(cm)[:, None], torch.tensor(us)[:, None]), n_cg)
+    want = np.concatenate([fx.reshape(n, -1).numpy(), fu.reshape(n, -1).numpy()], axis=1)
+    np.testing.assert_allclose(rows[:, 24:104], want, rtol=1e-11, atol=1e-11)
+    assert cm[:, :24].any() and (us != 0).any()
+
+
 # A worm 20 times lighter: at its sliding points entries of C A R, not only
 # the unclamped rows' 1, attain max|Qf| (about 7), so the tangent of reg =
 # eps max(max|Qf|, 1)^2 by jnp's tie rule is not zero there
@@ -861,6 +953,18 @@ def test_linearize_vjp_thread_follows_the_tie_rule(worm_exe, n_cg):
     np.testing.assert_allclose(rows[:, 24:104], want, rtol=0, atol=1e-13 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("n_cg", (1, 2))
+def test_linearize_jvp_group_follows_the_tie_rule(worm_exe, n_cg):
+    """K4's group body against jacfwd on the light worm, where the tangent
+    of reg = eps max(max|Qf|, 1)^2 by jnp's tie rule is live (tie_terms in
+    csrc/linearize.cu, dreg x_C in each tangent right-hand side): held to
+    1e-13 of the largest entry, as K5's body is; the tie rule moves the
+    entries by ~1e-12 of it."""
+    model, x, u, cm, us, _, rows, *_ = run_worm(worm_exe, n_cg, True, LIGHT_WORM)
+    want = _split_jacfwd(model, x, u, cm, us, n_cg)
+    np.testing.assert_allclose(rows[:, 104:184], want, rtol=0, atol=1e-13 * np.abs(want).max())
+
+
 def test_worm_group_bodies_on_the_cone_at_depth_12(worm_exe):
     """The group bodies at the sliding points at PCG depth 12 in f64. There
     the cone points' normal equations amplify rounding: the plain step and
@@ -883,6 +987,8 @@ def test_worm_group_bodies_on_the_cone_at_depth_12(worm_exe):
                                  CONE_DEPTH)
     want = np.concatenate([fx.reshape(n, -1).numpy(), fu.reshape(n, -1).numpy()], axis=1)
     np.testing.assert_allclose(rows[:, 24:104], want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+    want = _split_jacfwd(model, x, u, cm, us, CONE_DEPTH)
+    np.testing.assert_allclose(rows[:, 104:184], want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
     assert (us != 0).any()
 
 
@@ -926,9 +1032,29 @@ def test_pgs_thread_matches_plain(worm_exe):
     from nimblephysics_tpu_torch.ops.cuda_lcp import pgs_batched_plain
 
     model, *_, lcps, pgs, _ = run_worm(worm_exe, 2, True)
+    m = pgs.shape[1] // 2
     want = pgs_batched_plain(*lcps, lcp_findex(model), 60)
-    np.testing.assert_allclose(pgs, want.numpy(), rtol=1e-12, atol=1e-14)
-    assert np.abs(pgs).max() > 1e-3
+    np.testing.assert_allclose(pgs[:, :m], want.numpy(), rtol=1e-12, atol=1e-14)
+    assert np.abs(pgs[:, :m]).max() > 1e-3
+
+
+def test_pgs_group_matches_plain(worm_exe):
+    """K7's lane-group body (pgs_group: each lane keeps its rows of A and
+    their residual w = A x - b current, updated by every row's change of x
+    instead of recomputed) against pgs_batched_plain and the thread body on
+    the same LCPs. The updated residual rounds otherwise than pgs_solve's
+    dot products: over the 60 sweeps the solutions part by at most rel
+    1e-13 of the largest impulse (7.2e-15 measured on these LCPs)."""
+    from nimblephysics_tpu_torch.ops.contact import lcp_findex
+    from nimblephysics_tpu_torch.ops.cuda_lcp import pgs_batched_plain
+
+    model, *_, lcps, pgs, _ = run_worm(worm_exe, 2, True)
+    m = pgs.shape[1] // 2
+    want = pgs_batched_plain(*lcps, lcp_findex(model), 60).numpy()
+    scale = np.abs(want).max()
+    for ref in (want, pgs[:, :m]):
+        np.testing.assert_allclose(pgs[:, m:], ref, rtol=0, atol=1e-13 * scale)
+    assert (lcps[4] > 0).any() and np.abs(pgs[:, m:]).max() > 1e-3
 
 
 @pytest.mark.parametrize("n_cg", (12, 2))
@@ -958,6 +1084,28 @@ def test_worm_op_counts_match_code(worm_exe, n_cg):
     least = device_step.vjp_point_least_ops(model, n_cg)
     assert least == primal + model.nq * sweep
     assert least < sum(counts[3].values()) < sum(counts[2].values())
+
+
+@pytest.mark.parametrize("n_cg", (12, 2))
+def test_worm_jvp_op_counts_match_code(worm_exe, n_cg):
+    """The closed form behind the bound of K4's worm instance (K3 with
+    classes= and linearize_split at m = 28): its group body kind by kind on
+    a group of kK4Group lanes and on a group of one (every lane's share of
+    the work counted), and its least work, the one-lane body without the
+    values of its directions' dual inputs, below the count it replaces (a
+    plain frozen step and nx + na forward-mode tangents of it)."""
+    model, *_ = run_worm(worm_exe, n_cg, False)
+    counts = run_worm(worm_exe, n_cg, False)[5]
+    for got, group in ((counts[4], device_step.K4_GROUP), (counts[5], 1)):
+        want = device_step.jvp_point_op_kinds(model, n_cg, group)
+        assert got == {k: want.get(k, 0) for k in KINDS}
+    p = device_step._jvp_parts(model, n_cg, 1)
+    k_dirs = 2 * model.nq + model.num_actions
+    values = k_dirs * sum(p["col"].values()) + model.nq * sum(p["qcol"].values())
+    least = device_step.jvp_point_least_ops(model, n_cg)
+    assert least == sum(counts[5].values()) - values
+    frozen, tangent = device_step.frozen_step_ops(model, n_cg)
+    assert least < frozen + k_dirs * tangent
 
 
 def test_pack_model_carries_the_worm_slots():

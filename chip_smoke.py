@@ -80,7 +80,9 @@ Phases:
      then each kernel at B=2048 in f32 with kernel and plain times. It
      first prints the lane-group layouts of K2's, K4's and K5's worm
      instances and of K7 (lanes per group, groups per block, shared bytes
-     per block);
+     per block), and the layouts of K2's (without and with classes) and
+     K4's cartpole instances (one thread per pair or point, threads and
+     shared bytes per block);
   9. the worm replan in f64, kernel path against plain path, B=256, from
      cold (two pointwise refreshes): costs rel 1e-10, u as in phase 6,
      no world above its initial cost;
@@ -206,6 +208,7 @@ NEAR_IMPULSE, NEAR_LIMIT = 1e-4, 1e-5
 WORM_B, WORM_B_CHECK, WORM_B_PATH = 2048, 512, 256
 WORM_ITERS, WORM_ALPHAS, WORM_CG, WORM_SEED = 4, (1.0, 0.6, 0.3, 0.1), 12, 1
 WORM_LCP_ITERS = 60
+WORM_M = 28  # the worm's LCP rows: 8 contact slots of 3 rows and 4 limit rows
 # sliding worm points whose friction rows ride the cone, and the PCG depths
 # at which K2 and K5 are held to their plain versions there with no excuse
 WORM_COUPLED_B, COUPLED_CG = 256, (1, 2)
@@ -407,11 +410,14 @@ def contact_least_work(model, B, T, A, itemsize):
     """(bytes, operations) of the contact path's kernels at these sizes, as
     least_work: every input read once, every output written once, and the
     kernel's arithmetic in closed form (ops/device_step.py: class_step_ops
-    for K6; frozen_step_ops, a plain frozen step and nx + na tangents, for
-    K4; the control law, the running cost and a plain frozen step per
-    (alpha, world, t) for K2), all at the PCG depth m + 6."""
+    for K6; for K4 the smaller of frozen_step_ops' count, a plain frozen
+    step and nx + na forward-mode tangents of it, and the factored form's,
+    jvp_point_least_ops, the tangents through the factors of A; the
+    control law, the running cost and a plain frozen step per (alpha,
+    world, t) for K2), all at the PCG depth m + 6."""
     nx, na, m = 2 * model.nq, model.num_actions, lcp_dim(model)
     frozen, tangent = device_step.frozen_step_ops(model, m + 6)
+    k4_point = min(frozen + (nx + na) * tangent, device_step.jvp_point_least_ops(model, m + 6))
     cls = device_step.class_step_ops(model)
     n = B * T
     roll_in = B * nx + B * (T + 1) * nx + B * T * (na + na * nx + na) + A + 2 * n * m
@@ -420,8 +426,7 @@ def contact_least_work(model, B, T, A, itemsize):
         # K6: x0 and u in; xs, cmask and us out; one class_step per (world, t)
         "rollout_classes": (itemsize * (B * nx + n * na + n * (nx + 2 * m)), n * cls),
         # K4: (xs, u, cmask, us) in, (fx, fu) out
-        "linearize_split": (itemsize * n * (nx + na + 2 * m + nx * nx + nx * na),
-                            n * (frozen + (nx + na) * tangent)),
+        "linearize_split": (itemsize * n * (nx + na + 2 * m + nx * nx + nx * na), n * k4_point),
         "rollout_gains[classes]": (itemsize * (roll_in + roll_out),
                                    A * B * (T * (5 * nx + 2 * na * nx + 6 * na + 3 + frozen)
                                             + 4 * nx + 1)),
@@ -898,12 +903,18 @@ _K5_GROUPS = ("one fused kernel, a lane group per point (csrc/frozen_group.cuh):
 _K4_GROUPS = ("at m = 28 a lane group per point (csrc/frozen_group.cuh): the primal PCG, the "
               "tangent right-hand sides through the factors of A, one lane per direction of "
               "(x, u), then the nx + na tangent PCGs over one Qf in shared memory")
+_K2_THREAD = ("one thread per (alpha, world), the alphas of a world on neighbouring lanes, "
+              "32 threads per block (csrc/rollout.cu)")
 DESIGN = {
     "riccati_backward": _THREAD.format("world"), "linearize": _THREAD.format("(point, direction)"),
-    "rollout_gains": _THREAD.format("(alpha, world)"),
-    "linearize_split": _THREAD.format("(point, direction)"),
+    "rollout_gains": _K2_THREAD,
+    "linearize_split": ("one thread per point (csrc/linearize.cu linearize_point): each "
+                        "direction's dual inputs, the primal once (its dynamics' values from the "
+                        "first direction), each direction's tangent right-hand side through the "
+                        "factors of A, then its tangent PCG over the point's one Qf; what passes "
+                        "between the phases in shared memory"),
     "rollout_classes": _THREAD.format("world"),
-    "rollout_gains[classes]": _THREAD.format("(alpha, world)"),
+    "rollout_gains[classes]": _K2_THREAD + ", the frozen PCG dividing no zero (qdiv)",
     "pgs_batched": ("a lane group per LCP (csrc/lcp.cu): the rows on the lanes, each lane's "
                     "rows of A in registers, the residual kept current by one broadcast per "
                     "row update"),
@@ -914,6 +925,26 @@ DESIGN = {
     "chained_linearize_vjp": "K5's kernel: " + _K5_GROUPS,
     "chained_step_rollout": "K2's kernel at one alpha: " + _K2_GROUPS.format("world"),
 }
+
+
+def cartpole_layouts():
+    """One line per cartpole instance of K2 (without and with classes) and
+    K4: its layout as built (csrc/frozen_group.cuh k2_lanes and k4_lanes,
+    csrc/rollout.cu kK2Threads), f32 and f64."""
+    lines = []
+    for name, m, what, unit in (("rollout", 0, "K2 without classes", "(alpha, world)"),
+                                ("rollout", 4, "K2 with classes", "(alpha, world)"),
+                                ("linearize_split", 4, "K4", "point")):
+        lay = {d: _build.layout(name, m, dt) for d, dt in (("f32", torch.float32),
+                                                           ("f64", torch.float64))}
+        if lay["f32"]["lanes"]:
+            how = (f"a lane group of {lay['f32']['lanes']} per {unit}, "
+                   f"{lay['f32']['per_block']} groups per block")
+        else:
+            how = f"one thread per {unit}, {lay['f32']['per_block']} threads per block"
+        lines.append(f"{what} on the cartpole (m = {m}): {how}, shared memory per block "
+                     f"{lay['f32']['shared_bytes']} B (f32) / {lay['f64']['shared_bytes']} B (f64)")
+    return lines
 
 
 def worm_least_work(model, B, T, A, itemsize, n_lcp_iters=WORM_LCP_ITERS, cg=WORM_CG):
@@ -1588,12 +1619,15 @@ def main() -> int:
                          ("linearize_vjp", f"B x T = {WORM_B} x {H}"),
                          ("linearize_split", f"B x T = {WORM_B} x {H}"),
                          ("pgs", f"LCP of the B x T = {WORM_B} x {H}")):
-        shapes = {d: _build.group_shape(name, dt) for d, dt in (("f32", torch.float32),
-                                                                ("f64", torch.float64))}
+        shapes = {d: (_build.layout(name, WORM_M, dt) if name in ("rollout", "linearize_split")
+                      else _build.group_shape(name, dt))
+                  for d, dt in (("f32", torch.float32), ("f64", torch.float64))}
         log(f"  {name} worm instance on lane groups: one group per {groups} at the path's "
             f"shape, {shapes['f32']['lanes']} lanes per group, "
-            f"{shapes['f32']['groups_per_block']} groups per block, shared memory per block "
+            f"{shapes['f32']['per_block']} groups per block, shared memory per block "
             f"{shapes['f32']['shared_bytes']} B (f32) / {shapes['f64']['shared_bytes']} B (f64)")
+    for line in cartpole_layouts():
+        log("  " + line)
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).split(".")[-1]
         inputs = worm_kernel_inputs(dev, WORM_B_CHECK, H, dtype)

@@ -6,6 +6,7 @@
 #pragma once
 
 #include <cmath>
+#include <type_traits>
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -48,6 +49,20 @@ NPTT_HD bool nisnan(T x) {
 // of 64 everywhere left the cartpole's K6 3.1x slower than a plain #pragma
 // unroll (scripts/torch_unroll_variants.py, PERF.md section 6).
 NPTT_HD constexpr int unroll_by(bool full, int trips) { return full ? (trips > 2 ? trips : 2) : 1; }
+
+// a / b. Where a is zero and b finite and nonzero the quotient is the
+// signed zero a * b, so no division runs: on the card an IEEE division
+// whose dividend is zero leaves its fast path for a call, and the frozen
+// solve's PCG divides zeros in every row that does not clamp. The same
+// bits either way; the host build's counting scalar (not a floating-point
+// type) always divides.
+template <typename S>
+NPTT_HD S qdiv(S a, S b) {
+  if constexpr (std::is_floating_point<S>::value) {
+    if (a == S(0) && b != S(0) && nisfinite(b)) return a * b;
+  }
+  return a / b;
+}
 
 // Forward-mode dual number: a value and one tangent. The linearize kernel
 // runs the device step on it, one basis direction per thread.

@@ -57,6 +57,16 @@ constexpr int kK2Group = 8, kK5Group = 16, kGroupsPerBlock = 4;
 // one pass of 10 in 93.9 and 16 with one of 10 (more spills) in 122.6
 // (scripts/torch_group_variants.py, PERF.md section 6).
 constexpr int kK4Group = 16, kK4Rhs = 5;
+// Where the rows unroll (the cartpole's m = 4), K4 runs one thread per
+// point (linearize.cu linearize_point), kK4PointThreads per block, its
+// tangent PCGs kK4PointRhs per pass.
+constexpr int kK4PointRhs = 1, kK4PointThreads = 128;
+
+// Each kernel's layout at a row count m, in one place: the lanes of its
+// group per (alpha, world) or point, 0 for one thread. K5 runs on groups
+// only, where the rows stay rolled (step.cuh group_layout).
+NPTT_HD constexpr int k2_lanes(int m) { return group_layout(m) ? kK2Group : 0; }
+NPTT_HD constexpr int k4_lanes(int m) { return group_layout(m) ? kK4Group : 0; }
 
 // The rows a lane owns: r = lane + G o < M for o < kN.
 template <int M, int G>

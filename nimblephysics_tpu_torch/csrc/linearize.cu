@@ -33,10 +33,14 @@
 // The PCG's alphas depend on its right-hand side, so each of the nx + na
 // directions runs its own PCG. Bound on this card: arithmetic (the nx +
 // na PCGs, then the directions' dual inputs).
-//   * Where the rows unroll (the cartpole's m = 4): K3's layout, one
-//     thread per (point, direction) running frozen_step on Dual<T> (the
-//     Dual overload of solve_frozen takes the tangent above), repeating
-//     the primal in each of a point's threads.
+//   * Where the rows unroll (the cartpole's m = 4, k4_lanes(M) == 0): one
+//     thread per point (linearize_point): the primal once, each
+//     direction's tangent right-hand side through the factors of A, and
+//     the tangent PCGs over the point's one Qf, all in registers but for
+//     what passes between its phases. One thread per (point, direction)
+//     running frozen_step on Dual<T>, as first built, repeated the primal
+//     in each of a point's threads (1.55 against 0.97 ms in f32 on an
+//     NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6).
 //   * Where group_layout(M) holds (the worm's m = 28), one thread per
 //     (point, direction) keeps the dense dual A and Qf in local memory
 //     (20 KB of stack in f32) and walks them in each PCG iteration (595 ms
@@ -56,10 +60,9 @@
 //     the primal's preconditioner; last, dv' = dv* + dMJ x~ + MJ R dx_C
 //     and the q' rows [I, dt I] and 0 (q' = q + dt v).
 // Least work (chip_smoke.py contact_least_work and slice_least_work):
-// (xs, u, cm, us) read and (fx, fu) written once; per point on the
-// cartpole one plain frozen step and nx + na tangents of it
-// (ops/device_step.py frozen_step_ops), on the worm the factored form's
-// (ops/device_step.py jvp_point_least_ops).
+// (xs, u, cm, us) read and (fx, fu) written once; per point the factored
+// form's (ops/device_step.py jvp_point_least_ops), below one plain frozen
+// step and nx + na tangents of it (frozen_step_ops).
 //
 // K5: (fx, fu) of the frozen-class step by row-VJPs of its v' half.
 // Replaces nimblephysics_tpu/ops/pallas_linearize.py :: linearize_pallas_vjp,
@@ -140,41 +143,6 @@ NPTT_HD void linearize_thread(long long tid, const T* __restrict__ P, const int*
   }
 }
 
-template <typename T, int NB, int NQ, int NA, int M, int NS>
-NPTT_HD void linearize_split_thread(long long tid, int n_cg, const T* __restrict__ P,
-                                    const int* __restrict__ I, const T* __restrict__ xs,
-                                    const T* __restrict__ u, const T* __restrict__ cm,
-                                    const T* __restrict__ ucl, T* __restrict__ fx,
-                                    T* __restrict__ fu) {
-  using L = StepLayout<NB, NQ, NA>;
-  constexpr int NX = 2 * NQ, K = NX + NA;
-  const long long n = tid / K;
-  const int k = (int)(tid % K);
-  Dual<T> q[NQ], v[NQ], ua[NA], qn[NQ], vn[NQ];
-#pragma unroll (unroll_by(L::kUnroll, NQ))
-  for (int i = 0; i < NQ; ++i) {
-    q[i] = Dual<T>(xs[n * NX + i], T(k == i ? 1 : 0));
-    v[i] = Dual<T>(xs[n * NX + NQ + i], T(k == NQ + i ? 1 : 0));
-  }
-#pragma unroll (unroll_by(L::kUnroll, NA))
-  for (int a = 0; a < NA; ++a) ua[a] = Dual<T>(u[n * NA + a], T(k == NX + a ? 1 : 0));
-  frozen_step<T, Dual<T>, NB, NQ, NA, M, NS>(P, I, q, v, ua, cm + n * M, ucl + n * M, n_cg, qn,
-                                              vn);
-  if (k < NX) {
-#pragma unroll (unroll_by(L::kUnroll, NQ))
-    for (int i = 0; i < NQ; ++i) {
-      fx[(n * NX + i) * NX + k] = qn[i].d;
-      fx[(n * NX + NQ + i) * NX + k] = vn[i].d;
-    }
-  } else {
-#pragma unroll (unroll_by(L::kUnroll, NQ))
-    for (int i = 0; i < NQ; ++i) {
-      fu[(n * NX + i) * NA + (k - NX)] = qn[i].d;
-      fu[(n * NX + NQ + i) * NA + (k - NX)] = vn[i].d;
-    }
-  }
-}
-
 // K5's shared memory per point: the frozen solve's, with nq + 1
 // right-hand sides; the rows of J; and the tangent's coefficients G_k (on
 // the rows of J), H_k (on M) and c_k (on v*).
@@ -199,6 +167,355 @@ NPTT_HD T tie_sign(const R (&Qf)[M][M + 1], int i, int j, T mx) {
   const T q = val(Qf[i][j]);
   return nabs(q) == mx ? (q >= T(0) ? T(1) : T(-1)) : T(0);
 }
+
+// K4 where k4_lanes(M) is 0 (the cartpole's m = 4, no contact slot): one
+// thread per point, the primal once and the nx + na tangents through the
+// factors of A. Every row is a limit or Coulomb row, J = coef e_dof, so
+// dJ = 0 and jvp_rhs's right-hand side of direction d is
+//   t_d = R^T (MJ^T k) + Qf^T s - dreg x_C,  s = -C J u,  u = dv* + h,
+//   h = -M^-1 dM w,  k = -dM pz  (w = MJ x~, pz = M^-T J^T z),
+// dM and dreg vanishing on the directions of v and u. In four phases, so
+// that no phase holds another's values in registers: (1) each direction's
+// dual inputs, dv* and on a direction of q dM, with nothing else live
+// (the first direction's values are the primal's qdd and M, bit for bit);
+// (2) the primal on values (M^-1, the rows, Qf, the PCG, the fixed
+// vectors);
+// (3) each direction's t_d and u; (4) the tangent PCGs over the point's
+// one Qf, NP per pass (pcg_n, each with its own alpha and beta and the
+// primal's preconditioner), and the columns dv' = u + MJ R dx_C. What
+// passes between phases lives in the thread's slots (Slots: kPointSlots
+// of them, a strided slice of the block's shared memory on the card, a
+// local array in the host build). Each value is computed as
+// linearize_jvp_group computes it on a group of one lane (R the
+// arithmetic type, as K5's), but for the dynamics' values, which the first
+// direction's dual inputs carry: ops/device_step.py point_jvp_op_kinds.
+template <int NQ, int NA, int M>
+constexpr int kPointSlots = (2 * NQ + NA) * (NQ + M) + NQ * NQ * NQ + NQ + NQ * NQ;
+
+template <typename T, typename R, int NB, int NQ, int NA, int M, int NS, int NP, class Slots>
+NPTT_HD void linearize_point(Slots& st, long long n, int n_cg, const T* __restrict__ P,
+                             const int* __restrict__ I, const T* __restrict__ xs,
+                             const T* __restrict__ u, const T* __restrict__ cm_all,
+                             const T* __restrict__ us_all, R* __restrict__ fx,
+                             R* __restrict__ fu) {
+  static_assert(NS == 0, "the one-thread K4 has no contact rows, whose dJ terms the "
+                         "lane-group body carries");
+  using L = StepLayout<NB, NQ, NA>;
+  using RL = RowLayout<NB, NQ, NA, M, NS>;
+  constexpr int NX = 2 * NQ, K = NX + NA;
+  // the slots: u of each direction (K x NQ), dM of each direction of q
+  // (NQ x NQ x NQ), t_d and then dx_C of each direction (K x M), the
+  // primal's qdd (NQ) and M (NQ x NQ)
+  constexpr int sU = 0, sM = K * NQ, sT = sM + NQ * NQ * NQ, sQ = sT + K * M, sMm = sQ + NQ;
+  static_assert(K % NP == 0, "the tangent right-hand sides fill whole passes");
+  const T* cm = cm_all + n * M;
+  const T* us = us_all + n * M;
+  const T dt = P[L::kDt];
+  R x[NX], ua[NA];
+#pragma unroll (unroll_by(true, NX))
+  for (int i = 0; i < NX; ++i) x[i] = R(xs[n * NX + i]);
+#pragma unroll (unroll_by(true, NA))
+  for (int a = 0; a < NA; ++a) ua[a] = R(u[n * NA + a]);
+  // (1) each direction's inputs on Dual<R> seeded with e_d (jvp_rhs)
+#pragma unroll 1
+  for (int d = 0; d < K; ++d) {
+    Dual<R> q[NQ], v[NQ], uu[NA], Rd[NB][9], pd[NB][3], qd[NQ];
+#pragma unroll (unroll_by(true, NQ))
+    for (int i = 0; i < NQ; ++i) {
+      q[i] = Dual<R>(x[i], R(T(d == i ? 1 : 0)));
+      v[i] = Dual<R>(x[NQ + i], R(T(d == NQ + i ? 1 : 0)));
+    }
+#pragma unroll (unroll_by(true, NA))
+    for (int a = 0; a < NA; ++a) uu[a] = Dual<R>(ua[a], R(T(d == NX + a ? 1 : 0)));
+    forward_dynamics<T, Dual<R>, NB, NQ, NA, true>(P, I, q, v, uu, Rd, pd, qd);
+#pragma unroll (unroll_by(true, NQ))
+    for (int e = 0; e < NQ; ++e) {
+      st[sU + d * NQ + e] = (v[e] + dt * qd[e]).d;
+      if (d == 0) st[sQ + e] = qd[e].v;
+    }
+    if (d < NQ) {
+      Dual<R> Mmd[NQ][NQ];
+      mass_matrix<T, Dual<R>, NB, NQ, NA, true>(P, I, Rd, pd, Mmd);
+#pragma unroll (unroll_by(true, NQ))
+      for (int e = 0; e < NQ; ++e)
+#pragma unroll (unroll_by(true, NQ))
+        for (int f = 0; f < NQ; ++f) {
+          st[sM + (d * NQ + e) * NQ + f] = Mmd[e][f].d;
+          if (d == 0) st[sMm + e * NQ + f] = Mmd[e][f].v;
+        }
+    }
+  }
+  // (2) the primal: qdd and M from (1), M^-1, v* (group_inputs)
+  R qdd[NQ], Mm[NQ][NQ], Mi[NQ][NQ], vs[NQ];
+#pragma unroll (unroll_by(true, NQ))
+  for (int e = 0; e < NQ; ++e) {
+    qdd[e] = st[sQ + e];
+#pragma unroll (unroll_by(true, NQ))
+    for (int f = 0; f < NQ; ++f) Mm[e][f] = st[sMm + e * NQ + f];
+  }
+  inv_spd<T, true>(Mm, Mi);
+#pragma unroll (unroll_by(true, NQ))
+  for (int d = 0; d < NQ; ++d) vs[d] = x[NQ + d] + dt * qdd[d];
+  // the rows: J = coef e_dof, b = -J v*, the columns of MJ = M^-1 J^T
+  R J[M][NQ], b[M], MJ[NQ][M];
+  T coef[M];
+  int dof[M];
+#pragma unroll (unroll_by(true, M))
+  for (int r = 0; r < M; ++r) {
+    const int d = I[RL::iRowDof + r], kind = I[RL::iRowKind + r];
+    dof[r] = d;
+    coef[r] = kind == kUpperLimit ? T(-1) : T(1);
+    R vd = R(T(0));
+#pragma unroll (unroll_by(true, NQ))
+    for (int e = 0; e < NQ; ++e) {
+      J[r][e] = R(T(0));
+      if (e == d) {
+        vd = vs[e];
+        J[r][e] = R(coef[r]);
+      }
+    }
+    b[r] = kind == kCoulomb ? -vd : (kind == kLowerLimit ? T(-1) : T(1)) * vd;
+#pragma unroll (unroll_by(true, NQ))
+    for (int k = 0; k < NQ; ++k) {
+      R mk = R(T(0));
+#pragma unroll (unroll_by(true, NQ))
+      for (int e = 0; e < NQ; ++e)
+        if (e == d) mk = Mi[k][e];
+      MJ[k][r] = mk * coef[r];
+    }
+  }
+  // the normal equations (group_normal_eqs): Qf = C A R + (I - C), A =
+  // J MJ + CFM I by entries, rhs = C b, reg, diagM, bvec
+  R Qf[M][M], rhs[M], diagM[M], bvec[M], lmx = R(T(0));
+#pragma unroll (unroll_by(true, M))
+  for (int i = 0; i < M; ++i) {
+    const T ci = cm[i];
+#pragma unroll (unroll_by(true, M))
+    for (int j = 0; j < M; ++j) {
+      R mj = R(T(0));
+#pragma unroll (unroll_by(true, NQ))
+      for (int e = 0; e < NQ; ++e)
+        if (e == dof[i]) mj = MJ[e][j];
+      R a = coef[i] * mj;
+      if (i == j) a = a + T(kCfm);
+      R qf = (ci * (a * cm[j])) * cm[j];
+      if (i == j) qf = qf + (T(1) - ci);
+      Qf[i][j] = qf;
+      lmx = pmax(lmx, nabs(qf));
+    }
+    rhs[i] = ci * b[i];
+  }
+  const R mx = lmx, qs = pmax(R(T(1)), mx);
+  const R reg = (Prec<T>::eps() * qs) * qs;
+#pragma unroll (unroll_by(true, M))
+  for (int j = 0; j < M; ++j) {
+    R dg = Qf[0][j] * Qf[0][j], bv = Qf[0][j] * rhs[0];
+#pragma unroll (unroll_by(true, M - 1))
+    for (int i = 1; i < M; ++i) {
+      dg = dg + Qf[i][j] * Qf[i][j];
+      bv = bv + Qf[i][j] * rhs[i];
+    }
+    diagM[j] = dg + reg;
+    bvec[j] = bv;
+  }
+  R xc[M];
+  pcg<T>(Qf, reg, diagM, bvec, n_cg, xc);
+  // the fixed vectors: x~ = R x_C, z = C (rhs - Qf x_C), w = MJ x~,
+  // pz = M^-T J^T z
+  R xt[M], z[M], w[NQ], jz[NQ], pz[NQ];
+#pragma unroll (unroll_by(true, M))
+  for (int i = 0; i < M; ++i) {
+    xt[i] = r_apply<T, R, M, NS>(cm, us, xc, i);
+    R y = Qf[i][0] * xc[0];
+#pragma unroll (unroll_by(true, M - 1))
+    for (int j = 1; j < M; ++j) y = y + Qf[i][j] * xc[j];
+    z[i] = cm[i] * (rhs[i] - y);
+#pragma unroll (unroll_by(true, NQ))
+    for (int e = 0; e < NQ; ++e) {
+      accumulate(w[e], i, MJ[e][i] * xt[i]);
+      accumulate(jz[e], i, J[i][e] * z[i]);
+    }
+  }
+#pragma unroll (unroll_by(true, NQ))
+  for (int f = 0; f < NQ; ++f) {
+    R pzf = Mi[0][f] * jz[0];
+#pragma unroll (unroll_by(true, NQ - 1))
+    for (int e = 1; e < NQ; ++e) pzf = pzf + Mi[e][f] * jz[e];
+    pz[f] = pzf;
+  }
+  // jnp's tie rule for max|Qf| where it is live (tie_share, tie_terms):
+  // dreg = <Ht, dM>, Ht = -2 eps qs share M^-T (sum over the tied entries
+  // (i, j) of sign_ij cm_i J_i (MJ R)[:, j]^T)
+  const T mxv = val(mx);
+  T cnt = T(0), live = T(0);
+#pragma unroll (unroll_by(true, M))
+  for (int i = 0; i < M; ++i)
+#pragma unroll (unroll_by(true, M))
+    for (int j = 0; j < M; ++j)
+      if (nabs(val(Qf[i][j])) == mxv) {
+        cnt = cnt + T(1);
+        if (cm[i] != T(0) && cm[j] != T(0)) live = T(1);
+      }
+  const T share = live == T(0) ? T(0)
+                               : (mxv > T(1) ? T(1) / cnt : (mxv == T(1) ? T(0.5) / cnt : T(0)));
+  const bool tie = share != T(0);
+  R Ht[NQ][NQ];
+  if (tie) {
+    const T qsv = mxv > T(1) ? mxv : T(1);
+    const R tc = R(T(2) * Prec<T>::eps() * qsv * share);
+    R Hs[NQ][NQ];
+#pragma unroll (unroll_by(true, NQ))
+    for (int e = 0; e < NQ; ++e)
+#pragma unroll (unroll_by(true, NQ))
+      for (int f = 0; f < NQ; ++f) Hs[e][f] = R(T(0));
+#pragma unroll (unroll_by(true, M))
+    for (int i = 0; i < M; ++i) {
+      if (cm[i] == T(0)) continue;
+      R mw[NQ];
+      bool any = false;
+#pragma unroll (unroll_by(true, M))
+      for (int j = 0; j < M; ++j) {
+        const T qv = val(Qf[i][j]);
+        const T sij = nabs(qv) == mxv ? (qv >= T(0) ? T(1) : T(-1)) : T(0);
+        if (sij == T(0) || cm[j] == T(0)) continue;
+#pragma unroll (unroll_by(true, NQ))
+        for (int e = 0; e < NQ; ++e) {
+          const R term = sij * (cm[j] * (cm[j] * MJ[e][j]));
+          mw[e] = any ? mw[e] + term : term;
+        }
+        any = true;
+      }
+      if (!any) continue;
+#pragma unroll (unroll_by(true, NQ))
+      for (int e = 0; e < NQ; ++e) {
+        const R cj = cm[i] * J[i][e];
+#pragma unroll (unroll_by(true, NQ))
+        for (int f = 0; f < NQ; ++f) Hs[e][f] = Hs[e][f] + cj * mw[f];
+      }
+    }
+#pragma unroll (unroll_by(true, NQ))
+    for (int e = 0; e < NQ; ++e)
+#pragma unroll (unroll_by(true, NQ))
+      for (int f = 0; f < NQ; ++f) {
+        R ht = Mi[0][e] * Hs[0][f];
+#pragma unroll (unroll_by(true, NQ - 1))
+        for (int h = 1; h < NQ; ++h) ht = ht + Mi[h][e] * Hs[h][f];
+        Ht[e][f] = R(T(0)) - tc * ht;
+      }
+  }
+  // (3) each direction's u (into its slots) and t_d (jvp_rhs)
+#pragma unroll 1
+  for (int d = 0; d < K; ++d) {
+    R uv[NQ], kv[NQ], dreg = R(T(0));
+#pragma unroll (unroll_by(true, NQ))
+    for (int e = 0; e < NQ; ++e) {
+      uv[e] = st[sU + d * NQ + e];
+      kv[e] = R(T(0));
+    }
+    if (d < NQ) {
+      R dM[NQ][NQ], g1[NQ];
+#pragma unroll (unroll_by(true, NQ))
+      for (int e = 0; e < NQ; ++e)
+#pragma unroll (unroll_by(true, NQ))
+        for (int f = 0; f < NQ; ++f) dM[e][f] = st[sM + (d * NQ + e) * NQ + f];
+#pragma unroll (unroll_by(true, NQ))
+      for (int e = 0; e < NQ; ++e) {
+        R mw = dM[e][0] * w[0], mp = dM[e][0] * pz[0];
+#pragma unroll (unroll_by(true, NQ - 1))
+        for (int f = 1; f < NQ; ++f) {
+          mw = mw + dM[e][f] * w[f];
+          mp = mp + dM[e][f] * pz[f];
+        }
+        g1[e] = R(T(0)) - mw;
+        kv[e] = R(T(0)) - mp;
+        if (tie) {
+#pragma unroll (unroll_by(true, NQ))
+          for (int f = 0; f < NQ; ++f) dreg = dreg + Ht[e][f] * dM[e][f];
+        }
+      }
+#pragma unroll (unroll_by(true, NQ))
+      for (int e = 0; e < NQ; ++e) {
+        R h = Mi[e][0] * g1[0];
+#pragma unroll (unroll_by(true, NQ - 1))
+        for (int f = 1; f < NQ; ++f) h = h + Mi[e][f] * g1[f];
+        uv[e] = uv[e] + h;
+        st[sU + d * NQ + e] = uv[e];
+      }
+    }
+    R sv[M];
+#pragma unroll (unroll_by(true, M))
+    for (int i = 0; i < M; ++i) {
+      R si = J[i][0] * uv[0];
+#pragma unroll (unroll_by(true, NQ - 1))
+      for (int e = 1; e < NQ; ++e) si = si + J[i][e] * uv[e];
+      sv[i] = -(cm[i] * si);
+    }
+#pragma unroll (unroll_by(true, M))
+    for (int j = 0; j < M; ++j) {
+      R acc = Qf[0][j] * sv[0];
+#pragma unroll (unroll_by(true, M - 1))
+      for (int i = 1; i < M; ++i) acc = acc + Qf[i][j] * sv[i];
+      if (d < NQ) {
+        R gr = MJ[0][j] * kv[0];
+#pragma unroll (unroll_by(true, NQ - 1))
+        for (int e = 1; e < NQ; ++e) gr = gr + MJ[e][j] * kv[e];
+        acc = acc + cm[j] * (cm[j] * gr);
+      }
+      if (tie) acc = acc - dreg * xc[j];
+      st[sT + d * M + j] = acc;
+    }
+  }
+  // (4) the tangent PCGs, NP per pass, and the columns (jvp_column)
+#pragma unroll 1
+  for (int pass = 0; pass < K / NP; ++pass) {
+    R t[NP][M], dxc[NP][M];
+#pragma unroll (unroll_by(true, NP))
+    for (int r = 0; r < NP; ++r)
+#pragma unroll (unroll_by(true, M))
+      for (int j = 0; j < M; ++j) t[r][j] = st[sT + (pass * NP + r) * M + j];
+    pcg_n<T>(Qf, reg, diagM, t, n_cg, dxc);
+#pragma unroll (unroll_by(true, NP))
+    for (int r = 0; r < NP; ++r) {
+      const int d = pass * NP + r;
+      R col[NQ];
+      const R dx0 = r_apply<T, R, M, NS>(cm, us, dxc[r], 0);
+#pragma unroll (unroll_by(true, NQ))
+      for (int e = 0; e < NQ; ++e) col[e] = MJ[e][0] * dx0;
+#pragma unroll (unroll_by(true, M - 1))
+      for (int i = 1; i < M; ++i) {
+        const R dx = r_apply<T, R, M, NS>(cm, us, dxc[r], i);
+#pragma unroll (unroll_by(true, NQ))
+        for (int e = 0; e < NQ; ++e) col[e] = col[e] + MJ[e][i] * dx;
+      }
+#pragma unroll (unroll_by(true, NQ))
+      for (int k = 0; k < NQ; ++k) {
+        const R row = st[sU + d * NQ + k] + col[k];
+        if (d < NX) {
+          fx[(n * NX + NQ + k) * NX + d] = row;
+          fx[(n * NX + k) * NX + d] = R(d == k ? T(1) : (d == NQ + k ? dt : T(0)));
+        } else {
+          fu[(n * NX + NQ + k) * NA + (d - NX)] = row;
+          fu[(n * NX + k) * NA + (d - NX)] = R(T(0));
+        }
+      }
+    }
+  }
+}
+
+// A thread's slots of linearize_point: slot k at base[k * stride] (a
+// strided slice of the block's shared memory, so that a warp's threads hit
+// distinct banks), or a local array.
+template <typename R>
+struct StridedSlots {
+  R* base;
+  int stride;
+  NPTT_HD R& operator[](int k) const { return base[k * stride]; }
+};
+template <typename R, int N>
+struct LocalSlots {
+  R v[N];
+  NPTT_HD R& operator[](int k) { return v[k]; }
+};
 
 // The share of each entry of Qf that attains max|Qf| = mx in the tangent
 // of max(max|Qf|, 1) under jnp's tie rule: 1 / count (mx > 1), 0.5 / count
@@ -843,14 +1160,17 @@ static int launch_linearize(long long n_points, const void* P, const void* I, co
 }
 
 template <typename T, int NB, int NQ, int NA, int M, int NS>
-__global__ void linearize_split_kernel(long long n_threads, int n_cg, const T* __restrict__ P,
+__global__ void linearize_point_kernel(long long n_points, int n_cg, const T* __restrict__ P,
                                        const int* __restrict__ I, const T* __restrict__ xs,
                                        const T* __restrict__ u, const T* __restrict__ cm,
                                        const T* __restrict__ ucl, T* __restrict__ fx,
                                        T* __restrict__ fu) {
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid < n_threads)
-    linearize_split_thread<T, NB, NQ, NA, M, NS>(tid, n_cg, P, I, xs, u, cm, ucl, fx, fu);
+  __shared__ T slots[kPointSlots<NQ, NA, M> * kK4PointThreads];
+  StridedSlots<T> st{slots + threadIdx.x, kK4PointThreads};
+  const long long n = (long long)blockIdx.x * kK4PointThreads + threadIdx.x;
+  if (n < n_points)
+    linearize_point<T, T, NB, NQ, NA, M, NS, kK4PointRhs>(st, n, n_cg, P, I, xs, u, cm, ucl, fx,
+                                                          fu);
 }
 
 template <typename T, int NB, int NQ, int NA, int M, int NS, int G, int NP>
@@ -867,16 +1187,16 @@ __global__ void linearize_jvp_group_kernel(long long n_points, int n_cg, const T
                                                       cm, ucl, fx, fu);
 }
 
-// K4: one thread per (point, direction) where the rows unroll (the
-// cartpole's m = 4); where group_layout(M) holds, one lane group of
-// kK4Group per point, kGroupsPerBlock groups per block, each with its
-// JvpShared in dynamic shared memory.
+// K4: one lane group of k4_lanes(M) per point, kGroupsPerBlock groups per
+// block, each with its JvpShared in dynamic shared memory (the worm's
+// m = 28); where k4_lanes(M) is 0 (the cartpole's m = 4), one thread per
+// point (linearize_point).
 template <typename T, int NB, int NQ, int NA, int M, int NS>
 static int launch_linearize_split(long long n_points, int n_cg, const void* P, const void* I,
                                   const void* xs, const void* u, const void* cm, const void* ucl,
                                   void* fx, void* fu, cudaStream_t stream) {
-  if constexpr (group_layout(M)) {
-    constexpr int G = kK4Group, NP = kK4Rhs;
+  if constexpr (k4_lanes(M) > 0) {
+    constexpr int G = k4_lanes(M), NP = kK4Rhs;
     const size_t smem = kGroupsPerBlock * sizeof(JvpShared<T, NB, NQ, NA, M, NS, NP>);
     auto kernel = linearize_jvp_group_kernel<T, NB, NQ, NA, M, NS, G, NP>;
     cudaError_t err =
@@ -887,11 +1207,10 @@ static int launch_linearize_split(long long n_points, int n_cg, const void* P, c
         n_points, n_cg, (const T*)P, (const int*)I, (const T*)xs, (const T*)u, (const T*)cm,
         (const T*)ucl, (T*)fx, (T*)fu);
   } else {
-    const long long n_threads = n_points * (2 * NQ + NA);
-    const int threads = 128;
-    const long long blocks = (n_threads + threads - 1) / threads;
-    linearize_split_kernel<T, NB, NQ, NA, M, NS><<<(unsigned)blocks, threads, 0, stream>>>(
-        n_threads, n_cg, (const T*)P, (const int*)I, (const T*)xs, (const T*)u, (const T*)cm,
+    const int threads = kK4PointThreads;
+    const long long blocks = (n_points + threads - 1) / threads;
+    linearize_point_kernel<T, NB, NQ, NA, M, NS><<<(unsigned)blocks, threads, 0, stream>>>(
+        n_points, n_cg, (const T*)P, (const int*)I, (const T*)xs, (const T*)u, (const T*)cm,
         (const T*)ucl, (T*)fx, (T*)fu);
   }
   return (int)cudaGetLastError();
@@ -1003,17 +1322,37 @@ extern "C" int nptt_linearize_vjp_group_shape(int is_double, long long* out) {
 #endif
 
 #ifdef __CUDACC__
-// K4's lane-group layout at the worm's shape: out = (lanes per group,
-// groups per block, shared bytes per block).
-extern "C" int nptt_linearize_split_group_shape(int is_double, long long* out) {
-#define NPTT_SHAPE(NB, NQ, NA, M, NS)                                                          \
-  out[0] = nptt::kK4Group;                                                                    \
-  out[1] = nptt::kGroupsPerBlock;                                                             \
-  out[2] = nptt::kGroupsPerBlock *                                                            \
-           (is_double ? sizeof(nptt::JvpShared<double, NB, NQ, NA, M, NS, nptt::kK4Rhs>)      \
-                      : sizeof(nptt::JvpShared<float, NB, NQ, NA, M, NS, nptt::kK4Rhs>));
-  NPTT_WORM_SHAPES(NPTT_SHAPE)
-#undef NPTT_SHAPE
-  return 0;
+namespace nptt {
+// K4's layout at an instance: (lanes per group, 0 for one thread per
+// point; groups or threads per block; shared bytes per block).
+template <typename T, int NB, int NQ, int NA, int M, int NS>
+void linearize_split_layout(long long* out) {
+  constexpr int G = k4_lanes(M);
+  out[0] = G;
+  if constexpr (G > 0) {
+    out[1] = kGroupsPerBlock;
+    out[2] = kGroupsPerBlock * sizeof(JvpShared<T, NB, NQ, NA, M, NS, kK4Rhs>);
+  } else {
+    out[1] = kK4PointThreads;
+    out[2] = kK4PointThreads * kPointSlots<NQ, NA, M> * sizeof(T);
+  }
+}
+}  // namespace nptt
+
+// K4's layout (nptt::linearize_split_layout) at the instance with m rows;
+// -1 for an m without an instance.
+extern "C" int nptt_linearize_split_layout(int is_double, int m, long long* out) {
+#define NPTT_LAYOUT(NB, NQ, NA, M, NS)                                            \
+  if (m == M) {                                                                  \
+    if (is_double)                                                               \
+      nptt::linearize_split_layout<double, NB, NQ, NA, M, NS>(out);              \
+    else                                                                         \
+      nptt::linearize_split_layout<float, NB, NQ, NA, M, NS>(out);               \
+    return 0;                                                                    \
+  }
+  NPTT_CONTACT_SHAPES(NPTT_LAYOUT)
+  NPTT_WORM_SHAPES(NPTT_LAYOUT)
+#undef NPTT_LAYOUT
+  return -1;
 }
 #endif

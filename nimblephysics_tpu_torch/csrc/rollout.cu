@@ -9,9 +9,17 @@
 // read from cm and us (B, T, M).
 //
 // Bound on this card: arithmetic, then latency. Each pair runs T dependent
-// steps of the device step, a few hundred flops each, and moves (x, u) out
-// once per step. Design: one thread per (alpha, world), x carried in
-// registers through the T steps; each step applies
+// steps of the device step, a few thousand flops each, and moves (x, u)
+// out once per step; the 6 x 2,048 pairs of the contact path fill one warp
+// per scheduler at most, so each step's latency is the kernel's time (one
+// alpha takes as long as six on an NVIDIA H100 80GB HBM3 at 700 W).
+// Design: one thread per (alpha,
+// world), the A alphas of a world on neighbouring lanes (their loads of
+// the world's inputs are one broadcast), x carried in
+// registers through the T steps, and no division of a zero on the frozen
+// PCG's chain (common.cuh qdiv: the residual of a row that does not clamp
+// stays zero, and the IEEE division of a zero takes its slow path, a
+// call); each step applies
 // u = clip(u_ref + alpha k + K (x - x_ref)), adds the running cost, and
 // runs the device step of step.cuh; the terminal cost is added at the end.
 // The cost is data, not code: diagonal weights on q, v and u for the running
@@ -46,6 +54,42 @@
 
 namespace nptt {
 
+// K2's one-thread kernel (k2_lanes(m) == 0): its threads per block (32:
+// the 384 warps of the contact path spread over every SM).
+constexpr int kK2Threads = 32;
+
+// Step t's inputs of one world: x_ref, K, k, u_ref and the class masks.
+template <typename T, int NX, int NA, int M>
+struct PairInputs {
+  static constexpr int kM = M > 0 ? M : 1;
+  T xr[NX], K[NA][NX], k[NA], ur[NA], cm[kM], us[kM];
+  template <bool U>
+  NPTT_HD void load(long long b, int Tn, int t, const T* __restrict__ xs_ref,
+                    const T* __restrict__ u_ref, const T* __restrict__ Kg,
+                    const T* __restrict__ kg, const T* __restrict__ cmg,
+                    const T* __restrict__ ucl) {
+    const long long bt = b * Tn + t;
+#pragma unroll (unroll_by(U, NX))
+    for (int i = 0; i < NX; ++i) xr[i] = xs_ref[(b * (Tn + 1) + t) * NX + i];
+#pragma unroll (unroll_by(U, NA))
+    for (int j = 0; j < NA; ++j) {
+#pragma unroll (unroll_by(U, NX))
+      for (int i = 0; i < NX; ++i) K[j][i] = Kg[(bt * NA + j) * NX + i];
+      k[j] = kg[bt * NA + j];
+      ur[j] = u_ref[bt * NA + j];
+    }
+    if constexpr (M > 0) {
+#pragma unroll (row_unroll(M, M))
+      for (int r = 0; r < M; ++r) {
+        cm[r] = cmg[bt * M + r];
+        us[r] = ucl[bt * M + r];
+      }
+    }
+  }
+};
+
+// K2's one-thread body for pair l = a B + b; each step's inputs are loaded
+// as the step starts.
 template <typename T, int NB, int NQ, int NA, int M, int NS>
 NPTT_HD void rollout_thread(long long l, long long B, int Tn, int n_cg, const T* __restrict__ P,
                             const int* __restrict__ I, const T* __restrict__ w,
@@ -72,16 +116,17 @@ NPTT_HD void rollout_thread(long long l, long long B, int Tn, int n_cg, const T*
   }
   T cost = T(0);
   for (int t = 0; t < Tn; ++t) {
-    const long long bt = b * Tn + t;
+    PairInputs<T, NX, NA, M> in;
+    in.template load<L::kUnroll>(b, Tn, t, xs_ref, u_ref, K, k, cm, ucl);
     T dx[NX], u[NA];
 #pragma unroll (unroll_by(L::kUnroll, NX))
-    for (int i = 0; i < NX; ++i) dx[i] = x[i] - xs_ref[(b * (Tn + 1) + t) * NX + i];
+    for (int i = 0; i < NX; ++i) dx[i] = x[i] - in.xr[i];
 #pragma unroll (unroll_by(L::kUnroll, NA))
     for (int j = 0; j < NA; ++j) {
       T Kdx = T(0);
 #pragma unroll (unroll_by(L::kUnroll, NX))
-      for (int i = 0; i < NX; ++i) Kdx = Kdx + K[(bt * NA + j) * NX + i] * dx[i];
-      T uj = u_ref[bt * NA + j] + (alpha * k[bt * NA + j] + Kdx);
+      for (int i = 0; i < NX; ++i) Kdx = Kdx + in.K[j][i] * dx[i];
+      T uj = in.ur[j] + (alpha * in.k[j] + Kdx);
       const T lo = P[L::kAct + 2 * j], hi = P[L::kAct + 2 * j + 1];
       uj = uj < lo ? lo : (uj > hi ? hi : uj);  // NaN passes through, as in clip
       u[j] = uj;
@@ -101,8 +146,7 @@ NPTT_HD void rollout_thread(long long l, long long B, int Tn, int n_cg, const T*
     if constexpr (M == 0)
       device_step<T, T, NB, NQ, NA>(P, I, x, x + NQ, u, qn, vn);
     else
-      frozen_step<T, T, NB, NQ, NA, M, NS>(P, I, x, x + NQ, u, cm + bt * M, ucl + bt * M, n_cg,
-                                           qn, vn);
+      frozen_step<T, T, NB, NQ, NA, M, NS>(P, I, x, x + NQ, u, in.cm, in.us, n_cg, qn, vn);
 #pragma unroll (unroll_by(L::kUnroll, NQ))
     for (int i = 0; i < NQ; ++i) {
       x[i] = qn[i];
@@ -232,8 +276,9 @@ __global__ void rollout_kernel(long long A, long long B, int Tn, int n_cg, const
                                const T* __restrict__ k, const T* __restrict__ alphas,
                                const T* __restrict__ cm, const T* __restrict__ ucl,
                                T* __restrict__ xs, T* __restrict__ us, T* __restrict__ costs) {
-  const long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (l < A * B)
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long l = (tid % A) * B + tid / A;  // a world's alphas on neighbouring lanes
+  if (tid < A * B)
     rollout_thread<T, NB, NQ, NA, M, NS>(l, B, Tn, n_cg, P, I, w, x0, xs_ref, u_ref, K, k, alphas,
                                          cm, ucl, xs, us, costs);
 }
@@ -262,8 +307,8 @@ static int launch_rollout(long long A, long long B, int Tn, int n_cg, const void
                           const void* w, const void* x0, const void* xs_ref, const void* u_ref,
                           const void* K, const void* k, const void* alphas, const void* cm,
                           const void* ucl, void* xs, void* us, void* costs, cudaStream_t stream) {
-  if constexpr (group_layout(M)) {
-    constexpr int G = kK2Group;
+  if constexpr (k2_lanes(M) > 0) {
+    constexpr int G = k2_lanes(M);
     const size_t smem = kGroupsPerBlock * sizeof(FrozenShared<T, NB, NQ, M, 1>);
     auto kernel = rollout_group_kernel<T, NB, NQ, NA, M, NS, G>;
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -275,7 +320,7 @@ static int launch_rollout(long long A, long long B, int Tn, int n_cg, const void
         (const T*)u_ref, (const T*)K, (const T*)k, (const T*)alphas, (const T*)cm, (const T*)ucl,
         (T*)xs, (T*)us, (T*)costs);
   } else {
-    const int threads = 128;
+    const int threads = kK2Threads;
     const long long blocks = (A * B + threads - 1) / threads;
     rollout_kernel<T, NB, NQ, NA, M, NS><<<(unsigned)blocks, threads, 0, stream>>>(
         A, B, Tn, n_cg, (const T*)P, (const int*)I, (const T*)w, (const T*)x0, (const T*)xs_ref,
@@ -336,17 +381,41 @@ extern "C" int nptt_rollout(int is_double, int nb, int nq, int na, int m, int ns
   return -1;
 }
 
-// K2's lane-group layout at the worm's shape: out = (lanes per group,
-// groups per block, shared bytes per block).
-extern "C" int nptt_rollout_group_shape(int is_double, long long* out) {
-#define NPTT_SHAPE(NB, NQ, NA, M, NS)                                                  \
-  out[0] = nptt::kK2Group;                                                            \
-  out[1] = nptt::kGroupsPerBlock;                                                     \
-  out[2] = nptt::kGroupsPerBlock * (is_double ? sizeof(nptt::FrozenShared<double, NB, NQ, M, 1>) \
-                                              : sizeof(nptt::FrozenShared<float, NB, NQ, M, 1>));
-  NPTT_WORM_SHAPES(NPTT_SHAPE)
-#undef NPTT_SHAPE
-  return 0;
+namespace nptt {
+// K2's layout at an instance: (lanes per group, 0 for one thread per
+// (alpha, world); groups or threads per block; shared bytes per block).
+template <typename T, int NB, int NQ, int M>
+void rollout_layout(long long* out) {
+  constexpr int G = k2_lanes(M);
+  out[0] = G;
+  if constexpr (G > 0) {
+    out[1] = kGroupsPerBlock;
+    out[2] = kGroupsPerBlock * sizeof(FrozenShared<T, NB, NQ, M, 1>);
+  } else {
+    out[1] = kK2Threads;
+    out[2] = 0;
+  }
+}
+}  // namespace nptt
+
+// K2's layout (nptt::rollout_layout) at the instance with m rows (0:
+// without classes); -1 for an m without an instance.
+extern "C" int nptt_rollout_layout(int is_double, int m, long long* out) {
+#define NPTT_LAYOUT(NB, NQ, NA, M, NS)                                            \
+  if (m == M) {                                                                  \
+    if (is_double)                                                               \
+      nptt::rollout_layout<double, NB, NQ, M>(out);                              \
+    else                                                                         \
+      nptt::rollout_layout<float, NB, NQ, M>(out);                               \
+    return 0;                                                                    \
+  }
+#define NPTT_LAYOUT_FREE(NB, NQ, NA) NPTT_LAYOUT(NB, NQ, NA, 0, 0)
+  NPTT_STEP_SHAPES(NPTT_LAYOUT_FREE)
+  NPTT_CONTACT_SHAPES(NPTT_LAYOUT)
+  NPTT_WORM_SHAPES(NPTT_LAYOUT)
+#undef NPTT_LAYOUT_FREE
+#undef NPTT_LAYOUT
+  return -1;
 }
 
 // K6. Returns 0, a cudaError_t, or -1 for a (dtype, nb, nq, na, m) without

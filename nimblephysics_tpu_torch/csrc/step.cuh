@@ -509,10 +509,11 @@ NPTT_HD void device_step(const T* __restrict__ P, const int* __restrict__ I,
 //   frozen_step: the smooth step on frozen LCP classes (ops/frozen_contact.py
 //     frozen_contact_step with the planner assembly): every row gated on,
 //     impulses from solve_frozen (regularised normal equations by Jacobi-
-//     preconditioned CG). K2 with classes runs it on T, K4 on Dual<T>
-//     (the cartpole's), where solve_frozen takes the implicit tangent of
-//     the linear solve; K4's worm instance and K5 (linearize.cu) run its
-//     inputs on T and Dual<T> and take the solve's tangent or transpose
+//     preconditioned CG). K2 with classes runs it on T; on Dual<T>
+//     solve_frozen takes the implicit tangent of the linear solve (the
+//     host build of tests/test_torch_device_step.py counts it for the
+//     plain count of K4's bound); K4 and K5 (linearize.cu) run its inputs
+//     on T and Dual<T> and take the solve's tangent or transpose
 //     themselves.
 //   class_step: the full step of the class rollout (ops/frozen_contact.py
 //     step_with_classes_for_trace): rows gated by the limits, impulses from
@@ -552,7 +553,8 @@ NPTT_HD constexpr int row_unroll(int m, int trips, int rolled = 1) {
 
 // Where the rows stay rolled (more than 8 of them, the worm's 28), K2, K4
 // and K5 run the frozen solve on a lane group (frozen_group.cuh) instead
-// of one thread.
+// of one thread; each kernel's layout at other row counts is chosen in
+// frozen_group.cuh (k2_lanes, k4_lanes).
 NPTT_HD constexpr bool group_layout(int m) { return m > 8; }
 
 // The (bodies, dofs, actions, rows, slots) shapes the constrained kernels
@@ -950,57 +952,77 @@ NPTT_HD void frozen_impulses(const T* cm, const T* us, const S (&xc)[M], S (&x)[
   }
 }
 
-// Jacobi-preconditioned CG on (Qf^T Qf + reg I) x = bb from x = 0
-// (ops/frozen_contact.py _pcg), n_cg iterations.
+// Jacobi-preconditioned CG on (Qf^T Qf + reg I) x[s] = bb[s] from x = 0
+// (ops/frozen_contact.py _pcg), n_cg iterations, for NR right-hand sides
+// over the one Qf at once, each with its own alpha and beta (the NR chains
+// interleave).
+template <typename T, typename S, int M, int NR>
+NPTT_HD void pcg_n(const S (&Qf)[M][M], S reg, const S (&diagM)[M], const S (&bb)[NR][M],
+                   int n_cg, S (&x)[NR][M]) {
+  const T tiny = T(1e-30);
+  S r[NR][M], z[NR][M], p[NR][M], rz[NR];
+#pragma unroll (unroll_by(true, NR))
+  for (int s = 0; s < NR; ++s) {
+#pragma unroll (row_unroll(M, M))
+    for (int i = 0; i < M; ++i) {
+      x[s][i] = S(T(0));
+      r[s][i] = bb[s][i];
+      z[s][i] = qdiv(r[s][i], diagM[i]);
+      p[s][i] = z[s][i];
+    }
+    rz[s] = r[s][0] * z[s][0];
+#pragma unroll (row_unroll(M, M - 1, 8))
+    for (int i = 1; i < M; ++i) rz[s] = rz[s] + r[s][i] * z[s][i];
+  }
+#pragma unroll 1
+  for (int it = 0; it < n_cg; ++it) {
+#pragma unroll (unroll_by(true, NR))
+    for (int s = 0; s < NR; ++s) {
+      S Qp[M], Ap[M];
+#pragma unroll (row_unroll(M, M))
+      for (int i = 0; i < M; ++i) {
+        Qp[i] = Qf[i][0] * p[s][0];
+#pragma unroll (row_unroll(M, M - 1, 8))
+        for (int j = 1; j < M; ++j) Qp[i] = Qp[i] + Qf[i][j] * p[s][j];
+      }
+#pragma unroll (row_unroll(M, M))
+      for (int j = 0; j < M; ++j) {
+        S acc = Qf[0][j] * Qp[0];
+#pragma unroll (row_unroll(M, M - 1, 8))
+        for (int i = 1; i < M; ++i) acc = acc + Qf[i][j] * Qp[i];
+        Ap[j] = acc + reg * p[s][j];
+      }
+      S pAp = p[s][0] * Ap[0];
+#pragma unroll (row_unroll(M, M - 1, 8))
+      for (int i = 1; i < M; ++i) pAp = pAp + p[s][i] * Ap[i];
+      const S alpha = qdiv(rz[s], pAp + tiny);
+#pragma unroll (row_unroll(M, M))
+      for (int i = 0; i < M; ++i) {
+        x[s][i] = x[s][i] + alpha * p[s][i];
+        r[s][i] = r[s][i] - alpha * Ap[i];
+        z[s][i] = qdiv(r[s][i], diagM[i]);
+      }
+      S rz_new = r[s][0] * z[s][0];
+#pragma unroll (row_unroll(M, M - 1, 8))
+      for (int i = 1; i < M; ++i) rz_new = rz_new + r[s][i] * z[s][i];
+      const S beta = qdiv(rz_new, rz[s] + tiny);
+#pragma unroll (row_unroll(M, M))
+      for (int i = 0; i < M; ++i) p[s][i] = z[s][i] + beta * p[s][i];
+      rz[s] = rz_new;
+    }
+  }
+}
+
+// pcg_n on one right-hand side.
 template <typename T, typename S, int M>
 NPTT_HD void pcg(const S (&Qf)[M][M], S reg, const S (&diagM)[M], const S (&bb)[M], int n_cg,
                  S (&x)[M]) {
-  const T tiny = T(1e-30);
-  S r[M], z[M], p[M];
+  S b1[1][M], x1[1][M];
 #pragma unroll (row_unroll(M, M))
-  for (int i = 0; i < M; ++i) {
-    x[i] = S(T(0));
-    r[i] = bb[i];
-    z[i] = r[i] / diagM[i];
-    p[i] = z[i];
-  }
-  S rz = r[0] * z[0];
-#pragma unroll (row_unroll(M, M - 1, 8))
-  for (int i = 1; i < M; ++i) rz = rz + r[i] * z[i];
-#pragma unroll 1
-  for (int it = 0; it < n_cg; ++it) {
-    S Qp[M], Ap[M];
+  for (int i = 0; i < M; ++i) b1[0][i] = bb[i];
+  pcg_n<T>(Qf, reg, diagM, b1, n_cg, x1);
 #pragma unroll (row_unroll(M, M))
-    for (int i = 0; i < M; ++i) {
-      Qp[i] = Qf[i][0] * p[0];
-#pragma unroll (row_unroll(M, M - 1, 8))
-      for (int j = 1; j < M; ++j) Qp[i] = Qp[i] + Qf[i][j] * p[j];
-    }
-#pragma unroll (row_unroll(M, M))
-    for (int j = 0; j < M; ++j) {
-      S s = Qf[0][j] * Qp[0];
-#pragma unroll (row_unroll(M, M - 1, 8))
-      for (int i = 1; i < M; ++i) s = s + Qf[i][j] * Qp[i];
-      Ap[j] = s + reg * p[j];
-    }
-    S pAp = p[0] * Ap[0];
-#pragma unroll (row_unroll(M, M - 1, 8))
-    for (int i = 1; i < M; ++i) pAp = pAp + p[i] * Ap[i];
-    const S alpha = rz / (pAp + tiny);
-#pragma unroll (row_unroll(M, M))
-    for (int i = 0; i < M; ++i) {
-      x[i] = x[i] + alpha * p[i];
-      r[i] = r[i] - alpha * Ap[i];
-      z[i] = r[i] / diagM[i];
-    }
-    S rz_new = r[0] * z[0];
-#pragma unroll (row_unroll(M, M - 1, 8))
-    for (int i = 1; i < M; ++i) rz_new = rz_new + r[i] * z[i];
-    const S beta = rz_new / (rz + tiny);
-#pragma unroll (row_unroll(M, M))
-    for (int i = 0; i < M; ++i) p[i] = z[i] + beta * p[i];
-    rz = rz_new;
-  }
+  for (int i = 0; i < M; ++i) x[i] = x1[0][i];
 }
 
 // Impulses on frozen classes (ops/frozen_contact.py solve_frozen):

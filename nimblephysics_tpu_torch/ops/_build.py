@@ -45,10 +45,10 @@ SIGNATURES = {
     "nptt_rollout_classes": [_I, _I, _I, _I, _I, _LL, _I] + [_P] * 6,
     "nptt_linearize_vjp": [_I, _I, _I, _I, _I, _I, _LL, _I] + [_P] * 9,
     "nptt_pgs": [_I, _I, _LL, _I] + [_P] * 9,
-    "nptt_rollout_group_shape": [_I, _P],
     "nptt_linearize_vjp_group_shape": [_I, _P],
-    "nptt_linearize_split_group_shape": [_I, _P],
     "nptt_pgs_group_shape": [_I, _P],
+    "nptt_rollout_layout": [_I, _I, _P],
+    "nptt_linearize_split_layout": [_I, _I, _P],
 }
 
 
@@ -166,13 +166,22 @@ def check_shape(name: str, key: str, t, shape: tuple) -> None:
 
 
 def group_shape(name: str, dtype) -> dict:
-    """The lane-group layout of K2's worm instance (``name`` "rollout"),
-    K4's ("linearize_split"), K5's ("linearize_vjp") or K7's ("pgs"): lanes
-    per group, groups per block and shared bytes per block
-    (csrc/frozen_group.cuh, csrc/lcp.cu)."""
+    """The lane-group layout of K5's worm instance (``name``
+    "linearize_vjp") or K7's ("pgs"): lanes per group, groups per block and
+    shared bytes per block (csrc/frozen_group.cuh, csrc/lcp.cu)."""
     out = (ctypes.c_longlong * 3)()
     getattr(load(), f"nptt_{name}_group_shape")(int(dtype == torch.float64), out)
-    return {"lanes": out[0], "groups_per_block": out[1], "shared_bytes": out[2]}
+    return {"lanes": out[0], "per_block": out[1], "shared_bytes": out[2]}
+
+
+def layout(name: str, m: int, dtype) -> dict:
+    """The layout of K2's instance (``name`` "rollout") or K4's
+    ("linearize_split") at m rows: lanes per group (0 for one thread per
+    pair or point), groups or threads per block and shared bytes per block
+    (csrc/frozen_group.cuh k2_lanes and k4_lanes)."""
+    out = (ctypes.c_longlong * 3)()
+    check(getattr(load(), f"nptt_{name}_layout")(int(dtype == torch.float64), m, out), name)
+    return {"lanes": out[0], "per_block": out[1], "shared_bytes": out[2]}
 
 
 def stream_ptr(device) -> int:

@@ -485,8 +485,10 @@ def _vjp_parts(model: Model, n_cg: int, g: int) -> dict:
     mr = m - c0
     n_lim, n_coul = 2 * len(limited_dofs(model)), len(coulomb_dofs(model))
     euler = _ops(nq, mul_c=2, add=2)
+    # the world frames serve the contact rows only
+    frames = _world_frames_ops(model) if ns else Counter()
     dyn = (step_op_kinds(model) - euler + _mass_matrix_ops(model) + _inv_spd_ops(nq)
-           + _world_frames_ops(model) + _ops(g, **euler))
+           + frames + _ops(g, **euler))
     rows = Counter()
     for jac in _slot_jacobian_ops(model):              # J, b and MJ of contact rows
         rows += _ops(3, **(jac + _ops(nq, mul_c=3, add=2) + _ops(mul=nq, add=nq)
@@ -514,7 +516,7 @@ def _vjp_parts(model: Model, n_cg: int, g: int) -> dict:
               + _ops(c0 * nq * nq, mul=4, add=3)                            # G_k
               + _ops(nq ** 3, mul=2, add=2) + _ops(nq, add_c=1))            # H_k, c_k
     col = step_op_kinds(model) - _ops(nq, mul_c=1, add=1)    # forward_dynamics and v*
-    qcol = _mass_matrix_ops(model) + _world_frames_ops(model)
+    qcol = _mass_matrix_ops(model) + frames
     for jac in _slot_jacobian_ops(model):
         qcol += jac + _ops(3 * nq, mul_c=3, add=2)
     return {"dyn": dyn, "primal": rows + normal + adjoint + pcg + coeffs, "rows": rows + normal,
@@ -613,6 +615,19 @@ def jvp_point_op_kinds(model: Model, n_cg: int, group: int = K4_GROUP) -> Counte
             + _ops(model.nq, **(p["qcol"] + _tangent_kinds(p["qcol"]) + p["qcontract"])))
 
 
+def point_jvp_op_kinds(model: Model, n_cg: int) -> Counter:
+    """The operations of K4's one-thread body for one point (csrc/
+    linearize.cu linearize_point, where no row is a contact row), by kind:
+    the group body's on a group of one lane (jvp_point_op_kinds) but for
+    the values of forward_dynamics and mass_matrix, which the first
+    direction's dual inputs carry, and for q' and v', which K4 does not
+    write (q' = q + dt v and v' = v* + w)."""
+    nq = model.nq
+    return (jvp_point_op_kinds(model, n_cg, 1)
+            - (step_op_kinds(model) - _ops(nq, mul_c=2, add=2))
+            - _mass_matrix_ops(model) - _ops(nq, mul_c=1, add=2))
+
+
 def jvp_point_least_ops(model: Model, n_cg: int) -> int:
     """The operations one point of K4's function needs, for its bound: the
     primal as one thread does it (the dynamics once, the primal PCG with
@@ -624,9 +639,12 @@ def jvp_point_least_ops(model: Model, n_cg: int) -> int:
     tangents of the whole frozen step (the dual A and Qf formed and
     contracted per direction), which the factored tangent does not need.
     The kernel also runs each direction's dual inputs with their values
-    (jvp_point_op_kinds)."""
+    (jvp_point_op_kinds). Not counted: q' = q + dt v (the q' rows of fx
+    are constant), and v' = v* + w where no row is a contact row (only the
+    dJ v' terms read it)."""
     p = _jvp_parts(model, n_cg, 1)
-    k = 2 * model.nq + model.num_actions
+    nq, k = model.nq, 2 * model.nq + model.num_actions
     sweep = _ops(k, **(_tangent_kinds(p["col"]) + p["contract"] + p["column"]))
-    qsweep = _ops(model.nq, **(_tangent_kinds(p["qcol"]) + p["qcontract"]))
-    return sum((p["dyn"] + p["primal"] + p["pcg"] + sweep + qsweep).values())
+    qsweep = _ops(nq, **(_tangent_kinds(p["qcol"]) + p["qcontract"]))
+    unused = _ops(nq, mul_c=1, add=1 if total_slots(model) else 2)
+    return sum((p["dyn"] + p["primal"] + p["pcg"] + sweep + qsweep - unused).values())

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The worm's lane-group kernels at several group layouts against a base
-tree's kernels, on one card in one call.
+"""The kernels' layouts (the worm's lane groups, the cartpole contact
+kernels' designs) against a base tree's kernels, on one card in one call.
 
     python3 scripts/torch_group_variants.py --base DIR [--variants LIST] [--out DIR]
                                             [--kernels LIST] [--replans LIST]
@@ -12,24 +12,41 @@ tree's sources are built as they are ("as_built") and in the variants of
 VARIANTS, each of which sets some of the layout constants
 (csrc/frozen_group.cuh: the lanes of K2's, K5's and K4's groups, kK2Group,
 kK5Group, kK4Group, and K4's tangent right-hand sides per pass over Qf,
-kK4Rhs; csrc/lcp.cu: K7's, kK7Group); ``--variants`` picks some of them
+kK4Rhs; csrc/lcp.cu: K7's, kK7Group; the cartpole's layouts,
+frozen_group.cuh kK4PointRhs, the one-thread K4's tangent PCGs per pass,
+and csrc/rollout.cu kK2Threads, the one-thread K2's threads per block; or
+"small_unrolled", scripts/torch_unroll_variants.py's plain ``#pragma
+unroll`` on the small loops);
+``--variants`` picks some of them
 (comma-separated; by default all). All ``nvcc`` calls run at once, into
 ``--out`` (by default the gitignored
 ``nimblephysics_tpu_torch/_build/group_variants/``). It prints each build's
-time and ptxas's registers, stack and spills for the worm's kernels and
-K7, then, at the worm path's shapes (chip_smoke.py's worm inputs, B=2048,
-T=100, PCG depth 12) in f32 and f64:
+time and ptxas's registers, stack and spills for the worm's kernels, K7
+and the cartpole instances of K2 and K4, and for the cartpole instances
+the counts of some SASS instructions (``cuobjdump -sass``: local loads and
+stores LDL and STL, MUFU by function, CALL, and those calls that name a
+division's slow path, FCHK, the f32 division's check), then in f32 and
+f64:
 
   * each library's kernels of KERNELS (``--kernels`` picks some) against
     the plain versions (largest relative error; chip_smoke.py holds the
     kept build to its rules), and their times (CUDA events, the libraries
-    in turns forth and back, 3 calls each): K2 (worm), K5, K9 and K8, K2
-    and K5 also at PCG depth 1 (the PCG's share of their time), K3 with
-    classes= (K4's kernel at depth m + 6), K4 at depth 12 and K7;
-  * in f32, each library's warm worm replans of REPLANS (``--replans``;
-    ILQRConfig(linearize=...): "auto", bench.py's row, and "jvp", K3
-    classes=; "split" and "chain" on request), warm from one cold replan of
-    the first library after "base", 3 calls each, in turns.
+    in turns forth and back, 3 calls each). At the worm path's shapes
+    (chip_smoke.py's worm inputs, B=2048, T=100, PCG depth 12): K2 (worm),
+    K5, K9 and K8, K2 and K5 also at PCG depth 1 (the PCG's share of their
+    time), K3 with classes= (K4's kernel at depth m + 6), K4 at depth 12
+    and K7. At the cartpole contact path's shapes (chip_smoke.py's phase 5
+    inputs on the narrowed cartpole, B=2048, T=100, A=6, PCG depth m + 6 =
+    10): K2 with classes, also at A=1 (one alpha: a latency-bound kernel
+    takes about as long) and at PCG depth 1, and K4, also at PCG depth 1;
+    K2 without classes at the contact-free path's shapes (phase 3b's, B=4096);
+  * in f32, each library's replans of REPLANS (``--replans``), 3 calls
+    each, in turns: the warm worm replans (ILQRConfig(linearize=...):
+    "auto", bench.py's row, and "jvp", K3 classes=; "split" and "chain" on
+    request), warm from one cold replan of the first library after "base";
+    the cartpole contact replans ("cartpole_limits", stock limits, and
+    "cartpole_limits_narrow", chip_smoke.py phase 7's) and the
+    contact-free one ("cartpole_free", phase 4's), after one untimed call.
 
 The last line is one JSON object with every number, with the card's name
 and power limit; ``DIR/group_variants.json`` (``--out``) has the same.
@@ -38,9 +55,11 @@ and power limit; ``DIR/group_variants.json`` (``--out``) has the same.
 import ctypes
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -48,11 +67,13 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "scripts"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from nimblephysics_tpu_torch.ops import _build  # noqa: E402
 from torch_unroll_variants import ptxas_table  # noqa: E402
+from torch_unroll_variants import transform as unroll_transform  # noqa: E402
 
 OUT = _build.BUILD_ROOT / "group_variants"
 # each layout constant, the file that declares it and its declaration
@@ -62,6 +83,8 @@ CONSTANTS = {
     "kK4Group": ("frozen_group.cuh", r"kK4Group = \d+"),
     "kK4Rhs": ("frozen_group.cuh", r"kK4Rhs = \d+"),
     "kK7Group": ("lcp.cu", r"kK7Group = \d+"),
+    "kK4PointRhs": ("frozen_group.cuh", r"kK4PointRhs = \d+"),
+    "kK2Threads": ("rollout.cu", r"kK2Threads = \d+"),
 }
 # name -> the constants it sets (the others as the sources have them)
 VARIANTS = {
@@ -74,21 +97,38 @@ VARIANTS = {
     "k4g8x2": {"kK4Group": 8, "kK4Rhs": 5},
     "k4g8x5": {"kK4Group": 8, "kK4Rhs": 2},
     "k7g16": {"kK7Group": 16},
+    "small_unrolled": {"_unroll": "small_unrolled"},
+    "k2t128": {"kK2Threads": 128},
+    "k2t64_k4np5": {"kK2Threads": 64, "kK4PointRhs": 5},
 }
 # the worm's kernels (its shape in the mangled names) and K7's, in ptxas's output
 WORM_SHAPE = "Li3ELi4ELi2ELi28ELi8E"
 ENTRIES = ("rollout_kernel", "rollout_group_kernel", "linearize_vjp", "linearize_split_kernel",
            "linearize_jvp_group", "pgs_kernel", "pgs_group")
-KERNELS = ("rollout_gains[worm]", "rollout_gains[worm] PCG depth 1", "linearize_vjp PCG depth 1",
-           "linearize_vjp", "chained_step_rollout", "chained_linearize_vjp", "linearize[classes]",
-           "linearize_split[worm]", "pgs_batched")
-REPLANS = ("auto", "jvp", "split", "chain")
+# the cartpole's contact shape (2, 2, 1, 4, 0) and its contact-free one, in
+# mangled names: every kernel instanced at them is tabled and counted
+CART_SHAPES = ("Li2ELi2ELi1ELi4ELi0E", "Li2ELi2ELi1ELi0ELi0E")
+SASS_OPS = ("LDL", "STL", "MUFU", "CALL", "FCHK", "LDG", "STG", "LDS", "STS", "SHFL", "BAR")
+WORM_KERNEL_NAMES = ("rollout_gains[worm]", "rollout_gains[worm] PCG depth 1",
+                     "linearize_vjp PCG depth 1", "linearize_vjp", "chained_step_rollout",
+                     "chained_linearize_vjp", "linearize[classes]", "linearize_split[worm]",
+                     "pgs_batched")
+CART_KERNEL_NAMES = ("rollout_gains[cartpole classes]", "rollout_gains[cartpole classes] A=1",
+                     "rollout_gains[cartpole classes] PCG depth 1", "rollout_gains[cartpole]",
+                     "linearize_split[cartpole]", "linearize_split[cartpole] PCG depth 1")
+KERNELS = WORM_KERNEL_NAMES + CART_KERNEL_NAMES
+CART_REPLANS = ("cartpole_limits", "cartpole_limits_narrow", "cartpole_free")
+REPLANS = ("auto", "jvp", "split", "chain") + CART_REPLANS
 REPS = 3
 
 
 def transform(name: str, text: str, file: str) -> str:
-    """The source of one variant (VARIANTS)."""
+    """The source of one variant (VARIANTS; "_unroll" names a variant of
+    scripts/torch_unroll_variants.py applied first)."""
     for const, value in VARIANTS[name].items():
+        if const == "_unroll":
+            text = unroll_transform(value, text)
+            continue
         where, pattern = CONSTANTS[const]
         if file != where:
             continue
@@ -144,9 +184,78 @@ def rel_error(out_k, out_p) -> float:
                for a, b in zip(flat(out_k), flat(out_p)))
 
 
+def cuobjdump() -> str:
+    found = shutil.which("cuobjdump")
+    return found or str(Path(_build._nvcc()).parent / "cuobjdump")
+
+
+def sass_counts(lib: Path) -> dict:
+    """Per kernel instanced at a cartpole shape (CART_SHAPES): its SASS
+    instructions in all and those of SASS_OPS (MUFU also by function, CALL
+    also where the line names a division's slow path), from
+    ``cuobjdump -sass``."""
+    out = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=900).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if any(c in m.group(1) for c in CART_SHAPES) else None
+            if fn:
+                counts[fn] = Counter()
+            continue
+        m = re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)((?:\.\w+)*)",
+                      line)
+        if fn is None or not m:
+            continue
+        op = m.group(1)
+        counts[fn]["instructions"] += 1
+        if op in SASS_OPS:
+            counts[fn][op] += 1
+        if op == "MUFU":
+            counts[fn]["MUFU" + m.group(2)] += 1
+        if op == "CALL" and "div" in line.lower():
+            counts[fn]["CALL div slow path"] += 1
+    return {f: dict(c) for f, c in counts.items()}
+
+
+def cart_kernel_calls(dev, dtype, chosen):
+    """name -> (kernel call, plain call) of the cartpole kernels of
+    CART_KERNEL_NAMES in ``chosen``: chip_smoke.py's phase 5 inputs (the
+    narrowed cartpole) at the contact path's shapes and phase 3b's for K2
+    without classes."""
+    if not set(chosen) & set(CART_KERNEL_NAMES):
+        return {}
+    inputs = cs.contact_kernel_inputs(dev, cs.B_CONTACT, cs.H, dtype)
+    a2, k2 = inputs["rollout_gains[classes]"]
+    a4, _ = inputs["linearize_split"]
+    a2_1 = a2[:-1] + (a2[-1][:1].contiguous(),)
+    free = cs.kernel_inputs(dev, cs.B_FULL, cs.H, dtype)["rollout_gains"]
+    k2d1 = dict(k2, cg_iters=1)
+    calls = {
+        "rollout_gains[cartpole classes]": (lambda: cs.rollout_gains(*a2, **k2),
+                                            lambda: cs.rollout_gains_plain(*a2, **k2)),
+        "rollout_gains[cartpole classes] A=1": (lambda: cs.rollout_gains(*a2_1, **k2),
+                                                lambda: cs.rollout_gains_plain(*a2_1, **k2)),
+        "rollout_gains[cartpole classes] PCG depth 1": (
+            lambda: cs.rollout_gains(*a2, **k2d1), lambda: cs.rollout_gains_plain(*a2, **k2d1)),
+        "rollout_gains[cartpole]": (lambda: cs.rollout_gains(*free),
+                                    lambda: cs.rollout_gains_plain(*free)),
+        "linearize_split[cartpole]": (lambda: cs.linearize_split(*a4),
+                                      lambda: cs.linearize_split_plain(*a4)),
+        "linearize_split[cartpole] PCG depth 1": (
+            lambda: cs.linearize_split(*a4, cg_iters=1),
+            lambda: cs.linearize_split_plain(*a4, 1)),
+    }
+    return {k: v for k, v in calls.items() if k in chosen}
+
+
 def kernel_calls(dev, dtype, chosen):
     """name -> (kernel call, plain call) on chip_smoke.py's worm inputs at
-    the path's shapes, for the names in ``chosen``."""
+    the path's shapes, for the names in ``chosen``, and cart_kernel_calls'."""
+    calls = cart_kernel_calls(dev, dtype, chosen)
+    if not set(chosen) & set(WORM_KERNEL_NAMES):
+        return calls
     inputs = cs.worm_kernel_inputs(dev, cs.WORM_B, cs.H, dtype)
     a2, k2 = inputs["rollout_gains[worm]"]
     a5, _ = inputs["linearize_vjp"]
@@ -155,7 +264,7 @@ def kernel_calls(dev, dtype, chosen):
     rc, _ = cs.worm_costs(model)
     a9, k9 = (model, rc, pre[:, 0].contiguous(), u, classes), {"cg_iters": cg}
     k2_1, a5_1 = dict(k2, cg_iters=1), a5[:4] + (1,)
-    calls = {
+    calls.update({
         "rollout_gains[worm]": (lambda: cs.rollout_gains(*a2, **k2),
                                 lambda: cs.rollout_gains_plain(*a2, **k2)),
         "rollout_gains[worm] PCG depth 1": (lambda: cs.rollout_gains(*a2, **k2_1),
@@ -172,8 +281,34 @@ def kernel_calls(dev, dtype, chosen):
         "linearize_split[worm]": (lambda: cs.linearize_split(*a5),
                                   lambda: cs.linearize_split_plain(*a5)),
         "pgs_batched": (lambda: cs.pgs_batched(*a7), lambda: cs.pgs_batched_plain(*a7)),
-    }
+    })
     return {k: v for k, v in calls.items() if k in chosen}
+
+
+def cart_replan(dev, name, libs_named, use, result, t0):
+    """One cartpole replan of CART_REPLANS in f32, each library's 3 calls
+    in turns forth and back after one untimed call; solves/s into
+    ``result``."""
+    if name == "cartpole_free":
+        B = cs.B_FULL
+        x0 = np.random.default_rng(cs.SEED).uniform(-0.3, 0.3, (B, 4))
+        run = lambda: cs.solve(dev, torch.float32, True, x0, cs.H)[2]  # noqa: E731
+    else:
+        B, narrow = cs.B_CONTACT, name == "cartpole_limits_narrow"
+        x0 = cs.contact_x0(B, narrow)
+        run = lambda: cs.contact_solve(dev, torch.float32, True, x0, narrow)[2]  # noqa: E731
+    print(f"[{time.perf_counter() - t0:.1f} s] the {name} replan, f32, B={B}", flush=True)
+    use(libs_named[1])
+    run()
+    rates = {n: [] for n in libs_named}
+    for n in libs_named + libs_named[::-1]:
+        use(n)
+        secs = [run() for _ in range(REPS)]
+        rates[n].append(B / (sum(secs) / len(secs)))
+    for n in libs_named:
+        result[n][f"replan_solves_per_s {name}"] = rates[n]
+    print(f"  {name} replan (solves/s, forth/back): " + "; ".join(
+        f"{n} {rates[n][0]:.1f}/{rates[n][1]:.1f}" for n in libs_named), flush=True)
 
 
 def arg_list(args, flag, default, allowed):
@@ -212,8 +347,8 @@ def main() -> int:
     base_table = ptxas_table(built["base"][2])
     for name, (path, seconds, log) in built.items():
         full = ptxas_table(log)
-        table = {e: r for e, r in full.items() if any(k in e for k in ENTRIES)
-                 and (WORM_SHAPE in e or "pgs" in e)}
+        table = {e: r for e, r in full.items() if (any(k in e for k in ENTRIES)
+                 and (WORM_SHAPE in e or "pgs" in e)) or any(c in e for c in CART_SHAPES)}
         # every other kernel should compile as in the base tree
         others = [e for e in full if e in base_table and e not in table]
         differ = [e for e in others if full[e] != base_table[e]]
@@ -228,6 +363,20 @@ def main() -> int:
         for entry in differ:
             print(f"  differs from base: {base_table[entry]} -> {full[entry]}  {entry[:90]}",
                   flush=True)
+        # the worm's kernels and K7 against the base's
+        worm = [e for e in table if (WORM_SHAPE in e or "pgs" in e) and e in base_table]
+        worm_differ = [e for e in worm if full[e] != base_table[e]]
+        result[name]["worm_kernels_differ_from_base"] = {e: [base_table[e], full[e]]
+                                                         for e in worm_differ}
+        print(f"  {len(worm) - len(worm_differ)} of the {len(worm)} worm and K7 kernels compile "
+              f"with the base's registers and stack", flush=True)
+        try:
+            sass = sass_counts(path)
+        except (OSError, subprocess.SubprocessError) as e:
+            sass = {"error": repr(e)}
+        result[name]["sass"] = sass
+        for entry, row in sorted(sass.items()):
+            print(f"  SASS {row}  {entry[:100]}", flush=True)
         libs[name] = load(path)
 
     def use(name):
@@ -256,6 +405,9 @@ def main() -> int:
         del calls
     x0 = cs.worm_x0(cs.WORM_B)
     for lin in replans:
+        if lin in CART_REPLANS:
+            cart_replan(dev, lin, libs_named, use, result, t0)
+            continue
         print(f"[{time.perf_counter() - t0:.1f} s] the warm worm replan, "
               f"linearize={lin!r}, f32, B={cs.WORM_B}", flush=True)
         use(libs_named[1])

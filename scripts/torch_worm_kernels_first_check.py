@@ -75,9 +75,10 @@ def main() -> int:
               f"{int((cl[1] != 0).sum())} UPPER rows", flush=True)
     if not cpu:
         cs.check_coupled_rows(dev)
-        for name in ("rollout", "linearize_vjp"):
-            print(f"{name} lane groups: f32 {_build.group_shape(name, torch.float32)}, "
-                  f"f64 {_build.group_shape(name, torch.float64)}", flush=True)
+        for dt in (torch.float32, torch.float64):
+            print(f"rollout lane groups: {dt} {_build.layout('rollout', cs.WORM_M, dt)}; "
+                  f"linearize_vjp lane groups: {dt} {_build.group_shape('linearize_vjp', dt)}",
+                  flush=True)
         full = cs.worm_kernel_inputs(dev, 512, 100, torch.float32)
         for name, (args, kw) in full.items():
             abs_err, rel_err = cs.compare_worm(name, args, kw, "float32")

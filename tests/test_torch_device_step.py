@@ -200,14 +200,19 @@ def test_pack_model_follows_in_place_edits():
 # Reads "nb nq na m n nr ni n_cg", the packed reals and ints, the cost
 # weights (2 nq + na + nx), then n points (x, u, cmask); writes the
 # operation counts by kind of frozen_step on the counting scalar, of
-# class_step on it, and of frozen_step on dual numbers over it (a plain
-# step plus one tangent); then per point frozen_step's (q', v'),
-# class_step's (q', v', cmask) and K4's thread bodies' (fx, fu); then K6's
-# and K2's threads run over the n points as one trajectory (x0 = the first
-# point's x, u_t = the points' u, K2 with zero gains and the points' cmask):
-# per step K6's (x', cmask) and K2's x', and K2's cost last.
+# class_step on it, of frozen_step on dual numbers over it (a plain step
+# plus one tangent), and of K4's one-thread body (linearize_point) on it at
+# the first point's (x, u) with no row clamping (where the tie rule of
+# max|Qf| adds nothing); then per point frozen_step's (q', v'),
+# class_step's (q', v', cmask) and K4's body's (fx, fu); then K6's and K2's
+# threads run over the n points as one trajectory (x0 = the first point's
+# x, u_t = the points' u, K2 with zero gains and the points' cmask): per
+# step K6's (x', cmask) and K2's x', and K2's cost last.
 CONTACT_MAIN = r"""
 #include <cstdio>
+#include <cstring>
+#include <limits>
+#include <string>
 #include <vector>
 #include "linearize.cu"
 #include "rollout.cu"
@@ -283,12 +288,17 @@ void run(const double* P, const int* I, const double* w, const std::vector<doubl
     nptt::frozen_step<double, DC, NB, NQ, NA, M, 0>(P, I, qd, vd, ud, cms.data(), zs.data(), n_cg,
                                                    qnd, vnd);
     print_ops();
+    std::vector<C> fxc(NX * NX), fuc(NX * NA);
+    nptt::LocalSlots<C, nptt::kPointSlots<NQ, NA, M>> stc;
+    nptt::linearize_point<double, C, NB, NQ, NA, M, 0, nptt::kK4PointRhs>(
+        stc, 0, n_cg, P, I, xs.data(), us.data(), zs.data(), zs.data(), fxc.data(), fuc.data());
+    print_ops();
   }
   std::vector<double> fx(n * NX * NX), fu(n * NX * NA);
-  for (long long t = 0; t < (long long)n * K; ++t)
-    nptt::linearize_split_thread<double, NB, NQ, NA, M, 0>(t, n_cg, P, I, xs.data(), us.data(),
-                                                            cms.data(), zs.data(), fx.data(),
-                                                            fu.data());
+  nptt::LocalSlots<double, nptt::kPointSlots<NQ, NA, M>> st;
+  for (long long p = 0; p < n; ++p)
+    nptt::linearize_point<double, double, NB, NQ, NA, M, 0, nptt::kK4PointRhs>(
+        st, p, n_cg, P, I, xs.data(), us.data(), cms.data(), zs.data(), fx.data(), fu.data());
   for (int p = 0; p < n; ++p) {
     double qo[NQ], vo[NQ], qc[NQ], vc[NQ], cmo[M];
     nptt::frozen_step<double, double, NB, NQ, NA, M, 0>(P, I, &xs[p * NX], &xs[p * NX + NQ],
@@ -322,7 +332,29 @@ void run(const double* P, const int* I, const double* w, const std::vector<doubl
   printf("%.17g\n", cost);
 }
 
-int main() {
+// qdiv(a, b) and a / b as bit patterns, side by side, over zeros of both
+// signs, a denormal, infinite, NaN and zero divisors and nonzero dividends
+template <typename F, typename U>
+static void print_qdiv() {
+  const F inf = F(INFINITY), nan = F(NAN), tiny = std::numeric_limits<F>::denorm_min();
+  const F as[] = {F(0), -F(0), F(0), -F(0), F(0), -F(0), F(0), -F(0), F(0), F(0), F(1), F(-2.5)};
+  const F bs[] = {F(1.5), F(1.5), F(-3), F(-3), tiny, -tiny, inf, -inf, F(0), nan, F(3), F(7)};
+  for (int k = 0; k < 12; ++k) {
+    const F q = nptt::qdiv(as[k], bs[k]), r = as[k] / bs[k];
+    U bq, br;
+    std::memcpy(&bq, &q, sizeof(F));
+    std::memcpy(&br, &r, sizeof(F));
+    printf("%llx %llx ", (unsigned long long)bq, (unsigned long long)br);
+  }
+  printf("\n");
+}
+
+int main(int argc, char** argv) {
+  if (argc > 1 && std::string(argv[1]) == "qdiv") {
+    print_qdiv<double, unsigned long long>();
+    print_qdiv<float, unsigned int>();
+    return 0;
+  }
   int nb, nq, na, m, n, nr, ni, n_cg;
   if (scanf("%d %d %d %d %d %d %d %d", &nb, &nq, &na, &m, &n, &nr, &ni, &n_cg) != 8) return 2;
   std::vector<double> P(nr), w(8 * nq + na), pts(n * (2 * nq + na + m));
@@ -382,9 +414,9 @@ def contact_points(n=8, seed=6):
 
 @functools.lru_cache(maxsize=None)
 def run_contact(exe, n_cg):
-    """(model, x, u, cmask, operation counts of frozen_step, class_step and
-    frozen_step on duals, one row per point, one row per trajectory step,
-    K2's trajectory cost)."""
+    """(model, x, u, cmask, operation counts of frozen_step, class_step,
+    frozen_step on duals and K4's body, one row per point, one row per
+    trajectory step, K2's trajectory cost)."""
     model = limited_cartpole()
     x, u, cm = contact_points()
     P, I = device_step.pack_model(model)
@@ -399,11 +431,11 @@ def run_contact(exe, n_cg):
                       " ".join(repr(float(v)) for v in np.concatenate([x, u, cm], axis=1).ravel())])
     out = subprocess.run([str(exe)], input=text, capture_output=True, text=True,
                          check=True, timeout=60).stdout.splitlines()
-    counts = [dict(zip(KINDS, (int(c) for c in line.split()))) for line in out[:3]]
+    counts = [dict(zip(KINDS, (int(c) for c in line.split()))) for line in out[:4]]
     n = x.shape[0]
-    rows = np.array([[float(v) for v in line.split()] for line in out[3:3 + n]])
-    traj = np.array([[float(v) for v in line.split()] for line in out[3 + n:3 + 2 * n]])
-    return model, x, u, cm, counts, rows, traj, float(out[3 + 2 * n])
+    rows = np.array([[float(v) for v in line.split()] for line in out[4:4 + n]])
+    traj = np.array([[float(v) for v in line.split()] for line in out[4 + n:4 + 2 * n]])
+    return model, x, u, cm, counts, rows, traj, float(out[4 + 2 * n])
 
 
 @pytest.mark.parametrize("n_cg", CG_DEPTHS)
@@ -421,13 +453,41 @@ def test_frozen_and_class_steps_match_plain(contact_exe, n_cg):
     assert 0 < cm2.sum() < cm2.numel()
 
 
+def tie_rule_live(model, x, u, cm):
+    """Per point, whether the tangent of reg = eps max(max|Qf|, 1)^2 by
+    jnp's tie rule is live: an entry of Qf = C A R + (I - C) with both rows
+    clamping attains max|Qf| >= 1 (the planner assembly's A, no slot)."""
+    from nimblephysics_tpu_torch.ops import dynamics as td
+    from nimblephysics_tpu_torch.ops.collide import detect_contacts
+    from nimblephysics_tpu_torch.ops.contact import build_constraint_system
+
+    xt, ut, c = torch.tensor(x), torch.tensor(u), torch.tensor(cm)
+    q, v = xt[:, :model.nq], xt[:, model.nq:]
+    kin = td.forward_kinematics(model, q)
+    v_star = v + model.dt * td.aba(model, q, v, model.action_to_tau(ut), kin=kin)
+    _, A, *_ = build_constraint_system(model, q, v_star, kin, detect_contacts(model, kin.T_wb),
+                                       planner=True)
+    Qf = c[:, :, None] * A * c[:, None, :] ** 2 + torch.diag_embed(1 - c)
+    mx = Qf.abs().amax((1, 2))
+    tied = (Qf.abs() == mx[:, None, None]) & ((c[:, :, None] * c[:, None, :]) != 0)
+    return (tied.any((1, 2)) & (mx >= 1)).numpy()
+
+
 @pytest.mark.parametrize("n_cg", CG_DEPTHS)
 def test_linearize_split_thread_matches_implicit_jacfwd(contact_exe, n_cg):
-    """K4's thread body (the frozen step on duals, with solve_frozen's
-    implicit tangent) against jacfwd of the plain frozen step."""
+    """K4's one-thread body (linearize_point: the primal once, each
+    direction's tangent right-hand side through the factors of A, the
+    tangent PCGs over the one Qf) against jacfwd of the plain frozen step,
+    whose tangent through solve_frozen is the implicit one. The points
+    include some where the tie rule's tangent of reg is live (a clamping
+    row's entry of C A R, above 1, attains max|Qf|) and some where it is
+    not; on every point the pole angle's direction carries dM, whose
+    terms h = -M^-1 dM w and k = -dM pz enter its right-hand side."""
     from nimblephysics_tpu_torch.ops.cuda_linearize import linearize_split_plain
 
     model, x, u, cm, _, rows, _, _ = run_contact(contact_exe, n_cg)
+    live = tie_rule_live(model, x, u, cm)
+    assert live.any() and not live.all()
     n = x.shape[0]
     cmt = torch.tensor(cm)[:, None]
     fx, fu = linearize_split_plain(model, torch.tensor(x)[:, None], torch.tensor(u)[:, None],
@@ -439,7 +499,7 @@ def test_linearize_split_thread_matches_implicit_jacfwd(contact_exe, n_cg):
 def test_linearize_split_thread_rejects_the_iterated_tangent(contact_exe, monkeypatch):
     """At one PCG iteration the derivative taken through the iteration is
     another Jacobian: the comparison above, at rel 1e-11, would reject a
-    thread body that pushed its duals through the PCG."""
+    body that pushed its tangents through the PCG."""
     from torch_port_helpers import iterate_through_pcg
 
     from nimblephysics_tpu_torch.ops.cuda_linearize import linearize_split_plain
@@ -481,7 +541,13 @@ def test_constrained_op_counts_match_code(contact_exe, n_cg):
     """The closed-form counts behind the bounds of K2 with classes, K4 and
     K6 equal what frozen_step and class_step do, kind by kind, and the
     tangent of frozen_step on duals (with solve_frozen's second PCG) in
-    total."""
+    total; K4's one-thread body (linearize_point) does what
+    point_jvp_op_kinds counts, kind by kind, and the factored least work
+    (jvp_point_least_ops: the primal once, the directions' tangent sweeps
+    without their values) is that count without the values of the
+    directions' dual inputs but the first's, and lies below a plain frozen
+    step and nx + na forward-mode tangents of it: K4's bound takes the
+    smaller."""
     model, _, _, _, counts, _, _, _ = run_contact(contact_exe, n_cg)
     frozen = device_step.frozen_step_op_kinds(model, n_cg)
     assert counts[0] == {k: frozen.get(k, 0) for k in KINDS}
@@ -489,6 +555,34 @@ def test_constrained_op_counts_match_code(contact_exe, n_cg):
     assert counts[1] == {k: cls.get(k, 0) for k in KINDS}
     assert sum(counts[2].values()) - sum(counts[0].values()) == \
         device_step.frozen_step_tangent_ops(model, n_cg)
+    point = device_step.point_jvp_op_kinds(model, n_cg)
+    assert counts[3] == {k: point.get(k, 0) for k in KINDS}
+    p = device_step._jvp_parts(model, n_cg, 1)
+    k_dirs = 2 * model.nq + model.num_actions
+    # the directions' values, less the dynamics' (forward_dynamics without
+    # the Euler update, mass_matrix), which the primal takes from them
+    dyn_values = (sum(device_step.step_op_kinds(model).values()) - 4 * model.nq
+                  + sum(device_step._mass_matrix_ops(model).values()))
+    values = (k_dirs * sum(p["col"].values()) + model.nq * sum(p["qcol"].values())
+              - dyn_values)
+    least = device_step.jvp_point_least_ops(model, n_cg)
+    assert least == sum(counts[3].values()) - values
+    plain, tangent = device_step.frozen_step_ops(model, n_cg)
+    assert least < plain + k_dirs * tangent
+
+
+def test_qdiv_gives_the_division_bit_for_bit(contact_exe):
+    """The frozen PCG's quotients (csrc/common.cuh qdiv, which skips the
+    division of a zero by a finite nonzero divisor) have the bits of the
+    IEEE division, in f64 and f32: signed zeros over divisors of both
+    signs and a denormal one, and the division itself where the divisor is
+    infinite, zero or NaN or the dividend nonzero."""
+    out = subprocess.run([str(contact_exe), "qdiv"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.splitlines()
+    assert len(out) == 2
+    for line in out:
+        bits = line.split()
+        assert len(bits) == 24 and bits[0::2] == bits[1::2], line
 
 
 def test_pack_model_appends_constraint_rows():
@@ -1092,8 +1186,9 @@ def test_worm_jvp_op_counts_match_code(worm_exe, n_cg):
     classes= and linearize_split at m = 28): its group body kind by kind on
     a group of kK4Group lanes and on a group of one (every lane's share of
     the work counted), and its least work, the one-lane body without the
-    values of its directions' dual inputs, below the count it replaces (a
-    plain frozen step and nx + na forward-mode tangents of it)."""
+    values of its directions' dual inputs and without q' = q + dt v, below
+    the count it replaces (a plain frozen step and nx + na forward-mode
+    tangents of it)."""
     model, *_ = run_worm(worm_exe, n_cg, False)
     counts = run_worm(worm_exe, n_cg, False)[5]
     for got, group in ((counts[4], device_step.K4_GROUP), (counts[5], 1)):
@@ -1103,7 +1198,7 @@ def test_worm_jvp_op_counts_match_code(worm_exe, n_cg):
     k_dirs = 2 * model.nq + model.num_actions
     values = k_dirs * sum(p["col"].values()) + model.nq * sum(p["qcol"].values())
     least = device_step.jvp_point_least_ops(model, n_cg)
-    assert least == sum(counts[5].values()) - values
+    assert least == sum(counts[5].values()) - values - 2 * model.nq
     frozen, tangent = device_step.frozen_step_ops(model, n_cg)
     assert least < frozen + k_dirs * tangent
 

@@ -31,11 +31,13 @@ and holding each one against its plain PyTorch version:
 Phases:
 
   1. environment: torch, the card, its power limit (nvidia-smi);
-  2. build: one nvcc call for every source (skipped when already built),
+  2. build: one nvcc per source, all at once, then a link (skipped when
+     already built),
      its time and ptxas's registers and spills;
   3. K1-K3 against their plain versions at B=512, T=100, in f64
      (rel 1e-9) and f32 (rel 2e-4), and the Riccati kernel's second
-     instance, (nx, na) = (6, 3); then each kernel at the contact-free
+     instance, (nx, na) = (6, 3), then the Riccati kernel's lane-group
+     layout at its three instances; then each kernel at the contact-free
      path's shapes in f32 with kernel and plain times;
   4. the contact-free path at full width: f64 kernel path against the plain
      path on the card (cost within rel 1e-10; u within 1e-8 abs in every
@@ -252,7 +254,7 @@ CONTACT_COUNTER = {"rollout_classes": "rollout_classes", "linearize_split": "lin
 REPLACES = {
     "riccati_backward": ("nimblephysics_tpu_torch/csrc/riccati.cu",
                          "nimblephysics_tpu/ops/pallas_riccati.py:329"),
-    "linearize": ("nimblephysics_tpu_torch/csrc/linearize.cu",
+    "linearize": ("nimblephysics_tpu_torch/csrc/linearize_free.cu",
                   "nimblephysics_tpu/ops/pallas_linearize.py:205"),
     "rollout_gains": ("nimblephysics_tpu_torch/csrc/rollout.cu",
                       "nimblephysics_tpu/ops/pallas_rollout.py:371"),
@@ -384,9 +386,11 @@ def least_work(model, B, T, A, itemsize):
     """(bytes, operations) each kernel's function needs at these sizes:
     every input read once and every output written once; the arithmetic
     the kernel's note describes, with the model's constants left out. The
-    device step's count is device_step.step_ops (csrc/step.cuh)."""
+    device step's count is device_step.step_ops (csrc/step.cuh); K3's is
+    device_step.k3_least_ops, the step once and each direction's tangent
+    alone, with what the direction leaves fixed plain."""
     nx, na = 2 * model.nq, model.num_actions
-    step, tangent = device_step.step_ops(model)
+    step, _ = device_step.step_ops(model)
     n, m = nx, na
     ric_in = B * T * (2 * n * n + n * m + n + m + m * m + m * n) + B * (n + n * n + 1)
     ric_out = B * T * (m * n + m) + 2 * B
@@ -397,8 +401,8 @@ def least_work(model, B, T, A, itemsize):
         # K1: one backward step per (world, t)
         "riccati_backward": (itemsize * (ric_in + ric_out) + B,
                              B * T * riccati_step_ops(n, m)),
-        # K3: one plain step and nx + na tangents per point
-        "linearize": (itemsize * lin_io, B * T * (step + (nx + na) * tangent)),
+        # K3: per point one plain step and each direction's tangent alone
+        "linearize": (itemsize * lin_io, B * T * device_step.k3_least_ops(model)),
         # K2: per (alpha, world, t) the control law, the running cost (its
         # target subtracted) and a step; the final cost per (alpha, world)
         "rollout_gains": (itemsize * (roll_in + roll_out),
@@ -905,8 +909,15 @@ _K4_GROUPS = ("at m = 28 a lane group per point (csrc/frozen_group.cuh): the pri
               "(x, u), then the nx + na tangent PCGs over one Qf in shared memory")
 _K2_THREAD = ("one thread per (alpha, world), the alphas of a world on neighbouring lanes, "
               "32 threads per block (csrc/rollout.cu)")
+_K1_GROUPS = ("a lane group per world (csrc/riccati.cu), a lane per row of Vxx; the inputs "
+              "read in place, a chunk of steps ahead staged in shared memory by cp.async")
 DESIGN = {
-    "riccati_backward": _THREAD.format("world"), "linearize": _THREAD.format("(point, direction)"),
+    "riccati_backward": _K1_GROUPS,
+    "linearize": ("one thread per (point, direction), a block of neighbouring points per "
+                  "direction (csrc/linearize_free.cu linearize_dir): a direction of q on dual "
+                  "numbers throughout, one of v with the transforms and articulated inertias "
+                  "plain, one of u with the velocities plain too; the step's loops under a plain "
+                  "#pragma unroll"),
     "rollout_gains": _K2_THREAD,
     "linearize_split": ("one thread per point (csrc/linearize.cu linearize_point): each "
                         "direction's dual inputs, the primal once (its dynamics' values from the "
@@ -919,7 +930,7 @@ DESIGN = {
                     "rows of A in registers, the residual kept current by one broadcast per "
                     "row update"),
     "linearize_vjp": _K5_GROUPS, "rollout_gains[worm]": _K2_GROUPS.format("(alpha, world)"),
-    "riccati_backward[worm]": _THREAD.format("world"),
+    "riccati_backward[worm]": _K1_GROUPS,
     "linearize[classes]": "K4's kernel at PCG depth m + 6: " + _K4_GROUPS,
     "linearize_split[worm]": "K4's kernel at PCG depth 12: " + _K4_GROUPS,
     "chained_linearize_vjp": "K5's kernel: " + _K5_GROUPS,
@@ -1457,7 +1468,7 @@ def main() -> int:
     log(f"{elapsed()} phase 2: build")
     path, nvcc_s = _build.build()
     _build.load()
-    log(f"build: one nvcc call, {nvcc_s:.1f} s "
+    log(f"build: one nvcc per source at once and a link, {nvcc_s:.1f} s "
         f"({'built now' if nvcc_s else 'already built'}) -> {path}")
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -1481,6 +1492,13 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"riccati_backward (6, 3) {dname} disagrees with its plain version")
 
+    for nx, na in ((4, 1), (6, 3), (8, 2)):
+        lay = {d: _build.riccati_layout(nx, na, dt) for d, dt in (("f32", torch.float32),
+                                                                  ("f64", torch.float64))}
+        log(f"  riccati_backward ({nx}, {na}): {lay['f32']['lanes']} lanes per world, "
+            f"{lay['f32']['per_block']} worlds per block ({lay['f64']['per_block']} in f64), "
+            f"chunks of {lay['f32']['chunk']} steps, shared memory per block "
+            f"{lay['f32']['shared_bytes']} B (f32) / {lay['f64']['shared_bytes']} B (f64)")
     log(f"{elapsed()} phase 3b: each kernel at the main path's shapes, f32, B={B_FULL}, T={H}")
     full = kernel_inputs(dev, B_FULL, H, torch.float32)
     records = {}

@@ -50,6 +50,21 @@ NPTT_HD bool nisnan(T x) {
 // unroll (scripts/torch_unroll_variants.py, PERF.md section 6).
 NPTT_HD constexpr int unroll_by(bool full, int trips) { return full ? (trips > 2 ? trips : 2) : 1; }
 
+// The unroll pragma of a loop of step.cuh: #pragma unroll (unroll_by(full,
+// trips)), or a plain #pragma unroll in a file that defines
+// NPTT_PLAIN_UNROLL before its includes, where every instance unrolls every
+// such loop and each has a compile-time trip count (K3's,
+// linearize_free.cu). On the card the counted pragma left K3's dual step
+// with a 1,264-byte stack frame and 309 local loads in straight-line code,
+// the plain one 688 bytes and 132, and K3 ran 1.7x faster (PERF.md section
+// 6): the count and the plain pragma do not build the same code.
+#define NPTT_STR(x) #x
+#ifdef NPTT_PLAIN_UNROLL
+#define NPTT_UNROLL(full, trips) _Pragma("unroll")
+#else
+#define NPTT_UNROLL(full, trips) _Pragma(NPTT_STR(unroll (unroll_by(full, trips))))
+#endif
+
 // a / b. Where a is zero and b finite and nonzero the quotient is the
 // signed zero a * b, so no division runs: on the card an IEEE division
 // whose dividend is zero leaves its fast path for a call, and the frozen

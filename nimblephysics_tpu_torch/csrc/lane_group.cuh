@@ -5,7 +5,7 @@
 // runs the same bodies with one host thread per lane: sync() is a barrier,
 // and each shuffle exchanges the lanes' values through an array, the
 // butterflies in the device's order. K2, K4 and K5 at the worm's m = 28
-// (frozen_group.cuh) and K7 (lcp.cu) run on such groups.
+// (frozen_group.cuh), K7 (lcp.cu) and K1 (riccati.cu) run on such groups.
 #pragma once
 
 #include "common.cuh"
@@ -23,10 +23,11 @@ namespace nptt {
 NPTT_HD constexpr int log2_of(int g) { return g > 1 ? 1 + log2_of(g / 2) : 0; }
 
 #ifdef __CUDACC__
-// G lanes of one warp (G = 8, 16 or 32, aligned within the warp).
+// G lanes of one warp (G a power of two up to 32, aligned within the warp).
 template <int G>
 struct WarpGroup {
-  static_assert(G == 8 || G == 16 || G == 32, "a group is 8, 16 or 32 lanes of one warp");
+  static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0,
+                "a group is a power of two of lanes of one warp");
   int lane, base;  // the lane in the group; the warp lane of the group's lane 0
   unsigned mask;
   NPTT_HD void sync() const {

@@ -70,23 +70,23 @@ struct StepLayout {
 // out = R x, R row-major 3x3
 template <bool U, typename M, typename X, typename O>
 NPTT_HD void mv3(const M* R, const X* x, O* out) {
-#pragma unroll (unroll_by(U, 3))
+NPTT_UNROLL(U, 3)
   for (int i = 0; i < 3; ++i) out[i] = R[3 * i] * x[0] + R[3 * i + 1] * x[1] + R[3 * i + 2] * x[2];
 }
 
 // out = R^T x
 template <bool U, typename M, typename X, typename O>
 NPTT_HD void mtv3(const M* R, const X* x, O* out) {
-#pragma unroll (unroll_by(U, 3))
+NPTT_UNROLL(U, 3)
   for (int i = 0; i < 3; ++i) out[i] = R[i] * x[0] + R[3 + i] * x[1] + R[6 + i] * x[2];
 }
 
 // out = A B, 3x3 row-major
 template <bool U, typename MA, typename MB, typename O>
 NPTT_HD void mm3(const MA* A, const MB* B, O* out) {
-#pragma unroll (unroll_by(U, 3))
+NPTT_UNROLL(U, 3)
   for (int i = 0; i < 3; ++i)
-#pragma unroll (unroll_by(U, 3))
+NPTT_UNROLL(U, 3)
     for (int j = 0; j < 3; ++j)
       out[3 * i + j] = A[3 * i] * B[j] + A[3 * i + 1] * B[3 + j] + A[3 * i + 2] * B[6 + j];
 }
@@ -99,9 +99,11 @@ NPTT_HD void cross3(const A* a, const B* b, O* out) {
 }
 
 // Ad(T^-1) V = (R^T w; R^T (v - p x w)) — parent-frame motion into the child frame
-template <bool U, typename S, typename X>
-NPTT_HD void ad_inv_apply(const S* R, const S* p, const X* V, S* out) {
-  S pxw[3], d[3];
+// (out's type O holds both S and X: the two are the same but in the mixed
+// steps of K3, whose transforms may be plain and V dual)
+template <bool U, typename S, typename X, typename O>
+NPTT_HD void ad_inv_apply(const S* R, const S* p, const X* V, O* out) {
+  O pxw[3], d[3];
   cross3(p, V, pxw);
   for (int i = 0; i < 3; ++i) d[i] = V[3 + i] - pxw[i];
   mtv3<U>(R, V, out);
@@ -109,9 +111,9 @@ NPTT_HD void ad_inv_apply(const S* R, const S* p, const X* V, S* out) {
 }
 
 // Ad(T^-1)^T F = (R n + p x (R f); R f) — child-frame force into the parent frame
-template <bool U, typename S>
-NPTT_HD void ad_dual_apply(const S* R, const S* p, const S* F, S* out) {
-  S Rn[3], Rf[3], pxRf[3];
+template <bool U, typename S, typename O>
+NPTT_HD void ad_dual_apply(const S* R, const S* p, const O* F, O* out) {
+  O Rn[3], Rf[3], pxRf[3];
   mv3<U>(R, F, Rn);
   mv3<U>(R, F + 3, Rf);
   cross3(p, Rf, pxRf);
@@ -132,8 +134,8 @@ NPTT_HD void ad_motion(const S* V, const S* W, S* out) {
 }
 
 // V x_f F = (w x n + v x f; w x f)
-template <typename S>
-NPTT_HD void ad_dual(const S* V, const S* F, S* out) {
+template <typename S, typename O>
+NPTT_HD void ad_dual(const S* V, const S* F, O* out) {
   S a[3], b[3];
   cross3(V, F, a);
   cross3(V + 3, F + 3, b);
@@ -144,10 +146,10 @@ NPTT_HD void ad_dual(const S* V, const S* F, S* out) {
 // out = M x for a 6x6 row-major M
 template <bool U, typename M, typename X, typename O>
 NPTT_HD void mv6(const M* A, const X* x, O* out) {
-#pragma unroll (unroll_by(U, 6))
+NPTT_UNROLL(U, 6)
   for (int i = 0; i < 6; ++i) {
     O s = A[6 * i] * x[0];
-#pragma unroll (unroll_by(U, 5))
+NPTT_UNROLL(U, 5)
     for (int j = 1; j < 6; ++j) s = s + A[6 * i + j] * x[j];
     out[i] = s;
   }
@@ -181,34 +183,34 @@ NPTT_HD void expm_so3(const S* w, S* R) {
 template <typename T, bool U, typename S, int N>
 NPTT_HD void inv_spd(const S (&A)[N][N], S (&Ai)[N][N]) {
   S rows[N][2 * N];
-#pragma unroll (unroll_by(U, N))
+NPTT_UNROLL(U, N)
   for (int k = 0; k < N; ++k)
-#pragma unroll (unroll_by(U, N))
+NPTT_UNROLL(U, N)
     for (int j = 0; j < N; ++j) {
       rows[k][j] = A[k][j];
       rows[k][N + j] = S(T(k == j ? 1 : 0));
     }
-#pragma unroll (unroll_by(U, N))
+NPTT_UNROLL(U, N)
   for (int k = 0; k < N; ++k) {
     const S inv = T(1) / rows[k][k];
     S prow[2 * N];
-#pragma unroll (unroll_by(U, 2 * N))
+NPTT_UNROLL(U, 2 * N)
     for (int j = 0; j < 2 * N; ++j) prow[j] = rows[k][j] * inv;
-#pragma unroll (unroll_by(U, N))
+NPTT_UNROLL(U, N)
     for (int i = 0; i < N; ++i) {
       if (i == k) {
-#pragma unroll (unroll_by(U, 2 * N))
+NPTT_UNROLL(U, 2 * N)
         for (int j = 0; j < 2 * N; ++j) rows[i][j] = prow[j];
       } else {
         const S f = rows[i][k];
-#pragma unroll (unroll_by(U, 2 * N))
+NPTT_UNROLL(U, 2 * N)
         for (int j = 0; j < 2 * N; ++j) rows[i][j] = rows[i][j] - f * prow[j];
       }
     }
   }
-#pragma unroll (unroll_by(U, N))
+NPTT_UNROLL(U, N)
   for (int i = 0; i < N; ++i)
-#pragma unroll (unroll_by(U, N))
+NPTT_UNROLL(U, N)
     for (int j = 0; j < N; ++j) Ai[i][j] = rows[i][N + j];
 }
 
@@ -223,8 +225,8 @@ struct DynWork {
       a[NB][6], Ic[NB][36];
 };
 
-template <bool EXT, typename W, typename A>
-NPTT_HD A& work_array(W* w, A W::*member, A& local) {
+template <bool EXT, typename W, typename AM, typename A>
+NPTT_HD A& work_array(W* w, AM W::*member, A& local) {
   if constexpr (EXT)
     return w->*member;
   else
@@ -238,10 +240,19 @@ NPTT_HD A& work_array(W* w, A W::*member, A& local) {
 // UR: whether the loops over bodies and dofs unroll (StepLayout::kUnroll;
 // a lane group's lane 0 unrolls them at any shape); EXT: the work arrays
 // in *wk, else local.
-template <typename T, typename S, int NB, int NQ, int NA, bool UR, bool EXT>
+// Three scalar types, each holding the one before it: SQ for what depends
+// on q alone (the transforms, the articulated inertias and their U and
+// D^-1), SV for what also depends on v (the velocities and their bias
+// terms c), S for the rest (the forces, uu, the accelerations). Every step
+// but K3's runs them as one type; K3 (linearize_free.cu) keeps plain what
+// a direction of v or u leaves fixed.
+template <typename T, typename SQ, typename SV, typename S, int NB, int NQ, int NA, bool UR,
+          bool EXT>
 NPTT_HD void forward_dynamics_impl(DynWork<S, NB, NQ>* wk, const T* __restrict__ P,
-                                   const int* __restrict__ I, const S* q, const S* v,
-                                   const S* u, S (&R)[NB][9], S (&p)[NB][3], S (&qdd)[NQ]) {
+                                   const int* __restrict__ I, const SQ* q, const SV* v,
+                                   const S* u, SQ (&R)[NB][9], SQ (&p)[NB][3], S (&qdd)[NQ]) {
+  static_assert(!EXT || (std::is_same<SQ, S>::value && std::is_same<SV, S>::value),
+                "the work arrays in shared memory hold one scalar type");
   using L = StepLayout<NB, NQ, NA>;
   using W = DynWork<S, NB, NQ>;
   const T dt = P[L::kDt];
@@ -249,34 +260,37 @@ NPTT_HD void forward_dynamics_impl(DynWork<S, NB, NQ>* wk, const T* __restrict__
   // generalized force: action on the actuated dofs, implicit spring, damping
   S tau_l[NQ];
   S(&tau)[NQ] = work_array<EXT>(wk, &W::tau, tau_l);
-#pragma unroll (unroll_by(UR, NQ))
+NPTT_UNROLL(UR, NQ)
   for (int d = 0; d < NQ; ++d) tau[d] = S(T(0));
-#pragma unroll (unroll_by(UR, NA))
+NPTT_UNROLL(UR, NA)
   for (int a = 0; a < NA; ++a) {
     const int da = I[L::iActDof + a];
-#pragma unroll (unroll_by(UR, NQ))
+NPTT_UNROLL(UR, NQ)
     for (int d = 0; d < NQ; ++d)
       if (d == da) tau[d] = u[a];
   }
-#pragma unroll (unroll_by(UR, NQ))
+NPTT_UNROLL(UR, NQ)
   for (int d = 0; d < NQ; ++d) {
     const T damp = P[L::kDof + 3 * d], stiff = P[L::kDof + 3 * d + 1], rest = P[L::kDof + 3 * d + 2];
     tau[d] = tau[d] + (-stiff) * (q[d] - rest + v[d] * dt) + (-damp) * v[d];
   }
 
   // forward sweep: kinematics, velocities, bias forces
-  S V_l[NB][6], c_l[NB][6], pA_l[NB][6], IA_l[NB][36];
-  S(&V)[NB][6] = work_array<EXT>(wk, &W::V, V_l);
-  S(&c)[NB][6] = work_array<EXT>(wk, &W::c, c_l);
+  SV V_l[NB][6], c_l[NB][6];
+  S pA_l[NB][6];
+  SQ IA_l[NB][36];
+  SV(&V)[NB][6] = work_array<EXT>(wk, &W::V, V_l);
+  SV(&c)[NB][6] = work_array<EXT>(wk, &W::c, c_l);
   S(&pA)[NB][6] = work_array<EXT>(wk, &W::pA, pA_l);
-  S(&IA)[NB][36] = work_array<EXT>(wk, &W::IA, IA_l);
-#pragma unroll (unroll_by(UR, NB))
+  SQ(&IA)[NB][36] = work_array<EXT>(wk, &W::IA, IA_l);
+NPTT_UNROLL(UR, NB)
   for (int i = 0; i < NB; ++i) {
     const T* Bp = P + i * L::kBody;
     const int jt = I[L::iType + i], dof = I[L::iDof + i], par = I[L::iParent + i];
     const int nd = joint_ndof(jt);
-    S qi = S(T(0)), vi = S(T(0)), qj = S(T(0)), vj = S(T(0));
-#pragma unroll (unroll_by(UR, NQ))
+    SQ qi = SQ(T(0)), qj = SQ(T(0));
+    SV vi = SV(T(0)), vj = SV(T(0));
+NPTT_UNROLL(UR, NQ)
     for (int d = 0; d < NQ; ++d) {
       if (d == dof) {
         qi = q[d];
@@ -287,11 +301,11 @@ NPTT_HD void forward_dynamics_impl(DynWork<S, NB, NQ>* wk, const T* __restrict__
         vj = v[d];
       }
     }
-    S Rq[9], pq[3];
-    for (int k = 0; k < 9; ++k) Rq[k] = S(T((k % 4) == 0 ? 1 : 0));
-    for (int k = 0; k < 3; ++k) pq[k] = S(T(0));
+    SQ Rq[9], pq[3];
+    for (int k = 0; k < 9; ++k) Rq[k] = SQ(T((k % 4) == 0 ? 1 : 0));
+    for (int k = 0; k < 3; ++k) pq[k] = SQ(T(0));
     if (jt == kRevolute) {
-      S w[3] = {Bp[L::kAxis] * qi, Bp[L::kAxis + 1] * qi, Bp[L::kAxis + 2] * qi};
+      SQ w[3] = {Bp[L::kAxis] * qi, Bp[L::kAxis + 1] * qi, Bp[L::kAxis + 2] * qi};
       expm_so3<T, UR>(w, Rq);
     } else if (jt == kPrismatic) {
       for (int k = 0; k < 3; ++k) pq[k] = Bp[L::kAxis + k] * qi;
@@ -299,7 +313,7 @@ NPTT_HD void forward_dynamics_impl(DynWork<S, NB, NQ>* wk, const T* __restrict__
       for (int k = 0; k < 3; ++k) pq[k] = Bp[L::kAxis + k] * qi + Bp[L::kAxis1 + k] * qj;
     }
     // T_pc = T_pj o Q(q) o T_cj^-1
-    S RA[9], pAq[3], tmp[3];
+    SQ RA[9], pAq[3], tmp[3];
     mm3<UR>(Bp + L::kRpj, Rq, RA);
     mv3<UR>(Bp + L::kRpj, pq, tmp);
     for (int k = 0; k < 3; ++k) pAq[k] = tmp[k] + Bp[L::kPpj + k];
@@ -307,39 +321,42 @@ NPTT_HD void forward_dynamics_impl(DynWork<S, NB, NQ>* wk, const T* __restrict__
     mv3<UR>(RA, Bp + L::kPci, tmp);
     for (int k = 0; k < 3; ++k) p[i][k] = tmp[k] + pAq[k];
 
-    S vJ[6], Vpar[6];
+    SV vJ[6], Vpar[6];
     for (int k = 0; k < 6; ++k) {
       vJ[k] = Bp[L::kS + k] * vi;
       if (nd == 2) vJ[k] = vJ[k] + Bp[L::kS1 + k] * vj;
-      Vpar[k] = S(T(0));
+      Vpar[k] = SV(T(0));
     }
     // pp < NB, not pp < i: see StepLayout::kUnroll
-#pragma unroll (unroll_by(UR, NB))
+NPTT_UNROLL(UR, NB)
     for (int pp = 0; pp < NB; ++pp)
       if (pp < i && pp == par) ad_inv_apply<UR>(R[i], p[i], V[pp], Vpar);
     for (int k = 0; k < 6; ++k) V[i][k] = Vpar[k] + vJ[k];
     ad_motion(V[i], vJ, c[i]);
-    S IV[6];
+    SV IV[6];
     mv6<UR>(Bp + L::kI, V[i], IV);
     ad_dual(V[i], IV, pA[i]);
-    for (int k = 0; k < 36; ++k) IA[i][k] = S(Bp[L::kI + k]);
+    for (int k = 0; k < 36; ++k) IA[i][k] = SQ(Bp[L::kI + k]);
   }
 
   // backward sweep: articulated inertias and bias forces
-  S U_l[NB][2][6], Dinv_l[NB][2][2], uu_l[NB][2];
-  S(&U)[NB][2][6] = work_array<EXT>(wk, &W::U, U_l);
-  S(&Dinv)[NB][2][2] = work_array<EXT>(wk, &W::Dinv, Dinv_l);
+  SQ U_l[NB][2][6], Dinv_l[NB][2][2];
+  S uu_l[NB][2];
+  SQ(&U)[NB][2][6] = work_array<EXT>(wk, &W::U, U_l);
+  SQ(&Dinv)[NB][2][2] = work_array<EXT>(wk, &W::Dinv, Dinv_l);
   S(&uu)[NB][2] = work_array<EXT>(wk, &W::uu, uu_l);
-#pragma unroll (unroll_by(UR, NB))
+NPTT_UNROLL(UR, NB)
   for (int i = NB - 1; i >= 0; --i) {
     const T* Sv = P + i * L::kBody + L::kS;
     const T* Sv1 = P + i * L::kBody + L::kS1;
     const int dof = I[L::iDof + i], par = I[L::iParent + i];
     const int nd = joint_ndof(I[L::iType + i]);
-    S Ia[36], pa[6], Iac[6];
+    SQ Ia[36];
+    SV Iac[6];
+    S pa[6];
     if (nd == 1) {
       mv6<UR>(IA[i], Sv, U[i][0]);
-      S D = Sv[0] * U[i][0][0];
+      SQ D = Sv[0] * U[i][0][0];
       S sp = Sv[0] * pA[i][0];
       for (int k = 1; k < 6; ++k) {
         D = D + Sv[k] * U[i][0][k];
@@ -347,7 +364,7 @@ NPTT_HD void forward_dynamics_impl(DynWork<S, NB, NQ>* wk, const T* __restrict__
       }
       Dinv[i][0][0] = T(1) / D;
       S te = S(T(0));
-#pragma unroll (unroll_by(UR, NQ))
+NPTT_UNROLL(UR, NQ)
       for (int d = 0; d < NQ; ++d)
         if (d == dof) te = tau[d];
       uu[i][0] = te - sp;
@@ -362,11 +379,12 @@ NPTT_HD void forward_dynamics_impl(DynWork<S, NB, NQ>* wk, const T* __restrict__
       // pa = pA + Ia c + U D^-1 u
       mv6<UR>(IA[i], Sv, U[i][0]);
       mv6<UR>(IA[i], Sv1, U[i][1]);
-      S D[2][2], sp[2], te[2] = {S(T(0)), S(T(0))};
-#pragma unroll (unroll_by(UR, 2))
+      SQ D[2][2];
+      S sp[2], te[2] = {S(T(0)), S(T(0))};
+NPTT_UNROLL(UR, 2)
       for (int a = 0; a < 2; ++a) {
         const T* Sa = a == 0 ? Sv : Sv1;
-#pragma unroll (unroll_by(UR, 2))
+NPTT_UNROLL(UR, 2)
         for (int b = 0; b < 2; ++b) {
           D[a][b] = Sa[0] * U[i][b][0];
           for (int k = 1; k < 6; ++k) D[a][b] = D[a][b] + Sa[k] * U[i][b][k];
@@ -375,14 +393,14 @@ NPTT_HD void forward_dynamics_impl(DynWork<S, NB, NQ>* wk, const T* __restrict__
         for (int k = 1; k < 6; ++k) sp[a] = sp[a] + Sa[k] * pA[i][k];
       }
       inv_spd<T, UR>(D, Dinv[i]);
-#pragma unroll (unroll_by(UR, NQ))
+NPTT_UNROLL(UR, NQ)
       for (int d = 0; d < NQ; ++d) {
         if (d == dof) te[0] = tau[d];
         if (d == dof + 1) te[1] = tau[d];
       }
       uu[i][0] = te[0] - sp[0];
       uu[i][1] = te[1] - sp[1];
-      S UD[6][2];
+      SQ UD[6][2];
       for (int r = 0; r < 6; ++r)
         for (int b = 0; b < 2; ++b) UD[r][b] = U[i][0][r] * Dinv[i][0][b] + U[i][1][r] * Dinv[i][1][b];
       for (int r = 0; r < 6; ++r)
@@ -393,21 +411,21 @@ NPTT_HD void forward_dynamics_impl(DynWork<S, NB, NQ>* wk, const T* __restrict__
       for (int a = 0; a < 2; ++a) Du[a] = Dinv[i][a][0] * uu[i][0] + Dinv[i][a][1] * uu[i][1];
       for (int k = 0; k < 6; ++k) pa[k] = pA[i][k] + Iac[k] + (U[i][0][k] * Du[0] + U[i][1][k] * Du[1]);
     } else {
-      U[i][0][0] = S(T(0));
-      Dinv[i][0][0] = S(T(0));
+      U[i][0][0] = SQ(T(0));
+      Dinv[i][0][0] = SQ(T(0));
       uu[i][0] = S(T(0));
       for (int k = 0; k < 36; ++k) Ia[k] = IA[i][k];
       mv6<UR>(Ia, c[i], Iac);
       for (int k = 0; k < 6; ++k) pa[k] = pA[i][k] + Iac[k];
     }
     // pp < NB, not pp < i: see StepLayout::kUnroll
-#pragma unroll (unroll_by(UR, NB))
+NPTT_UNROLL(UR, NB)
     for (int pp = 0; pp < NB; ++pp) {
       if (pp >= i || pp != par) continue;
       // IA[pp] += X^T Ia X, X = Ad(T_pc^-1), one column of X at a time
       for (int j = 0; j < 6; ++j) {
-        S e[6], x[6], y[6], col[6];
-        for (int k = 0; k < 6; ++k) e[k] = S(T(k == j ? 1 : 0));
+        SQ e[6], x[6], y[6], col[6];
+        for (int k = 0; k < 6; ++k) e[k] = SQ(T(k == j ? 1 : 0));
         ad_inv_apply<UR>(R[i], p[i], e, x);
         mv6<UR>(Ia, x, y);
         ad_dual_apply<UR>(R[i], p[i], y, col);
@@ -423,9 +441,9 @@ NPTT_HD void forward_dynamics_impl(DynWork<S, NB, NQ>* wk, const T* __restrict__
   const T g[6] = {T(0), T(0), T(0), -P[L::kGrav], -P[L::kGrav + 1], -P[L::kGrav + 2]};
   S a_l[NB][6];
   S(&a)[NB][6] = work_array<EXT>(wk, &W::a, a_l);
-#pragma unroll (unroll_by(UR, NQ))
+NPTT_UNROLL(UR, NQ)
   for (int d = 0; d < NQ; ++d) qdd[d] = S(T(0));
-#pragma unroll (unroll_by(UR, NB))
+NPTT_UNROLL(UR, NB)
   for (int i = 0; i < NB; ++i) {
     const T* Sv = P + i * L::kBody + L::kS;
     const T* Sv1 = P + i * L::kBody + L::kS1;
@@ -435,7 +453,7 @@ NPTT_HD void forward_dynamics_impl(DynWork<S, NB, NQ>* wk, const T* __restrict__
     for (int k = 0; k < 6; ++k) ap[k] = S(T(0));
     if (par < 0) ad_inv_apply<UR>(R[i], p[i], g, ap);
     // pp < NB, not pp < i: see StepLayout::kUnroll
-#pragma unroll (unroll_by(UR, NB))
+NPTT_UNROLL(UR, NB)
     for (int pp = 0; pp < NB; ++pp)
       if (pp < i && pp == par) ad_inv_apply<UR>(R[i], p[i], a[pp], ap);
     for (int k = 0; k < 6; ++k) ap[k] = ap[k] + c[i][k];
@@ -443,7 +461,7 @@ NPTT_HD void forward_dynamics_impl(DynWork<S, NB, NQ>* wk, const T* __restrict__
       S Ua = U[i][0][0] * ap[0];
       for (int k = 1; k < 6; ++k) Ua = Ua + U[i][0][k] * ap[k];
       S qi = Dinv[i][0][0] * (uu[i][0] - Ua);
-#pragma unroll (unroll_by(UR, NQ))
+NPTT_UNROLL(UR, NQ)
       for (int d = 0; d < NQ; ++d)
         if (d == dof) qdd[d] = qi;
       for (int k = 0; k < 6; ++k) a[i][k] = ap[k] + Sv[k] * qi;
@@ -456,7 +474,7 @@ NPTT_HD void forward_dynamics_impl(DynWork<S, NB, NQ>* wk, const T* __restrict__
       }
       S q0 = Dinv[i][0][0] * r[0] + Dinv[i][0][1] * r[1];
       S q1 = Dinv[i][1][0] * r[0] + Dinv[i][1][1] * r[1];
-#pragma unroll (unroll_by(UR, NQ))
+NPTT_UNROLL(UR, NQ)
       for (int d = 0; d < NQ; ++d) {
         if (d == dof) qdd[d] = q0;
         if (d == dof + 1) qdd[d] = q1;
@@ -474,7 +492,7 @@ template <typename T, typename S, int NB, int NQ, int NA,
 NPTT_HD void forward_dynamics(DynWork<S, NB, NQ>& w, const T* __restrict__ P,
                               const int* __restrict__ I, const S* q, const S* v, const S* u,
                               S (&R)[NB][9], S (&p)[NB][3], S (&qdd)[NQ]) {
-  forward_dynamics_impl<T, S, NB, NQ, NA, UR, true>(&w, P, I, q, v, u, R, p, qdd);
+  forward_dynamics_impl<T, S, S, S, NB, NQ, NA, UR, true>(&w, P, I, q, v, u, R, p, qdd);
 }
 
 // with local work arrays (the one-thread step)
@@ -483,7 +501,7 @@ template <typename T, typename S, int NB, int NQ, int NA,
 NPTT_HD void forward_dynamics(const T* __restrict__ P, const int* __restrict__ I,
                               const S* q, const S* v, const S* u, S (&R)[NB][9],
                               S (&p)[NB][3], S (&qdd)[NQ]) {
-  forward_dynamics_impl<T, S, NB, NQ, NA, UR, false>(nullptr, P, I, q, v, u, R, p, qdd);
+  forward_dynamics_impl<T, S, S, S, NB, NQ, NA, UR, false>(nullptr, P, I, q, v, u, R, p, qdd);
 }
 
 // One step x' = f(x, u) of the planning dynamics (simulation/step.py
@@ -495,7 +513,7 @@ NPTT_HD void device_step(const T* __restrict__ P, const int* __restrict__ I,
   const T dt = P[L::kDt];
   S R[NB][9], p[NB][3], qdd[NQ];
   forward_dynamics<T, S, NB, NQ, NA>(P, I, q, v, u, R, p, qdd);
-#pragma unroll (unroll_by(L::kUnroll, NQ))
+NPTT_UNROLL(L::kUnroll, NQ)
   for (int d = 0; d < NQ; ++d) {
     vn[d] = v[d] + dt * qdd[d];
     qn[d] = q[d] + v[d] * dt;
@@ -595,9 +613,9 @@ struct RowLayout {
 // loops unroll, U = StepLayout::kUnroll)
 template <bool U, typename S, int N>
 NPTT_HD void set_at(S (&A)[N][N], int r, int c, S v) {
-#pragma unroll (unroll_by(U, N))
+NPTT_UNROLL(U, N)
   for (int a = 0; a < N; ++a)
-#pragma unroll (unroll_by(U, N))
+NPTT_UNROLL(U, N)
     for (int b = 0; b < N; ++b)
       if (a == r && b == c) A[a][b] = v;
 }
@@ -611,15 +629,15 @@ NPTT_HD void mass_matrix_impl(DynWork<S, NB, NQ>* wk, const T* __restrict__ P,
   using L = StepLayout<NB, NQ, NA>;
   S Ic_l[NB][36];
   S(&Ic)[NB][36] = work_array<EXT>(wk, &DynWork<S, NB, NQ>::Ic, Ic_l);
-#pragma unroll (unroll_by(UR, NB))
+NPTT_UNROLL(UR, NB)
   for (int i = 0; i < NB; ++i)
     for (int k = 0; k < 36; ++k) Ic[i][k] = S(P[i * L::kBody + L::kI + k]);
   // composite inertias: Ic[parent] += X^T Ic X, X = Ad(T_pc^-1), by columns
-#pragma unroll (unroll_by(UR, NB))
+NPTT_UNROLL(UR, NB)
   for (int i = NB - 1; i >= 0; --i) {
     const int par = I[L::iParent + i];
     // pp < NB, not pp < i: see StepLayout::kUnroll
-#pragma unroll (unroll_by(UR, NB))
+NPTT_UNROLL(UR, NB)
     for (int pp = 0; pp < NB; ++pp) {
       if (pp >= i || pp != par) continue;
       for (int j = 0; j < 6; ++j) {
@@ -632,23 +650,23 @@ NPTT_HD void mass_matrix_impl(DynWork<S, NB, NQ>* wk, const T* __restrict__ P,
       }
     }
   }
-#pragma unroll (unroll_by(UR, NQ))
+NPTT_UNROLL(UR, NQ)
   for (int a = 0; a < NQ; ++a)
-#pragma unroll (unroll_by(UR, NQ))
+NPTT_UNROLL(UR, NQ)
     for (int c = 0; c < NQ; ++c) Mm[a][c] = S(T(0));
-#pragma unroll (unroll_by(UR, NB))
+NPTT_UNROLL(UR, NB)
   for (int i = 0; i < NB; ++i) {
     const int dof = I[L::iDof + i];
     if (dof < 0) continue;
     const int nd = joint_ndof(I[L::iType + i]);
-#pragma unroll (unroll_by(UR, 2))
+NPTT_UNROLL(UR, 2)
     for (int ci = 0; ci < 2; ++ci) {
       if (ci >= nd) continue;
       const T* Sv = P + i * L::kBody + (ci == 0 ? L::kS : L::kS1);
       S F[6];
       mv6<UR>(Ic[i], Sv, F);
       // the diagonal block, column dof + ci
-#pragma unroll (unroll_by(UR, 2))
+NPTT_UNROLL(UR, 2)
       for (int cr = 0; cr < 2; ++cr) {
         if (cr >= nd) continue;
         const T* Sr = P + i * L::kBody + (cr == 0 ? L::kS : L::kS1);
@@ -659,7 +677,7 @@ NPTT_HD void mass_matrix_impl(DynWork<S, NB, NQ>* wk, const T* __restrict__ P,
       // carry F = Ic S up the chain of ancestors (parents[j] < j)
       int cur = i;
       // from NB - 1, not from i (jj > i never equals cur): see StepLayout::kUnroll
-#pragma unroll (unroll_by(UR, NB - 1))
+NPTT_UNROLL(UR, NB - 1)
       for (int jj = NB - 1; jj >= 1; --jj) {
         if (jj != cur) continue;
         const int par = I[L::iParent + jj];
@@ -707,7 +725,7 @@ template <typename T, typename S, int NB, int NQ, int NA,
 NPTT_HD void world_frames(const int* __restrict__ I, const S (&R)[NB][9], const S (&p)[NB][3],
                           S (&Rw)[NB][9], S (&pw)[NB][3]) {
   using L = StepLayout<NB, NQ, NA>;
-#pragma unroll (unroll_by(UR, NB))
+NPTT_UNROLL(UR, NB)
   for (int i = 0; i < NB; ++i) {
     const int par = I[L::iParent + i];
     if (par < 0) {
@@ -715,7 +733,7 @@ NPTT_HD void world_frames(const int* __restrict__ I, const S (&R)[NB][9], const 
       for (int k = 0; k < 3; ++k) pw[i][k] = p[i][k];
     }
     // pp < NB, not pp < i: see StepLayout::kUnroll
-#pragma unroll (unroll_by(UR, NB))
+NPTT_UNROLL(UR, NB)
     for (int pp = 0; pp < NB; ++pp) {
       if (pp >= i || pp != par) continue;
       S tmp[3];
@@ -739,7 +757,7 @@ NPTT_HD void slot_jacobian(const T* __restrict__ P, const int* __restrict__ I,
   const int ab = I[RL::iSlotBody + s];
   S pk[3];
   bool anc[NB];
-#pragma unroll (unroll_by(UR, NB))
+NPTT_UNROLL(UR, NB)
   for (int i = 0; i < NB; ++i) {
     anc[i] = false;
     if (i == ab) {
@@ -749,16 +767,16 @@ NPTT_HD void slot_jacobian(const T* __restrict__ P, const int* __restrict__ I,
     }
   }
   int cur = ab;
-#pragma unroll (unroll_by(UR, NB))
+NPTT_UNROLL(UR, NB)
   for (int jj = NB - 1; jj >= 0; --jj)
     if (jj == cur) {
       anc[jj] = true;
       cur = I[L::iParent + jj];
     }
   for (int r = 0; r < 3; ++r)
-#pragma unroll (unroll_by(UR, NQ))
+NPTT_UNROLL(UR, NQ)
     for (int e = 0; e < NQ; ++e) Jp[r][e] = S(T(0));
-#pragma unroll (unroll_by(UR, NB))
+NPTT_UNROLL(UR, NB)
   for (int kb = 0; kb < NB; ++kb) {
     if (!anc[kb]) continue;
     const int dof = I[L::iDof + kb], nd = joint_ndof(I[L::iType + kb]);
@@ -770,7 +788,7 @@ NPTT_HD void slot_jacobian(const T* __restrict__ P, const int* __restrict__ I,
       mv3<UR>(Rw[kb], Sc + 3, Rv);
       cross3(pw[kb], w, pxw);
       cross3(w, pk, wxp);
-#pragma unroll (unroll_by(UR, NQ))
+NPTT_UNROLL(UR, NQ)
       for (int e = 0; e < NQ; ++e)
         if (e == dof + cc)
           for (int r = 0; r < 3; ++r) Jp[r][e] = (pxw[r] + Rv[r]) + wxp[r];
@@ -801,7 +819,7 @@ NPTT_HD void slot_direction(const T* __restrict__ P, int s, int d, T (&dir)[3]) 
 // One contact row dir^T Jp (NQ) of a slot.
 template <bool U, typename T, typename S, int NQ>
 NPTT_HD void slot_row(const T (&dir)[3], const S (&Jp)[3][NQ], S* row) {
-#pragma unroll (unroll_by(U, NQ))
+NPTT_UNROLL(U, NQ)
   for (int e = 0; e < NQ; ++e) row[e] = (dir[0] * Jp[0][e] + dir[1] * Jp[1][e]) + dir[2] * Jp[2][e];
 }
 
@@ -820,14 +838,14 @@ NPTT_HD void contact_rows(const T* __restrict__ P, const int* __restrict__ I,
   for (int s = 0; s < NS; ++s) {
     S Jp[3][NQ];
     slot_jacobian<T, S, NB, NQ, NA, M, NS>(P, I, Rw, pw, s, Jp);
-#pragma unroll (unroll_by(L::kUnroll, 3))
+NPTT_UNROLL(L::kUnroll, 3)
     for (int d = 0; d < 3; ++d) {
       const int row = 3 * s + d;
       T dir[3];
       slot_direction<T, NB, NQ, NA, M, NS>(P, s, d, dir);
       slot_row<L::kUnroll>(dir, Jp, Jc[row]);
       S rel = Jc[row][0] * vs[0];
-#pragma unroll (unroll_by(L::kUnroll, NQ - 1))
+NPTT_UNROLL(L::kUnroll, NQ - 1)
       for (int e = 1; e < NQ; ++e) rel = rel + Jc[row][e] * vs[e];
       b[row] = -rel;
       lo[row] = T(0);
@@ -862,7 +880,7 @@ NPTT_HD void constraint_rows(const T* __restrict__ P, const int* __restrict__ I,
     const T lim = P[RL::kRow + r - C0];
     dofs[r] = d;
     S qd = S(T(0)), vd = S(T(0));
-#pragma unroll (unroll_by(L::kUnroll, NQ))
+NPTT_UNROLL(L::kUnroll, NQ)
     for (int e = 0; e < NQ; ++e)
       if (e == d) {
         qd = q[e];
@@ -890,12 +908,12 @@ NPTT_HD void constraint_rows(const T* __restrict__ P, const int* __restrict__ I,
     for (int c = 0; c < M; ++c) {
       if (c < C0) {
         S mk = Mi[k][0] * Jc[c][0];
-#pragma unroll (unroll_by(L::kUnroll, NQ - 1))
+NPTT_UNROLL(L::kUnroll, NQ - 1)
         for (int e = 1; e < NQ; ++e) mk = mk + Mi[k][e] * Jc[c][e];
         MJ[k][c] = mk;
       } else {
         S mk = S(T(0));
-#pragma unroll (unroll_by(L::kUnroll, NQ))
+NPTT_UNROLL(L::kUnroll, NQ)
         for (int e = 0; e < NQ; ++e)
           if (e == dofs[c]) mk = Mi[k][e];
         MJ[k][c] = mk * coef[c];
@@ -907,12 +925,12 @@ NPTT_HD void constraint_rows(const T* __restrict__ P, const int* __restrict__ I,
     for (int c = 0; c < M; ++c) {
       if (r < C0) {
         S ar = Jc[r][0] * MJ[0][c];
-#pragma unroll (unroll_by(L::kUnroll, NQ - 1))
+NPTT_UNROLL(L::kUnroll, NQ - 1)
         for (int e = 1; e < NQ; ++e) ar = ar + Jc[r][e] * MJ[e][c];
         A[r][c] = ar;
       } else {
         S jr = S(T(0));
-#pragma unroll (unroll_by(L::kUnroll, NQ))
+NPTT_UNROLL(L::kUnroll, NQ)
         for (int e = 0; e < NQ; ++e)
           if (e == dofs[r]) jr = MJ[e][c];
         A[r][c] = coef[r] * jr;
@@ -961,7 +979,7 @@ NPTT_HD void pcg_n(const S (&Qf)[M][M], S reg, const S (&diagM)[M], const S (&bb
                    int n_cg, S (&x)[NR][M]) {
   const T tiny = T(1e-30);
   S r[NR][M], z[NR][M], p[NR][M], rz[NR];
-#pragma unroll (unroll_by(true, NR))
+NPTT_UNROLL(true, NR)
   for (int s = 0; s < NR; ++s) {
 #pragma unroll (row_unroll(M, M))
     for (int i = 0; i < M; ++i) {
@@ -976,7 +994,7 @@ NPTT_HD void pcg_n(const S (&Qf)[M][M], S reg, const S (&diagM)[M], const S (&bb
   }
 #pragma unroll 1
   for (int it = 0; it < n_cg; ++it) {
-#pragma unroll (unroll_by(true, NR))
+NPTT_UNROLL(true, NR)
     for (int s = 0; s < NR; ++s) {
       S Qp[M], Ap[M];
 #pragma unroll (row_unroll(M, M))
@@ -1314,7 +1332,7 @@ NPTT_HD void frozen_inputs(const T* __restrict__ P, const int* __restrict__ I, c
   S R[NB][9], p[NB][3], qdd[NQ], Mm[NQ][NQ], Mi[NQ][NQ];
   T lo[M], hi[M];
   forward_dynamics<T, S, NB, NQ, NA>(P, I, q, v, u, R, p, qdd);
-#pragma unroll (unroll_by(L::kUnroll, NQ))
+NPTT_UNROLL(L::kUnroll, NQ)
   for (int d = 0; d < NQ; ++d) {
     vs[d] = v[d] + dt * qdd[d];
     qn[d] = q[d] + v[d] * dt;
@@ -1350,7 +1368,7 @@ NPTT_HD void class_step(const T* __restrict__ P, const int* __restrict__ I, cons
   S R[NB][9], p[NB][3], qdd[NQ], vs[NQ], Mm[NQ][NQ], Mi[NQ][NQ], A[M][M], b[M], MJ[NQ][M], x[M];
   T lo[M], hi[M];
   forward_dynamics<T, S, NB, NQ, NA>(P, I, q, v, u, R, p, qdd);
-#pragma unroll (unroll_by(L::kUnroll, NQ))
+NPTT_UNROLL(L::kUnroll, NQ)
   for (int d = 0; d < NQ; ++d) {
     vs[d] = v[d] + dt * qdd[d];
     qn[d] = q[d] + v[d] * dt;

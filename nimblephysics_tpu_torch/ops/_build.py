@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` and links them into one
-shared library with a plain C interface (no PyTorch headers), which is
-loaded with ctypes.
+One ``nvcc -c`` per ``csrc/*.cu``, all started together, then one link
+make one shared library with a plain C interface (no PyTorch headers),
+which is loaded with ctypes.
 The library goes to ``_build/<hash of the sources and flags>/``: a changed
 source gets a new directory, so a stale library is never loaded, and the
 file is renamed into place when complete, so no lock file is needed.
@@ -38,7 +38,8 @@ _LL = ctypes.c_longlong
 # argtypes of each extern "C" launcher; every pointer and the stream are
 # c_void_p, or ctypes would pass them as 32-bit ints
 SIGNATURES = {
-    "nptt_riccati": [_I, _I, _I, _LL, _I] + [_P] * 8,
+    "nptt_riccati": [_I, _I, _I, _LL, _I] + [_P] * 15,
+    "nptt_riccati_layout": [_I, _I, _I, _P],
     "nptt_linearize": [_I, _I, _I, _I, _LL] + [_P] * 7,
     "nptt_rollout": [_I, _I, _I, _I, _I, _I, _LL, _LL, _I, _I] + [_P] * 15,
     "nptt_linearize_split": [_I, _I, _I, _I, _I, _LL, _I] + [_P] * 9,
@@ -81,8 +82,43 @@ def _nvcc() -> str:
                        "kernels are built on first use and need the toolkit")
 
 
+def compile_library(cu_files, out: Path) -> tuple:
+    """Compile each .cu file with its own ``nvcc -c``, all at once (the
+    files share no device code), and link the objects into the shared
+    library ``out``. Returns (seconds, nvcc's output: the commands and
+    ptxas's registers and spills); raises if a compile or the link fails."""
+    work = out.with_name(out.name + ".objs")
+    work.mkdir(parents=True, exist_ok=True)
+    nvcc, t0, jobs = _nvcc(), time.perf_counter(), []
+    for src in cu_files:
+        obj, log = work / (Path(src).stem + ".o"), work / (Path(src).stem + ".log")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        with open(log, "w") as f:
+            jobs.append((cmd, obj, log, subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)))
+    logs, failed = [], []
+    for cmd, obj, log, proc in jobs:
+        try:
+            rc = proc.wait(timeout=max(1.0, NVCC_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            for *_, p in jobs:
+                p.kill()
+            raise RuntimeError(f"nvcc timed out after {NVCC_TIMEOUT_S} s") from None
+        logs.append(" ".join(cmd) + "\n" + log.read_text())
+        if rc != 0:
+            failed.append(logs[-1][-4000:])
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    cmd = [nvcc, "-shared", "-Xcompiler", "-fPIC", "-o", str(out), *[str(o) for _, o, _, _ in jobs]]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
+    logs.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n" + proc.stderr[-4000:])
+    shutil.rmtree(work, ignore_errors=True)
+    return time.perf_counter() - t0, "\n".join(logs)
+
+
 def build() -> tuple:
-    """Build the library if it is missing, with one ``nvcc`` call. Returns
+    """Build the library if it is missing (compile_library). Returns
     (path, seconds spent building, 0.0 when the library was already
     there)."""
     lib = library_path()
@@ -90,18 +126,12 @@ def build() -> tuple:
         return lib, 0.0
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
-           *[str(p) for p in sources() if p.suffix == ".cu"]]
-    t0 = time.perf_counter()
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
-    except subprocess.TimeoutExpired as e:
-        raise RuntimeError(f"nvcc timed out after {NVCC_TIMEOUT_S} s") from e
-    seconds = time.perf_counter() - t0
-    (lib.parent / "nvcc.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+        seconds, log = compile_library([p for p in sources() if p.suffix == ".cu"], tmp)
+    except RuntimeError:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError("nvcc failed:\n" + proc.stderr[-4000:])
+        raise
+    (lib.parent / "nvcc.log").write_text(log)
     os.replace(tmp, lib)
     return lib, seconds
 
@@ -182,6 +212,15 @@ def layout(name: str, m: int, dtype) -> dict:
     out = (ctypes.c_longlong * 3)()
     check(getattr(load(), f"nptt_{name}_layout")(int(dtype == torch.float64), m, out), name)
     return {"lanes": out[0], "per_block": out[1], "shared_bytes": out[2]}
+
+
+def riccati_layout(nx: int, na: int, dtype) -> dict:
+    """K1's layout at (nx, na) (csrc/riccati.cu riccati_layout): lanes per
+    world, worlds per block, steps per staged chunk, shared bytes per
+    block."""
+    out = (ctypes.c_longlong * 4)()
+    check(load().nptt_riccati_layout(int(dtype == torch.float64), nx, na, out), "riccati")
+    return {"lanes": out[0], "per_block": out[1], "chunk": out[2], "shared_bytes": out[3]}
 
 
 def stream_ptr(device) -> int:

@@ -9,7 +9,8 @@ frozen-class contact step by forward mode) and ``linearize_pallas_vjp``
 ``dyn_frozen_for_trace`` (the JAX helper ``_tau_stack`` is
 ``Model.action_to_tau`` here, which already stacks). ``linearize``,
 ``linearize_split`` and ``linearize_vjp`` launch the CUDA kernels of
-``csrc/linearize.cu`` on CUDA tensors (``linearize`` with ``classes=``, the
+``csrc/linearize_free.cu`` (K3) and ``csrc/linearize.cu`` (K4, K5) on CUDA
+tensors (``linearize`` with ``classes=``, the
 JAX kernel's monolithic JVP on frozen classes, launches K4's kernel, which
 on Hopper already is one; at the jump worm's m = 28 K4 and K5 run on lane
 groups, csrc/frozen_group.cuh) and run their plain versions,

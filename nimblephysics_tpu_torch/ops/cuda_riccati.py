@@ -2,8 +2,9 @@
 
 Port of ``nimblephysics_tpu/ops/pallas_riccati.py :: riccati_backward_pallas``.
 ``riccati_backward`` launches the CUDA kernel of ``csrc/riccati.cu`` on CUDA
-tensors and runs ``riccati_backward_plain``, a batched loop over t with the
-kernel's arithmetic, on CPU tensors.
+tensors, which reads the inputs where they lie and writes (K, k) in place
+(no packing), and runs ``riccati_backward_plain``, a batched loop over t
+with the kernel's arithmetic, on CPU tensors.
 """
 
 from __future__ import annotations
@@ -63,8 +64,7 @@ def riccati_backward(fx, fu, lx, lu, lxx, luu, lux, Vx_T, Vxx_T, reg):
     name = "riccati_backward"
     dev, dtype = _build.check_inputs(
         name, dict(fx=fx, fu=fu, lx=lx, lu=lu, lxx=lxx, luu=luu, lux=lux,
-                   Vx_T=Vx_T, Vxx_T=Vxx_T, reg=reg),
-        contiguous=("Vx_T", "Vxx_T", "reg"))
+                   Vx_T=Vx_T, Vxx_T=Vxx_T, reg=reg))
     if fu.dim() != 4:
         raise ValueError(f"{name}: fu must be (B, T, nx, na)")
     B, T, nx, na = fu.shape
@@ -79,23 +79,20 @@ def riccati_backward(fx, fu, lx, lu, lxx, luu, lux, Vx_T, Vxx_T, reg):
         return riccati_backward_plain(fx, fu, lx, lu, lxx, luu, lux, Vx_T, Vxx_T, reg)
     if B < 1 or T < 1:
         raise ValueError(f"{name}: empty batch or horizon (B={B}, T={T})")
-    # (T, E, B): one row per step quantity, worlds fastest (coalesced loads)
-    steps = torch.cat([a.reshape(B, T, -1) for a in (fx, fu, lx, lu, lxx, luu, lux)],
-                      dim=-1).permute(1, 2, 0).contiguous()
-    eo = na * nx + na
-    Kk = torch.empty((T, eo, B), dtype=dtype, device=dev)
+    # the kernel reads each input where it lies, a world's steps contiguous;
+    # only an input that is not contiguous is copied
+    ins = [a if a.is_contiguous() else a.contiguous()
+           for a in (fx, fu, lx, lu, lxx, luu, lux, Vx_T, Vxx_T, reg)]
+    K = torch.empty((B, T, na, nx), dtype=dtype, device=dev)
+    k = torch.empty((B, T, na), dtype=dtype, device=dev)
     dV = torch.empty((B, 2), dtype=dtype, device=dev)
     ok = torch.empty((B,), dtype=torch.bool, device=dev)
     lib = _build.load()
     rc = lib.nptt_riccati(
-        int(dtype == torch.float64), nx, na, B, T, steps.data_ptr(),
-        Vx_T.data_ptr(), Vxx_T.data_ptr(), reg.data_ptr(), Kk.data_ptr(),
-        dV.data_ptr(), ok.data_ptr(), _build.stream_ptr(dev))
+        int(dtype == torch.float64), nx, na, B, T, *[a.data_ptr() for a in ins],
+        K.data_ptr(), k.data_ptr(), dV.data_ptr(), ok.data_ptr(), _build.stream_ptr(dev))
     _build.check(rc, name)
     riccati_backward.launches += 1
-    Kk = Kk.permute(2, 0, 1)                                   # (B, T, eo)
-    K = Kk[..., : na * nx].reshape(B, T, na, nx).contiguous()
-    k = Kk[..., na * nx:].contiguous()
     return K, k, dV, ok
 
 

@@ -200,10 +200,6 @@ def _mv3(const: bool) -> Counter:
     return _ops(add=6, **{"mul_c" if const else "mul": 9})
 
 
-def _mm3_c() -> Counter:
-    return _ops(mul_c=27, add=18)
-
-
 def _cross3(const: bool = False) -> Counter:
     return _ops(add=3, **{"mul_c" if const else "mul": 6})
 
@@ -217,54 +213,12 @@ def _ad_inv_apply(const_v: bool) -> Counter:
 
 
 _AD_DUAL_APPLY = _mv3(False) + _mv3(False) + _cross3() + _ops(add=3)
-_AD_MOTION = _ops(3, mul=6, add=3) + _ops(add=3)          # also ad_dual
-# expm_so3 on its sin/cos branch, the shorter of its two; the Taylor branch
-# (theta^2 < 1e-8) costs 4 plain operations more and the same tangent.
-_EXPM_SO3 = (_ops(mul=3, add=2) + _ops(sqrt=1, sin=1, cos=1, div=2, add=1)
-             + _ops(add=3) + _ops(mul=27, add=18) + _ops(mul=18, add=9) + _ops(add_c=3))
-
-
 def step_op_kinds(model: Model) -> Counter:
-    """Operations of one device_step on this model, by kind, following
-    csrc/step.cuh line by line."""
+    """Operations of one device_step on this model, by kind (csrc/step.cuh:
+    forward_dynamics_impl with every scalar type plain, then the Euler
+    update; typed_step_op_kinds follows the code line by line)."""
     check_model(model)
-    nb, nq = model.num_bodies, model.nq
-    nds = model.joint_ndofs
-    c = _ops(nq, add_c=1, mul_c=3, add=3)                  # tau
-    for i, jt in enumerate(model.joint_types):             # forward sweep
-        if jt == "revolute":
-            c += _ops(mul_c=3) + _EXPM_SO3
-        elif jt == "prismatic":
-            c += _ops(mul_c=3)
-        elif jt == "translational2d":
-            c += _ops(3, mul_c=2, add=1)
-        c += _mm3_c() + _mv3(True) + _ops(add_c=3) + _mm3_c() + _mv3(True) + _ops(add=3)
-        c += _ops(mul_c=6)                                 # vJ
-        if nds[i] == 2:
-            c += _ops(6, mul_c=1, add=1)
-        if model.parents[i] >= 0:
-            c += _ad_inv_apply(False)
-        c += _ops(add=6) + _AD_MOTION + _mv6(True) + _AD_MOTION
-    for i in reversed(range(nb)):                          # backward sweep
-        if nds[i] == 1:
-            c += (_mv6(True) + _ops(mul_c=12, add=10) + _ops(div=1, add=1)
-                  + _ops(36, mul=2, add=1) + _mv6(False) + _ops(mul=1) + _ops(6, add=2, mul=1))
-        elif nds[i] == 2:
-            c += (_ops(2, **_mv6(True)) + _ops(6, mul_c=6, add=5) + _inv_spd_ops(2)
-                  + _ops(add=2) + _ops(12, mul=2, add=1) + _ops(36, mul=2, add=2)
-                  + _mv6(False) + _ops(2, mul=2, add=1) + _ops(6, mul=2, add=3))
-        else:
-            c += _mv6(False) + _ops(add=6)
-        if model.parents[i] >= 0:
-            col = _ad_inv_apply(False) + _mv6(False) + _AD_DUAL_APPLY + _ops(add=6)
-            c += _ops(6, **col) + _AD_DUAL_APPLY + _ops(add=6)
-    for i in range(nb):                                    # accelerations
-        c += _ad_inv_apply(model.parents[i] < 0) + _ops(add=6)
-        if nds[i] == 1:
-            c += _ops(mul=6, add=5) + _ops(add=1, mul=1) + _ops(mul_c=6, add=6)
-        elif nds[i] == 2:
-            c += _ops(2, mul=6, add=6) + _ops(2, mul=2, add=1) + _ops(6, mul_c=2, add=2)
-    return c + _ops(nq, mul_c=2, add=2)                    # Euler update
+    return typed_step_op_kinds(model, False, False, False)
 
 
 def step_ops(model: Model) -> tuple:
@@ -648,3 +602,340 @@ def jvp_point_least_ops(model: Model, n_cg: int) -> int:
     qsweep = _ops(nq, **(_tangent_kinds(p["qcol"]) + p["qcontract"]))
     unused = _ops(nq, mul_c=1, add=1 if total_slots(model) else 2)
     return sum((p["dyn"] + p["primal"] + p["pcg"] + sweep + qsweep - unused).values())
+
+
+# K3's body (csrc/linearize_free.cu linearize_dir) runs the
+# step's forward_dynamics with three scalar types (csrc/step.cuh
+# forward_dynamics_impl: SQ for what depends on q alone, SV for what also
+# depends on v, S for the rest), each plain or dual by the direction's
+# kind, so an operation's tangent depends on which of its operands are
+# dual: a product of a dual and a plain variable adds one product, not two
+# and a sum, and a sum of a dual and a plain variable adds nothing (but a
+# plain variable minus a dual one, whose tangent is negated). _Op is a
+# counting scalar with those rules (csrc/common.cuh Dual over the host
+# build's counting scalar); _typed_dynamics follows forward_dynamics_impl
+# line by line on it, every array declared with the type the code gives
+# it. Model constants are Python floats, counted as the host build counts
+# double constants.
+
+
+class _Op:
+    __slots__ = ("dual", "c")
+
+    def __init__(self, dual: bool, c: Counter):
+        self.dual, self.c = dual, c
+
+    def _bin(self, o, kind_vv, kind_vc, dual_rule):
+        c = self.c
+        if not isinstance(o, _Op):                       # variable op constant
+            c[kind_vc] += 2 if self.dual and kind_vc == "mul_c" else 1
+            return _Op(self.dual, c)
+        if not (self.dual or o.dual):
+            c[kind_vv] += 1
+            return _Op(False, c)
+        for k, n in dual_rule(self.dual, o.dual).items():
+            c[k] += n
+        return _Op(True, c)
+
+    def __add__(self, o):
+        return self._bin(o, "add", "add_c", lambda a, b: {"add": 2 if a and b else 1})
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._bin(o, "add", "add_c", lambda a, b: {"add": 1 if a and not b else 2})
+
+    def __rsub__(self, o):                               # constant - variable
+        self.c["add"] += 2 if self.dual else 1
+        return _Op(self.dual, self.c)
+
+    def __neg__(self):
+        self.c["add"] += 2 if self.dual else 1
+        return _Op(self.dual, self.c)
+
+    def __mul__(self, o):
+        return self._bin(o, "mul", "mul_c",
+                         lambda a, b: {"mul": 3, "add": 1} if a and b else {"mul": 2})
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        if not isinstance(o, _Op):
+            self.c["mul_c"] += 2 if self.dual else 1
+            return _Op(self.dual, self.c)
+        return self._bin(o, "div", "mul_c",
+                         lambda a, b: {"div": 2} if a and not b
+                         else {"div": 2, "mul": 1, "add": 1})
+
+    def __rtruediv__(self, o):                           # constant / variable
+        if self.dual:
+            self.c.update({"div": 2, "mul": 1, "add": 1})
+        else:
+            self.c["div"] += 1
+        return _Op(self.dual, self.c)
+
+
+def _op_sin(x):
+    x.c.update({"sin": 1, "cos": 1, "mul": 1} if x.dual else {"sin": 1})
+    return _Op(x.dual, x.c)
+
+
+def _op_cos(x):
+    x.c.update({"cos": 1, "sin": 1, "add": 1, "mul": 1} if x.dual else {"cos": 1})
+    return _Op(x.dual, x.c)
+
+
+def _op_sqrt(x):
+    x.c.update({"sqrt": 1, "mul": 1, "div": 1} if x.dual else {"sqrt": 1})
+    return _Op(x.dual, x.c)
+
+
+def _typed_dynamics(model: Model, dq: bool, dv: bool, df: bool, c: Counter) -> tuple:
+    """The operations of forward_dynamics_impl on this model into ``c``,
+    with SQ, SV and S dual as dq, dv and df say; the sin/cos branch of
+    Rodrigues' formula. Returns (q, v, qdd) for the Euler update."""
+    nb, nq, na = model.num_bodies, model.nq, model.num_actions
+    nds, types, parents = model.joint_ndofs, model.joint_types, model.parents
+    dofs = [sum(nds[:i]) for i in range(nb)]
+    K = 0.5                                              # a model constant
+
+    def var(dual):
+        return _Op(dual, c)
+
+    def cast(x, dual):                                   # assignment to a declared type
+        return x if isinstance(x, _Op) and x.dual == dual else _Op(dual, c)
+
+    def mv3(R, x):
+        return [R[3 * i] * x[0] + R[3 * i + 1] * x[1] + R[3 * i + 2] * x[2] for i in range(3)]
+
+    def mtv3(R, x):
+        return [R[i] * x[0] + R[3 + i] * x[1] + R[6 + i] * x[2] for i in range(3)]
+
+    def mm3(A, B):
+        return [A[3 * i] * B[j] + A[3 * i + 1] * B[3 + j] + A[3 * i + 2] * B[6 + j]
+                for i in range(3) for j in range(3)]
+
+    def cross3(a, b):
+        return [a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2],
+                a[0] * b[1] - a[1] * b[0]]
+
+    def ad_inv_apply(R, p, V, o):                        # out type o
+        pxw = [cast(x, o) for x in cross3(p, V)]
+        d = [cast(V[3 + i] - pxw[i], o) for i in range(3)]
+        return [cast(x, o) for x in mtv3(R, V) + mtv3(R, d)]
+
+    def ad_dual_apply(R, p, F, o):
+        Rn = [cast(x, o) for x in mv3(R, F)]
+        Rf = [cast(x, o) for x in mv3(R, F[3:])]
+        pxRf = [cast(x, o) for x in cross3(p, Rf)]
+        return [cast(Rn[i] + pxRf[i], o) for i in range(3)] + Rf
+
+    def ad_motion(V, W):
+        a, b = cross3(V[3:], W), cross3(V, W[3:])
+        return cross3(V, W) + [a[i] + b[i] for i in range(3)]
+
+    def ad_dual(V, F, o):
+        a, b = cross3(V, F), cross3(V[3:], F[3:])
+        return [cast(a[i] + b[i], o) for i in range(3)] + [cast(x, o) for x in cross3(V, F[3:])]
+
+    def mv6(A, x, o):
+        out = []
+        for i in range(6):
+            s = cast(A[6 * i] * x[0], o)
+            for j in range(1, 6):
+                s = cast(s + A[6 * i + j] * x[j], o)
+            out.append(s)
+        return out
+
+    def inv_spd2(D):
+        rows = [D[0] + [var(dq), var(dq)], D[1] + [var(dq), var(dq)]]
+        for k in range(2):
+            inv = cast(1.0 / rows[k][k], dq)
+            prow = [cast(rows[k][j] * inv, dq) for j in range(4)]
+            for i in range(2):
+                rows[i] = prow if i == k else [cast(rows[i][j] - rows[i][k] * prow[j], dq)
+                                               for j in range(4)]
+        return [rows[0][2:], rows[1][2:]]
+
+    q = [var(dq) for _ in range(nq)]
+    v = [var(dv) for _ in range(nq)]
+    u = [var(df) for _ in range(na)]
+    tau = [var(df) for _ in range(nq)]
+    for a, da in enumerate(model.actuated):
+        tau[da] = u[a]
+    for d in range(nq):
+        tau[d] = cast(tau[d] + (-K) * (q[d] - K + v[d] * K) + (-K) * v[d], df)
+    R, p, V, cc, pA, IA = [None] * nb, [None] * nb, [None] * nb, [None] * nb, [None] * nb, [None] * nb
+    for i in range(nb):                                  # forward sweep
+        nd, jt, par = nds[i], types[i], parents[i]
+        qi, vi = (q[dofs[i]], v[dofs[i]]) if nd else (var(dq), var(dv))
+        qj, vj = (q[dofs[i] + 1], v[dofs[i] + 1]) if nd == 2 else (var(dq), var(dv))
+        Rq, pq = [var(dq) for _ in range(9)], [var(dq) for _ in range(3)]
+        if jt == "revolute":
+            w = [K * qi for _ in range(3)]
+            th2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2]
+            th = _op_sqrt(th2)
+            A = _op_sin(th) / th
+            B = (1.0 - _op_cos(th)) / th2
+            z = var(dq)
+            W = [z, -w[2], w[1], w[2], z, -w[0], -w[1], w[0], z]
+            W2 = mm3(W, W)
+            Rq = [A * W[k] + B * W2[k] for k in range(9)]
+            for k in (0, 4, 8):
+                Rq[k] = Rq[k] + 1.0
+        elif jt == "prismatic":
+            pq = [K * qi for _ in range(3)]
+        elif jt == "translational2d":
+            pq = [K * qi + K * qj for _ in range(3)]
+        const9, const3 = [K] * 9, [K] * 3
+        RA = mm3(const9, Rq)
+        tmp = mv3(const9, pq)
+        pAq = [tmp[k] + K for k in range(3)]
+        R[i] = mm3(RA, const9)
+        tmp = mv3(RA, const3)
+        p[i] = [tmp[k] + pAq[k] for k in range(3)]
+        vJ = [cast(K * vi, dv) for _ in range(6)]
+        if nd == 2:
+            vJ = [cast(vJ[k] + K * vj, dv) for k in range(6)]
+        Vpar = [var(dv) for _ in range(6)]
+        if par >= 0:
+            Vpar = ad_inv_apply(R[i], p[i], V[par], dv)
+        V[i] = [cast(Vpar[k] + vJ[k], dv) for k in range(6)]
+        cc[i] = [cast(x, dv) for x in ad_motion(V[i], vJ)]
+        IV = mv6([K] * 36, V[i], dv)
+        pA[i] = ad_dual(V[i], IV, df)
+        IA[i] = [var(dq) for _ in range(36)]
+    U = [[[var(dq)] * 6, [var(dq)] * 6] for _ in range(nb)]
+    Dinv = [[[var(dq)] * 2, [var(dq)] * 2] for _ in range(nb)]
+    uu = [[var(df), var(df)] for _ in range(nb)]
+    for i in reversed(range(nb)):                        # backward sweep
+        nd, par = nds[i], parents[i]
+        Sv = [K] * 6
+        if nd == 1:
+            sp = cast(Sv[0] * pA[i][0], df)
+            U[i][0] = mv6(IA[i], Sv, dq)
+            D = cast(Sv[0] * U[i][0][0], dq)
+            for k in range(1, 6):
+                D = cast(D + Sv[k] * U[i][0][k], dq)
+                sp = cast(sp + Sv[k] * pA[i][k], df)
+            Dinv[i][0][0] = cast(1.0 / D, dq)
+            te = tau[dofs[i]]
+            uu[i][0] = cast(te - sp, df)
+            Ia = [cast(IA[i][6 * r + k] - (U[i][0][r] * Dinv[i][0][0]) * U[i][0][k], dq)
+                  for r in range(6) for k in range(6)]
+            Iac = mv6(Ia, cc[i], dv)
+            Du = cast(Dinv[i][0][0] * uu[i][0], df)
+            pa = [cast(pA[i][k] + Iac[k] + U[i][0][k] * Du, df) for k in range(6)]
+        elif nd == 2:
+            U[i][0], U[i][1] = mv6(IA[i], Sv, dq), mv6(IA[i], Sv, dq)
+            D = [[None, None], [None, None]]
+            sp = [None, None]
+            for a in range(2):
+                for b in range(2):
+                    D[a][b] = cast(Sv[0] * U[i][b][0], dq)
+                    for k in range(1, 6):
+                        D[a][b] = cast(D[a][b] + Sv[k] * U[i][b][k], dq)
+                sp[a] = cast(Sv[0] * pA[i][0], df)
+                for k in range(1, 6):
+                    sp[a] = cast(sp[a] + Sv[k] * pA[i][k], df)
+            Dinv[i] = inv_spd2(D)
+            te = [tau[dofs[i]], tau[dofs[i] + 1]]
+            uu[i] = [cast(te[0] - sp[0], df), cast(te[1] - sp[1], df)]
+            UD = [[cast(U[i][0][r] * Dinv[i][0][b] + U[i][1][r] * Dinv[i][1][b], dq)
+                   for b in range(2)] for r in range(6)]
+            Ia = [cast(IA[i][6 * r + k] - (UD[r][0] * U[i][0][k] + UD[r][1] * U[i][1][k]),
+                       dq) for r in range(6) for k in range(6)]
+            Iac = mv6(Ia, cc[i], dv)
+            Du = [cast(Dinv[i][a][0] * uu[i][0] + Dinv[i][a][1] * uu[i][1], df)
+                  for a in range(2)]
+            pa = [cast(pA[i][k] + Iac[k] + (U[i][0][k] * Du[0] + U[i][1][k] * Du[1]), df)
+                  for k in range(6)]
+        else:
+            Ia = IA[i]
+            Iac = mv6(Ia, cc[i], dv)
+            pa = [cast(pA[i][k] + Iac[k], df) for k in range(6)]
+        if par >= 0:
+            for j in range(6):
+                e = [var(dq) for _ in range(6)]
+                x = ad_inv_apply(R[i], p[i], e, dq)
+                y = mv6(Ia, x, dq)
+                col = ad_dual_apply(R[i], p[i], y, dq)
+                for r in range(6):
+                    IA[par][6 * r + j] = cast(IA[par][6 * r + j] + col[r], dq)
+            f = ad_dual_apply(R[i], p[i], pa, df)
+            pA[par] = [cast(pA[par][k] + f[k], df) for k in range(6)]
+    a = [None] * nb                                      # accelerations
+    qdd = [var(df) for _ in range(nq)]
+    for i in range(nb):
+        nd, par = nds[i], parents[i]
+        Sv = [K] * 6
+        ap = [var(df) for _ in range(6)]
+        if par < 0:
+            ap = ad_inv_apply(R[i], p[i], [K] * 6, df)
+        else:
+            ap = ad_inv_apply(R[i], p[i], a[par], df)
+        ap = [cast(ap[k] + cc[i][k], df) for k in range(6)]
+        if nd == 1:
+            Ua = cast(U[i][0][0] * ap[0], df)
+            for k in range(1, 6):
+                Ua = cast(Ua + U[i][0][k] * ap[k], df)
+            qi = cast(Dinv[i][0][0] * (uu[i][0] - Ua), df)
+            qdd[dofs[i]] = qi
+            a[i] = [cast(ap[k] + Sv[k] * qi, df) for k in range(6)]
+        elif nd == 2:
+            r = []
+            for b in range(2):
+                Ua = cast(U[i][b][0] * ap[0], df)
+                for k in range(1, 6):
+                    Ua = cast(Ua + U[i][b][k] * ap[k], df)
+                r.append(cast(uu[i][b] - Ua, df))
+            q0 = cast(Dinv[i][0][0] * r[0] + Dinv[i][0][1] * r[1], df)
+            q1 = cast(Dinv[i][1][0] * r[0] + Dinv[i][1][1] * r[1], df)
+            qdd[dofs[i]], qdd[dofs[i] + 1] = q0, q1
+            a[i] = [cast(ap[k] + (Sv[k] * q0 + Sv[k] * q1), df) for k in range(6)]
+        else:
+            a[i] = list(ap)
+    return q, v, qdd
+
+
+def typed_step_op_kinds(model: Model, dq: bool, dv: bool, df: bool,
+                        column: bool = False) -> Counter:
+    """The operations of forward_dynamics_impl with SQ, SV and S dual as
+    dq, dv and df say (all plain: step_op_kinds' dynamics), then, with
+    ``column``, K3's column of the direction (csrc/linearize_free.cu
+    linearize_direction: q + v dt where v is dual, v + dt qdd), else
+    device_step's Euler update."""
+    c = Counter()
+    q, v, qdd = _typed_dynamics(model, dq, dv, df, c)
+    for d in range(model.nq):
+        if dv or not column:
+            q[d] + v[d] * 0.5
+        v[d] + 0.5 * qdd[d]
+    return +c
+
+
+def k3_point_op_kinds(model: Model) -> Counter:
+    """The operations of K3's body for one point, by kind (csrc/
+    linearize_free.cu linearize_dir, its nx + na direction threads): a
+    direction of q on dual numbers throughout, one of v with SQ plain, one
+    of u with SQ and SV plain."""
+    nq, na = model.nq, model.num_actions
+    return (_ops(nq, **typed_step_op_kinds(model, True, True, True, column=True))
+            + _ops(nq, **typed_step_op_kinds(model, False, True, True, column=True))
+            + _ops(na, **typed_step_op_kinds(model, False, False, True, column=True)))
+
+
+def k3_least_ops(model: Model) -> int:
+    """The operations one point of K3's function needs, for its bound: one
+    plain step, and per direction of (x, u) its tangent alone, with what the
+    direction leaves fixed plain (typed_step_op_kinds less the step's
+    values: a direction of v carries no tangent through the transforms and
+    articulated inertias, one of u none through the velocities either). It
+    replaces step_ops' count, one plain step and nx + na tangents of the
+    whole step. K3's bodies also recompute values per direction
+    (k3_point_op_kinds)."""
+    nq, na = model.nq, model.num_actions
+    plain = sum(step_op_kinds(model).values())
+    kinds = ((nq, (True, True, True)), (nq, (False, True, True)), (na, (False, False, True)))
+    return plain + sum(n * (sum(typed_step_op_kinds(model, *d).values()) - plain)
+                       for n, d in kinds)

@@ -72,6 +72,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from nimblephysics_tpu_torch.ops import _build  # noqa: E402
+from nimblephysics_tpu_torch.trajectory import ilqr  # noqa: E402
 from torch_unroll_variants import ptxas_table  # noqa: E402
 from torch_unroll_variants import transform as unroll_transform  # noqa: E402
 
@@ -85,6 +86,9 @@ CONSTANTS = {
     "kK7Group": ("lcp.cu", r"kK7Group = \d+"),
     "kK4PointRhs": ("frozen_group.cuh", r"kK4PointRhs = \d+"),
     "kK2Threads": ("rollout.cu", r"kK2Threads = \d+"),
+    "kK1Lanes": ("riccati.cu", r"kK1Lanes = \d+"),
+    "kK1Chunk": ("riccati.cu", r"kK1Chunk = \d+"),
+    "kK3Threads": ("linearize_free.cu", r"kK3Threads = \d+"),
 }
 # name -> the constants it sets (the others as the sources have them)
 VARIANTS = {
@@ -100,6 +104,10 @@ VARIANTS = {
     "small_unrolled": {"_unroll": "small_unrolled"},
     "k2t128": {"kK2Threads": 128},
     "k2t64_k4np5": {"kK2Threads": 64, "kK4PointRhs": 5},
+    "k1_thread": {"kK1Lanes": 1},
+    "k1_c4": {"kK1Chunk": 4},
+    "k1_c16": {"kK1Chunk": 16},
+    "k3_t256": {"kK3Threads": 256},
 }
 # the worm's kernels (its shape in the mangled names) and K7's, in ptxas's output
 WORM_SHAPE = "Li3ELi4ELi2ELi28ELi8E"
@@ -118,8 +126,18 @@ CART_KERNEL_NAMES = ("rollout_gains[cartpole classes]", "rollout_gains[cartpole 
                      "linearize_split[cartpole]", "linearize_split[cartpole] PCG depth 1")
 KERNELS = WORM_KERNEL_NAMES + CART_KERNEL_NAMES
 CART_REPLANS = ("cartpole_limits", "cartpole_limits_narrow", "cartpole_free")
-REPLANS = ("auto", "jvp", "split", "chain") + CART_REPLANS
+REPLANS = ("auto", "jvp", "split", "chain") + CART_REPLANS + ("none",)
 REPS = 3
+# K1 at (4, 1) (the cartpole, B=4096) and at (8, 2) (the worm, B=2048), K3
+# (the cartpole, B=4096): each timed as its wrapper call and as its launch
+# alone (CUDA events around the nptt_* call only, inputs packed before),
+# K1 also alone at T = 1 and 10 (the cost per step)
+K1K3_NAMES = ("riccati_backward", "riccati_backward[worm]", "linearize")
+K1_STEPS = (1, 10)
+# the kernels of K1 and K3 in ptxas's output and in the SASS
+K1K3_ENTRIES = ("riccati", "linearize_kernel", "linearize_dir")
+# PR 9's K1 launcher: the inputs packed to (T, E, B), (K, k) out as (T, Eo, B)
+LEGACY_RICCATI = [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 8
 
 
 def transform(name: str, text: str, file: str) -> str:
@@ -139,8 +157,9 @@ def transform(name: str, text: str, file: str) -> str:
 
 
 def build(name: str, csrc: Path):
-    """(library, seconds, nvcc's output) of one nvcc call on csrc's .cu
-    files, transformed for a variant other than "base"."""
+    """(library, seconds, nvcc's output) of csrc's .cu files built as the
+    port builds them (_build.compile_library: one nvcc per file at once),
+    transformed for a variant other than "base"."""
     src = OUT / name / "src"
     src.mkdir(parents=True, exist_ok=True)
     for p in csrc.iterdir():
@@ -150,13 +169,9 @@ def build(name: str, csrc: Path):
                 text = transform(name, text, p.name)
             (src / p.name).write_text(text)
     lib = OUT / name / _build.LIB_NAME
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib),
-           *sorted(str(p) for p in src.iterdir() if p.suffix == ".cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=_build.NVCC_TIMEOUT_S)
-    if proc.returncode != 0:
-        raise RuntimeError(f"{name}: nvcc failed\n{proc.stderr[-4000:]}")
-    return lib, time.perf_counter() - t0, proc.stdout + proc.stderr
+    seconds, log = _build.compile_library(
+        sorted(p for p in src.iterdir() if p.suffix == ".cu"), lib)
+    return lib, seconds, log
 
 
 def load(path: Path):
@@ -190,17 +205,26 @@ def cuobjdump() -> str:
 
 
 def sass_counts(lib: Path) -> dict:
-    """Per kernel instanced at a cartpole shape (CART_SHAPES): its SASS
-    instructions in all and those of SASS_OPS (MUFU also by function, CALL
-    also where the line names a division's slow path), from
-    ``cuobjdump -sass``."""
+    """Per kernel instanced at a cartpole shape (CART_SHAPES) and of K1 and
+    K3 (K1K3_ENTRIES): its SASS instructions in all and those of SASS_OPS
+    (MUFU also by function, CALL also where the line names a division's
+    slow path), from ``cuobjdump -sass``. K3's f32 kernels' SASS goes to
+    ``k3.sass`` beside the library (where its local loads sit)."""
     out = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True, text=True,
                          timeout=900).stdout
+    keep, dump = False, []
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            keep = "linearize" in m.group(1) and "IfLi2ELi2ELi1EE" in m.group(1)
+        if keep:
+            dump.append(line)
+    (lib.parent / "k3.sass").write_text("\n".join(dump) + "\n")
     counts, fn = {}, None
     for line in out.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            fn = m.group(1) if any(c in m.group(1) for c in CART_SHAPES) else None
+            fn = m.group(1) if any(c in m.group(1) for c in CART_SHAPES + K1K3_ENTRIES) else None
             if fn:
                 counts[fn] = Counter()
             continue
@@ -217,6 +241,55 @@ def sass_counts(lib: Path) -> dict:
         if op == "CALL" and "div" in line.lower():
             counts[fn]["CALL div slow path"] += 1
     return {f: dict(c) for f, c in counts.items()}
+
+
+def local_placement(sass: str) -> dict:
+    """Where the local loads and stores (LDL, STL) of each function of a
+    ``cuobjdump -sass`` dump sit: inside a loop (between a backward
+    branch's target and the branch) or in straight-line code, and by tenth
+    of the function's instructions, and the calls (CALL) likewise."""
+    out, fn, ins, labels, pending = {}, None, [], {}, []
+
+    def close():
+        if fn is None:
+            return
+        resolved = [(a, op, labels.get(t, t) if isinstance(t, str) else t) for a, op, t in ins]
+        loops = [(t, a) for a, op, t in resolved if op == "BRA" and t is not None and t <= a]
+        n = len(resolved)
+        row = {"instructions": n, "loops": len(loops)}
+        for kind in ("LDL", "STL", "CALL"):
+            at = [(i, a) for i, (a, op, _) in enumerate(resolved) if op == kind]
+            row[kind] = len(at)
+            row[kind + " in loops"] = sum(any(lo <= a <= hi for lo, hi in loops) for _, a in at)
+            row[kind + " by tenth"] = [sum(10 * i // max(n, 1) == d for i, _ in at)
+                                       for d in range(10)]
+        out[fn] = row
+
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            close()
+            fn, ins, labels, pending = m.group(1), [], {}, []
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if fn is None or not m:
+            continue
+        addr, op, t = int(m.group(1), 16), m.group(2), None
+        for lab in pending:
+            labels[lab] = addr
+        pending = []
+        if op == "BRA":
+            rest = line[m.end():]
+            lab = re.search(r"(\.L_x_\d+)", rest)
+            hexa = re.search(r"0x([0-9a-f]+)", rest)
+            t = lab.group(1) if lab else (int(hexa.group(1), 16) if hexa else None)
+        ins.append((addr, op, t))
+    close()
+    return out
 
 
 def cart_kernel_calls(dev, dtype, chosen):
@@ -285,6 +358,164 @@ def kernel_calls(dev, dtype, chosen):
     return {k: v for k, v in calls.items() if k in chosen}
 
 
+def riccati_is_legacy(lib) -> bool:
+    """Whether a library's K1 takes PR 9's packed (T, E, B) layout: it
+    lacks the layout query of the unpacked kernel."""
+    return not hasattr(lib, "nptt_riccati_layout")
+
+
+def riccati_calls(lib, args):
+    """(the launch alone, the wrapper call) of K1 on ``lib`` with the
+    wrapper's arguments. A legacy library gets PR 9's wrapper: the inputs
+    packed to (T, E, B) by torch.cat and permute, (K, k) unpacked after."""
+    args = tuple(a.contiguous() for a in args)
+    fx, fu, lx, lu, lxx, luu, lux, VxT, VxxT, reg = args
+    B, T, nx, na = fu.shape
+    dev, dtype = fx.device, fx.dtype
+    isd, stream = int(dtype == torch.float64), _build.stream_ptr(dev)
+    dV = torch.empty((B, 2), dtype=dtype, device=dev)
+    ok = torch.empty((B,), dtype=torch.bool, device=dev)
+    if riccati_is_legacy(lib):
+        lib.nptt_riccati.argtypes = LEGACY_RICCATI
+        eo = na * nx + na
+
+        def pack():
+            return torch.cat([a.reshape(B, T, -1) for a in args[:7]],
+                             dim=-1).permute(1, 2, 0).contiguous()
+
+        steps, Kk = pack(), torch.empty((T, eo, B), dtype=dtype, device=dev)
+
+        def launch(steps, Kk):
+            _build.check(lib.nptt_riccati(isd, nx, na, B, T, steps.data_ptr(), VxT.data_ptr(),
+                                          VxxT.data_ptr(), reg.data_ptr(), Kk.data_ptr(),
+                                          dV.data_ptr(), ok.data_ptr(), stream), "legacy K1")
+
+        def wrapper():
+            steps, Kk = pack(), torch.empty((T, eo, B), dtype=dtype, device=dev)
+            launch(steps, Kk)
+            Kk = Kk.permute(2, 0, 1)
+            return (Kk[..., : na * nx].reshape(B, T, na, nx).contiguous(),
+                    Kk[..., na * nx:].contiguous(), dV, ok)
+
+        return (lambda: launch(steps, Kk)), wrapper
+    K = torch.empty((B, T, na, nx), dtype=dtype, device=dev)
+    k = torch.empty((B, T, na), dtype=dtype, device=dev)
+
+    def alone():
+        _build.check(lib.nptt_riccati(isd, nx, na, B, T, *[a.data_ptr() for a in args],
+                                      K.data_ptr(), k.data_ptr(), dV.data_ptr(), ok.data_ptr(),
+                                      stream), "K1")
+
+    return alone, (lambda: cs.riccati_backward(*args))
+
+
+def linearize_calls(lib, args):
+    """(the launch alone, the wrapper call) of K3 on ``lib``."""
+    model, xs, u = args
+    B, T, nx = xs.shape
+    na = u.shape[-1]
+    P, I = cs.device_step.pack_model(model)
+    fx = torch.empty((B, T, nx, nx), dtype=xs.dtype, device=xs.device)
+    fu = torch.empty((B, T, nx, na), dtype=xs.dtype, device=xs.device)
+    isd, stream = int(xs.dtype == torch.float64), _build.stream_ptr(xs.device)
+
+    def alone():
+        _build.check(lib.nptt_linearize(isd, model.num_bodies, model.nq, na, B * T, P.data_ptr(),
+                                        I.data_ptr(), xs.data_ptr(), u.data_ptr(), fx.data_ptr(),
+                                        fu.data_ptr(), stream), "K3")
+
+    return alone, (lambda: cs.linearize(*args))
+
+
+def k1k3_inputs(dev, dtype, chosen):
+    """name -> (wrapper arguments, plain call) of K1K3_NAMES in ``chosen``,
+    at their paths' shapes (chip_smoke.py's phase 3b and phase 8b inputs),
+    and K1 at T of K1_STEPS."""
+    out = {}
+    if {"riccati_backward", "linearize"} & set(chosen):
+        free = cs.kernel_inputs(dev, cs.B_FULL, cs.H, dtype)
+        for name in ("riccati_backward", "linearize"):
+            out[name] = free[name]
+    if "riccati_backward" in chosen:
+        for T in K1_STEPS:
+            out[f"riccati_backward T={T}"] = tuple(
+                a[:, :T].contiguous() if i < 7 else a
+                for i, a in enumerate(free["riccati_backward"]))
+    if "riccati_backward[worm]" in chosen:
+        out["riccati_backward[worm]"] = cs.worm_kernel_inputs(
+            dev, cs.WORM_B, cs.H, dtype)["riccati_backward[worm]"][0]
+    return {k: v for k, v in out.items() if k.split(" ")[0] in chosen}
+
+
+def check_k1k3_f64(dev, chosen, libs_named, libs, use, result):
+    """K1 and K3 of every library against their plain versions in f64 at
+    chip_smoke.py's check sizes (phase 3's B=512 and (6, 3) inputs, phase
+    8's worm inputs at B=512): the largest relative error and whether the
+    PD flags agree."""
+    inputs = {}
+    if {"riccati_backward", "linearize"} & set(chosen):
+        small = cs.kernel_inputs(dev, cs.B_CHECK, cs.H, torch.float64)
+        inputs["riccati_backward"] = small["riccati_backward"]
+        inputs["riccati_backward (6, 3)"] = cs.riccati_inputs(dev, torch.float64)
+        inputs["linearize"] = small["linearize"]
+    if "riccati_backward[worm]" in chosen:
+        inputs["riccati_backward[worm]"] = cs.worm_kernel_inputs(
+            dev, cs.WORM_B_CHECK, cs.H, torch.float64)["riccati_backward[worm]"][0]
+    for kname, args in inputs.items():
+        if kname.split(" ")[0] not in chosen:
+            continue
+        lin = kname == "linearize"
+        want = (cs.linearize_plain if lin else cs.riccati_backward_plain)(*args)
+        line = []
+        for n in libs_named:
+            use(n)
+            got = (linearize_calls if lin else riccati_calls)(libs[n], args)[1]()
+            torch.cuda.synchronize()
+            pairs = [(a, b) for a, b in zip(got, want) if a.dtype != torch.bool]
+            err = rel_error([a for a, _ in pairs], [b for _, b in pairs])
+            same = lin or bool(torch.equal(got[3], want[3]))
+            result[n].setdefault("max_rel_err", {})[f"{kname} float64"] = err
+            result[n].setdefault("ok_identical", {})[f"{kname} float64"] = same
+            line.append(f"{n} {err:.2e}{'' if same else ' (ok flags differ)'}")
+        print(f"  {kname:24s} float64 rel err: " + "; ".join(line), flush=True)
+
+
+def time_k1k3(dev, dtype, chosen, libs_named, libs, use, result):
+    """Each of k1k3_inputs' calls on every library, in turns forth and
+    back: its error against the plain version, its wrapper's time (but at
+    K1_STEPS) and its launch's alone."""
+    dname = str(dtype).split(".")[-1]
+    for kname, args in k1k3_inputs(dev, dtype, chosen).items():
+        plain = cs.linearize_plain if kname == "linearize" else cs.riccati_backward_plain
+        want = plain(*args)
+        calls = {}
+        for n in libs_named:
+            use(n)
+            calls[n] = (linearize_calls if kname == "linearize" else riccati_calls)(libs[n], args)
+            got = calls[n][1]()
+            torch.cuda.synchronize()
+            pairs = [(a, b) for a, b in zip(got, want) if a.dtype != torch.bool]
+            result[n].setdefault("max_rel_err", {})[f"{kname} {dname}"] = rel_error(
+                [a for a, _ in pairs], [b for _, b in pairs])
+            if kname.startswith("riccati"):
+                result[n].setdefault("ok_identical", {})[f"{kname} {dname}"] = bool(
+                    torch.equal(got[3], want[3]))
+        kinds = ("alone",) if " T=" in kname else ("wrapper", "alone")
+        times = {(n, kind): [] for n in libs_named for kind in kinds}
+        for n in libs_named + libs_named[::-1]:
+            use(n)
+            for kind in kinds:
+                times[(n, kind)].append(cs.time_ms(calls[n][0 if kind == "alone" else 1], REPS * 4))
+        for n in libs_named:
+            for kind in kinds:
+                result[n].setdefault("ms", {})[f"{kname} {kind} {dname}"] = times[(n, kind)]
+        print(f"  {kname:24s} {dname}: " + "; ".join(
+            f"{n} " + ", ".join(f"{kind} {times[(n, kind)][0]:.4f}/{times[(n, kind)][1]:.4f}"
+                                for kind in kinds)
+            + f" ms (rel err {result[n]['max_rel_err'][f'{kname} {dname}']:.2e})"
+            for n in libs_named), flush=True)
+
+
 def cart_replan(dev, name, libs_named, use, result, t0):
     """One cartpole replan of CART_REPLANS in f32, each library's 3 calls
     in turns forth and back after one untimed call; solves/s into
@@ -321,6 +552,12 @@ def arg_list(args, flag, default, allowed):
 def main() -> int:
     global OUT
     args = sys.argv[1:]
+    if "--sass" in args:
+        # a dump written by sass_counts (k3.sass), read without a card
+        for path in args[args.index("--sass") + 1:]:
+            for fn, row in local_placement(Path(path).read_text()).items():
+                print(f"{path}: {fn[:70]}: {row}")
+        return 0
     if "--base" not in args:
         print(__doc__, file=sys.stderr)
         return 2
@@ -328,7 +565,7 @@ def main() -> int:
     if "--out" in args:
         OUT = Path(args[args.index("--out") + 1]).resolve()
     chosen = arg_list(args, "--variants", VARIANTS, VARIANTS)
-    kernels = arg_list(args, "--kernels", KERNELS, KERNELS)
+    kernels = arg_list(args, "--kernels", KERNELS + K1K3_NAMES, KERNELS + K1K3_NAMES)
     replans = arg_list(args, "--replans", ("auto", "jvp"), REPLANS)
     libs_named = ("base",) + tuple(chosen)
     if not torch.cuda.is_available():
@@ -348,14 +585,15 @@ def main() -> int:
     for name, (path, seconds, log) in built.items():
         full = ptxas_table(log)
         table = {e: r for e, r in full.items() if (any(k in e for k in ENTRIES)
-                 and (WORM_SHAPE in e or "pgs" in e)) or any(c in e for c in CART_SHAPES)}
+                 and (WORM_SHAPE in e or "pgs" in e)) or any(c in e for c in CART_SHAPES)
+                 or any(k in e for k in K1K3_ENTRIES)}
         # every other kernel should compile as in the base tree
         others = [e for e in full if e in base_table and e not in table]
         differ = [e for e in others if full[e] != base_table[e]]
         result[name] = {"build_s": seconds, "ptxas": table,
                         "ptxas_other_kernels_differ_from_base": {e: [base_table[e], full[e]]
                                                                  for e in differ}}
-        print(f"{name}: one nvcc call, {seconds:.1f} s ({len(jobs)} builds at a time); "
+        print(f"{name}: built in {seconds:.1f} s ({len(jobs)} builds at a time); "
               f"{len(others) - len(differ)} of the other {len(others)} kernels compile with "
               f"the base's registers and stack", flush=True)
         for entry, row in sorted(table.items()):
@@ -378,11 +616,28 @@ def main() -> int:
         for entry, row in sorted(sass.items()):
             print(f"  SASS {row}  {entry[:100]}", flush=True)
         libs[name] = load(path)
+        if not riccati_is_legacy(libs[name]):
+            for nx, na in ((4, 1), (8, 2)):
+                out = (ctypes.c_longlong * 4)()
+                libs[name].nptt_riccati_layout(0, nx, na, out)
+                result[name][f"k1_layout ({nx}, {na})"] = list(out)
+                print(f"  K1 ({nx}, {na}) f32: {out[0]} lanes per world, {out[1]} worlds per "
+                      f"block, chunks of {out[2]} steps, {out[3]} shared bytes per block",
+                      flush=True)
+
+    real_k1 = ilqr.riccati_backward
 
     def use(name):
         _build.load = lambda: libs[name]
+        # the replans call K1 through ilqr; a legacy library gets PR 9's wrapper
+        ilqr.riccati_backward = ((lambda *a: riccati_calls(libs[name], a)[1]())
+                                 if riccati_is_legacy(libs[name]) else real_k1)
 
     for dtype in (torch.float32, torch.float64):
+        if dtype == torch.float32:
+            time_k1k3(dev, dtype, kernels, libs_named, libs, use, result)
+        else:
+            check_k1k3_f64(dev, kernels, libs_named, libs, use, result)
         dname = str(dtype).split(".")[-1]
         calls = kernel_calls(dev, dtype, kernels)
         for kname, (kern, plain) in calls.items():
@@ -405,6 +660,8 @@ def main() -> int:
         del calls
     x0 = cs.worm_x0(cs.WORM_B)
     for lin in replans:
+        if lin == "none":
+            continue
         if lin in CART_REPLANS:
             cart_replan(dev, lin, libs_named, use, result, t0)
             continue
@@ -427,7 +684,11 @@ def main() -> int:
     print(f"done in {time.perf_counter() - t0:.1f} s")
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "group_variants.json").write_text(json.dumps(result, indent=1))
-    print(json.dumps(result))
+    # the last line: the measured numbers only (the layouts, ptxas rows and
+    # SASS counts are in the file)
+    print(json.dumps({n: {k: result[n][k] for k in ("build_s", "ms", "max_rel_err", "ok_identical")
+                          if k in result[n]} if isinstance(result[n], dict) else result[n]
+                      for n in result}))
     return 0
 
 

@@ -94,13 +94,15 @@ def with_fault_shape(text: str, loops: str = "pp jj") -> str:
     """The ancestor loops (over pp, over jj) bounded by i under a plain
     #pragma unroll, as in the build that gave a wrong K5."""
     if "pp" in loops:
-        text = re.sub(r"#pragma unroll \(unroll_by\((?:L::kUnroll|UR), NB\)\)\n(\s*)"
+        text = re.sub(r"(?:#pragma unroll \(unroll_by\((?:L::kUnroll|UR), NB\)\)|"
+                      r"NPTT_UNROLL\((?:L::kUnroll|UR), NB\))\n(\s*)"
                       r"for \(int pp = 0; pp < NB; \+\+pp\)",
                       r"#pragma unroll\n\1for (int pp = 0; pp < i; ++pp)", text)
         text = text.replace("pp < i && pp == par", "pp == par").replace(
             "pp >= i || pp != par", "pp != par")
     if "jj" in loops:
-        text = re.sub(r"#pragma unroll \(unroll_by\((?:L::kUnroll|UR), NB - 1\)\)\n(\s*)"
+        text = re.sub(r"(?:#pragma unroll \(unroll_by\((?:L::kUnroll|UR), NB - 1\)\)|"
+                      r"NPTT_UNROLL\((?:L::kUnroll|UR), NB - 1\))\n(\s*)"
                       r"for \(int jj = NB - 1; jj >= 1; --jj\)",
                       r"#pragma unroll\n\1for (int jj = i; jj >= 1; --jj)", text)
     return text
@@ -116,11 +118,14 @@ def in_function(text: str, name: str, fn) -> str:
 
 
 def transform(variant: str, text: str) -> str:
+    # step.cuh's loops carry NPTT_UNROLL(full, trips) (common.cuh), the
+    # others #pragma unroll (unroll_by(full, trips))
     if variant == "all_rolled":
-        return re.sub(r"^#pragma unroll( \(.*\))?$", "#pragma unroll 1", text, flags=re.MULTILINE)
-    if variant == "small_unrolled":
-        return re.sub(r"^#pragma unroll \(unroll_by\(.*\)\)$", "#pragma unroll", text,
+        return re.sub(r"^(?:#pragma unroll( \(.*\))?|NPTT_UNROLL\(.*\))$", "#pragma unroll 1", text,
                       flags=re.MULTILINE)
+    if variant == "small_unrolled":
+        return re.sub(r"^(?:#pragma unroll \(unroll_by\(.*\)\)|NPTT_UNROLL\(.*\))$",
+                      "#pragma unroll", text, flags=re.MULTILINE)
     if variant == "dot_rolled":
         return text.replace("row_unroll(M, M - 1, 8)", "row_unroll(M, M - 1)")
     if variant in ("dot4", "dot16"):

@@ -31,10 +31,14 @@ MODELS = ("pendulum", "inverted_double_pendulum", "cartpole")
 # writes the operation counts of one step at the first point by kind, then
 # per point the plain step's (q', v') and the linearize thread bodies'
 # (fx, fu).
+# Reads "nb nq na n nr ni", the packed reals and ints, then n points (x, u);
+# writes the operation counts of one step at the first point by kind, then
+# those of K3's body for that point (its nx + na direction threads summed),
+# then per point the plain step's (q', v') and K3's (fx, fu).
 HOST_MAIN = r"""
 #include <cstdio>
 #include <vector>
-#include "linearize.cu"
+#include "linearize_free.cu"
 
 namespace nptt {
 long long g_ops[8];  // add, add_c, mul, mul_c, div, sin, cos, sqrt
@@ -60,25 +64,50 @@ inline C nsin(C x) { ++g_ops[5]; return C(std::sin(x.v)); }
 inline C ncos(C x) { ++g_ops[6]; return C(std::cos(x.v)); }
 inline C nsqrt(C x) { ++g_ops[7]; return C(std::sqrt(x.v)); }
 inline double val(C x) { return x.v; }
+// dual numbers over the counting scalar, with the model's constants as double
+using DC = Dual<C>;
+inline DC operator+(DC a, double b) { return DC(a.v + b, a.d); }
+inline DC operator+(double a, DC b) { return DC(a + b.v, b.d); }
+inline DC operator-(DC a, double b) { return DC(a.v - b, a.d); }
+inline DC operator-(double a, DC b) { return DC(a - b.v, -b.d); }
+inline DC operator*(DC a, double b) { return DC(a.v * b, a.d * b); }
+inline DC operator*(double a, DC b) { return DC(a * b.v, a * b.d); }
+inline DC operator/(DC a, double b) { return DC(a.v / b, a.d / b); }
+inline DC operator/(double a, DC b) { C q = a / b.v; return DC(q, -q * b.d / b.v); }
+inline double val(DC x) { return x.v.v; }
 }  // namespace nptt
+
+static void print_ops() {
+  for (int k = 0; k < 8; ++k) printf("%lld ", nptt::g_ops[k]);
+  printf("\n");
+  for (int k = 0; k < 8; ++k) nptt::g_ops[k] = 0;
+}
 
 template <int NB, int NQ, int NA>
 void run(const double* P, const int* I, const std::vector<double>& pts, int n) {
   constexpr int NX = 2 * NQ, K = NX + NA;
   using nptt::C;
-  C q[NQ], v[NQ], u[NA], qn[NQ], vn[NQ];
-  for (int i = 0; i < NQ; ++i) { q[i] = C(pts[i]); v[i] = C(pts[NQ + i]); }
-  for (int a = 0; a < NA; ++a) u[a] = C(pts[NX + a]);
-  nptt::device_step<double, C, NB, NQ, NA>(P, I, q, v, u, qn, vn);
-  for (int k = 0; k < 8; ++k) printf("%lld ", nptt::g_ops[k]);
-  printf("\n");
   std::vector<double> xs(n * NX), us(n * NA), fx(n * NX * NX), fu(n * NX * NA);
   for (int p = 0; p < n; ++p) {
     for (int i = 0; i < NX; ++i) xs[p * NX + i] = pts[p * K + i];
     for (int a = 0; a < NA; ++a) us[p * NA + a] = pts[p * K + NX + a];
   }
-  for (long long t = 0; t < (long long)n * K; ++t)
-    nptt::linearize_thread<double, NB, NQ, NA>(t, P, I, xs.data(), us.data(), fx.data(), fu.data());
+  {
+    C q[NQ], v[NQ], u[NA], qn[NQ], vn[NQ];
+    for (int i = 0; i < NQ; ++i) { q[i] = C(xs[i]); v[i] = C(xs[NQ + i]); }
+    for (int a = 0; a < NA; ++a) u[a] = C(us[a]);
+    nptt::device_step<double, C, NB, NQ, NA>(P, I, q, v, u, qn, vn);
+    print_ops();
+    std::vector<C> fxc(NX * NX), fuc(NX * NA);
+    for (int k = 0; k < K; ++k)
+      nptt::linearize_dir<double, C, NB, NQ, NA>(0, k, P, I, xs.data(), us.data(), fxc.data(),
+                                                 fuc.data());
+    print_ops();
+  }
+  for (long long p = 0; p < n; ++p)
+    for (int k = 0; k < K; ++k)
+      nptt::linearize_dir<double, double, NB, NQ, NA>(p, k, P, I, xs.data(), us.data(), fx.data(),
+                                                      fu.data());
   for (int p = 0; p < n; ++p) {
     double qd[NQ], vd[NQ], qo[NQ], vo[NQ];
     for (int i = 0; i < NQ; ++i) { qd[i] = xs[p * NX + i]; vd[i] = xs[p * NX + NQ + i]; }
@@ -145,8 +174,8 @@ def run_host(exe, name):
                       " ".join(repr(float(v)) for v in np.concatenate([x, u], axis=1).ravel())])
     out = subprocess.run([str(exe)], input=text, capture_output=True, text=True,
                          check=True, timeout=60).stdout.splitlines()
-    counts = dict(zip(KINDS, (int(c) for c in out[0].split())))
-    rows = np.array([[float(v) for v in line.split()] for line in out[1:]])
+    counts = [dict(zip(KINDS, (int(c) for c in line.split()))) for line in out[:2]]
+    rows = np.array([[float(v) for v in line.split()] for line in out[2:]])
     return model, x, u, counts, rows
 
 
@@ -160,6 +189,9 @@ def test_device_step_matches_plain_step(host_exe, name):
 
 @pytest.mark.parametrize("name", MODELS)
 def test_linearize_thread_matches_jacfwd(host_exe, name):
+    """K3's body (csrc/linearize_free.cu linearize_dir: a thread per (point,
+    direction), each direction's kind keeping plain what it leaves fixed)
+    against jacfwd of the plain step."""
     model, x, u, _, rows = run_host(host_exe, name)
     nx, na, n = 2 * model.nq, model.num_actions, x.shape[0]
     fx, fu = linearize_plain(model, torch.tensor(x)[:, None], torch.tensor(u)[:, None])
@@ -171,11 +203,25 @@ def test_linearize_thread_matches_jacfwd(host_exe, name):
 
 @pytest.mark.parametrize("name", MODELS)
 def test_step_op_count_matches_device_step(host_exe, name):
-    """The closed-form count equals what the step does, kind by kind, at a
-    point off the Taylor branch of Rodrigues' formula."""
+    """The closed-form counts equal what the code does, kind by kind, at a
+    point off the Taylor branch of Rodrigues' formula: the step's
+    (step_op_kinds) and K3's body's per point (k3_point_op_kinds)."""
     model, _, _, counts, _ = run_host(host_exe, name)
     want = device_step.step_op_kinds(model)
-    assert counts == {k: want.get(k, 0) for k in KINDS}
+    assert counts[0] == {k: want.get(k, 0) for k in KINDS}
+    # the typed count (K3's) of the step all dual is the plain count plus
+    # one forward-mode tangent of every operation
+    assert device_step.typed_step_op_kinds(model, True, True, True) == \
+        +(want + device_step._tangent_kinds(want))
+    kinds = device_step.k3_point_op_kinds(model)
+    assert counts[1] == {k: kinds.get(k, 0) for k in KINDS}
+    # K3's bound: the least form (the step once, each direction's tangent
+    # alone) lies below what the body does and below one step and nx + na
+    # whole tangents
+    plain, tangent = device_step.step_ops(model)
+    least = device_step.k3_least_ops(model)
+    assert least < sum(counts[1].values())
+    assert least < plain + (2 * model.nq + model.num_actions) * tangent
 
 
 def test_pack_model_follows_in_place_edits():
@@ -630,7 +676,7 @@ def test_pack_model_appends_constraint_rows():
 # and its cost; then the butterfly sums over groups of 32, 16 and 8 lanes,
 # lane l holding |x[l mod 2 nq]| of the first point, as each lane sees them.
 WORM_MAIN = CONTACT_MAIN[:CONTACT_MAIN.index("static void print_ops()")].replace(
-    '#include "rollout.cu"', '#include "rollout.cu"\n#include "lcp.cu"').replace(
+    '#include "rollout.cu"', '#include "rollout.cu"\n#include "lcp.cu"\n#include "riccati.cu"').replace(
     "long long g_ops[8];", "thread_local long long g_ops[8];") + r"""
 #include <memory>
 
@@ -812,7 +858,58 @@ void run_pgs() {
   }
 }
 
-int main() {
+// K1's group body (csrc/riccati.cu riccati_group) over B worlds, on
+// k1_lanes(nx) host threads per world and then on one; writes, for each,
+// a line per world: its K, k, dV and ok.
+template <int NX, int NA, int G>
+static void riccati_on(int B, int T, const std::vector<std::vector<double>>& a) {
+  std::vector<double> K(B * T * NA * NX), k(B * T * NA), dV(2 * B);
+  std::unique_ptr<bool[]> ok(new bool[B]);
+  auto sh = std::make_unique<nptt::RiccatiShared<double, NX, NA>>();
+  const double* in[7];
+  for (int i = 0; i < 7; ++i) in[i] = a[i].data();
+  for (long long b = 0; b < B; ++b)
+    nptt::HostGroup<G>::run([&](nptt::HostGroup<G> g) {
+      nptt::riccati_group<double, NX, NA, G>(g, *sh, b, T, in, a[7].data(), a[8].data(),
+                                             a[9].data(), K.data(), k.data(), dV.data(),
+                                             ok.get());
+    });
+  for (int b = 0; b < B; ++b) {
+    for (int e = 0; e < T * NA * NX; ++e) printf("%.17g ", K[b * T * NA * NX + e]);
+    for (int e = 0; e < T * NA; ++e) printf("%.17g ", k[b * T * NA + e]);
+    printf("%.17g %.17g %d\n", dV[2 * b], dV[2 * b + 1], ok[b] ? 1 : 0);
+  }
+}
+
+// after "riccati" on the command line: reads "nx na B T" and the inputs
+// fx, fu, lx, lu, lxx, luu, lux, Vx_T, Vxx_T, reg, each row-major
+static int run_riccati() {
+  int nx, na, B, T;
+  if (scanf("%d %d %d %d", &nx, &na, &B, &T) != 4) return 2;
+  const long long n = (long long)B * T;
+  const long long sizes[10] = {n * nx * nx, n * nx * na, n * nx, n * na, n * nx * nx,
+                               n * na * na, n * na * nx, (long long)B * nx,
+                               (long long)B * nx * nx, B};
+  std::vector<std::vector<double>> a(10);
+  for (int i = 0; i < 10; ++i) {
+    a[i].resize(sizes[i]);
+    for (auto& x : a[i]) if (scanf("%lf", &x) != 1) return 2;
+  }
+#define RICCATI(NX, NA)                                        \
+  if (nx == NX && na == NA) {                                  \
+    riccati_on<NX, NA, nptt::k1_lanes(NX)>(B, T, a);           \
+    riccati_on<NX, NA, 1>(B, T, a);                            \
+    return 0;                                                  \
+  }
+  RICCATI(4, 1)
+  RICCATI(6, 3)
+  RICCATI(8, 2)
+#undef RICCATI
+  return 3;
+}
+
+int main(int argc, char** argv) {
+  if (argc > 1 && std::string(argv[1]) == "riccati") return run_riccati();
   int nb, nq, na, m, ns, n, nr, ni, n_cg;
   if (scanf("%d %d %d %d %d %d %d %d %d", &nb, &nq, &na, &m, &ns, &n, &nr, &ni, &n_cg) != 9)
     return 2;
@@ -1149,6 +1246,50 @@ def test_pgs_group_matches_plain(worm_exe):
     for ref in (want, pgs[:, :m]):
         np.testing.assert_allclose(pgs[:, m:], ref, rtol=0, atol=1e-13 * scale)
     assert (lcps[4] > 0).any() and np.abs(pgs[:, m:]).max() > 1e-3
+
+
+def run_riccati_group(exe, nx, na, T=11, B=3):
+    """K1's group body on the host (worm_exe's "riccati" mode) on
+    tests/test_torch_riccati.py's worlds, world 1 with an indefinite Quu
+    (luu = -50 at t = 3): the inputs and, per group size (k1_lanes(nx) and
+    one lane), K, k, dV and ok."""
+    from test_torch_riccati import _inputs
+
+    args = list(_inputs(nx, na, T, B, seed=2))
+    args[5] = args[5].copy()
+    args[5][1, 3] = -50.0
+    text = "\n".join([f"{nx} {na} {B} {T}"] + [" ".join(repr(float(v)) for v in a.ravel())
+                                                for a in args])
+    out = subprocess.run([str(exe), "riccati"], input=text, capture_output=True, text=True,
+                         check=True, timeout=120).stdout.splitlines()
+    rows = np.array([[float(v) for v in line.split()] for line in out])
+    assert rows.shape == (2 * B, T * na * (nx + 1) + 3)
+    outs = []
+    for r in (rows[:B], rows[B:]):
+        outs.append((r[:, :T * na * nx].reshape(B, T, na, nx),
+                     r[:, T * na * nx:T * na * (nx + 1)].reshape(B, T, na),
+                     r[:, -3:-1], r[:, -1].astype(bool)))
+    return args, outs
+
+
+@pytest.mark.parametrize("nx,na", [(4, 1), (6, 3), (8, 2)])
+def test_riccati_group_matches_plain(worm_exe, nx, na):
+    """K1's body (csrc/riccati.cu riccati_group: a lane per row of Vxx on a
+    group of k1_lanes(nx) lanes, the inputs staged in chunks of kK1Chunk
+    steps, T = 11 so that a chunk is partial and the runs of lu start off
+    16-byte alignment) on host threads, and on one lane, against
+    riccati_backward_plain in f64 to 1e-12 of each output's largest
+    magnitude, with the PD flags identical (world 1 indefinite)."""
+    from nimblephysics_tpu_torch.ops.cuda_riccati import riccati_backward_plain
+
+    args, outs = run_riccati_group(worm_exe, nx, na)
+    K, k, dV, ok = riccati_backward_plain(*(torch.tensor(a) for a in args))
+    assert ok.tolist() == [True, False, True]
+    for got in outs:
+        for a, b in zip(got[:3], (K, k, dV)):
+            b = b.numpy()
+            np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-12 * np.abs(b).max())
+        assert got[3].tolist() == ok.tolist()
 
 
 @pytest.mark.parametrize("n_cg", (12, 2))

@@ -26,14 +26,19 @@ and holding each one against its plain PyTorch version:
     ``linearize="chain"``, whose linearize is K8 (``ops/lane_chain.py``
     ``chained_linearize_vjp``, K5's kernel); and K9 (``ops/lane_chain.py``
     ``chained_step_rollout``, K2's kernel at one alpha with zero gains) at
-    the worm's full width.
+    the worm's full width;
+  * the serving edge: ``realtime/mpc.py`` ``MPC`` (every replan one
+    ``ilqr_solve_batch`` call at B=1: K3, K1 and K2) closing the loop on the
+    cartpole, and ``AsyncMPC`` publishing through the native seqlock buffer
+    (``native/``, built with g++ in phase 2).
 
 Phases:
 
   1. environment: torch, the card, its power limit (nvidia-smi);
   2. build: one nvcc per source, all at once, then a link (skipped when
      already built),
-     its time and ptxas's registers and spills;
+     its time and ptxas's registers and spills; then the native serving
+     library (g++);
   3. K1-K3 against their plain versions at B=512, T=100, in f64
      (rel 1e-9) and f32 (rel 2e-4), and the Riccati kernel's second
      instance, (nx, na) = (6, 3), then the Riccati kernel's lane-group
@@ -114,7 +119,21 @@ Phases:
      linearize="chain": f64 at B=256 from cold, kernel path against phase
      9's plain path (the plain path of "chain" runs the same functions)
      under phase 9's rules (K8 4, K5 0), then f32 as "jvp" in phase 11;
- 13. a JSON line with every kernel's numbers and its layout ("design"),
+ 13. the serving edge (realtime/mpc.py, realtime/buffer.py, the native
+     buffer) in f32: tests/test_realtime.py's closed loop on the stock
+     cartpole (the plant keeps its limits, the planner is relax_limits of
+     it), 120 plant steps with a replan every 5, each replan launching K3
+     and K1 once per iteration and K2 once more, at that test's MPCConfig
+     (horizon 40, 6 warm and 30 cold iterations) with the pole within its
+     bounds, then at MPCConfig's defaults (horizon 100, 8 warm and 40
+     cold), where the relaxed planner lets the pole fall in the JAX
+     package too, so the pole is printed, not held; cold and warm replan
+     ms; the first warm replan at the defaults in f64 against the same
+     ilqr_solve_batch call under kernels=False (phase 6's rules for cost
+     and u); AsyncMPC at the defaults on the simulated clock for the same
+     120 steps: at least 2 plans published through the native buffer,
+     control_now's median latency below 20 ms, control_now_native finite;
+ 14. a JSON line with every kernel's numbers and its layout ("design"),
      then the result line.
 
 Exits non-zero without CUDA, and on any failure. Imports nothing of JAX.
@@ -133,8 +152,9 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np
 import torch
 
+from nimblephysics_tpu_torch import native
 from nimblephysics_tpu_torch.models import builders
-from nimblephysics_tpu_torch.models.model import relax_limits
+from nimblephysics_tpu_torch.models.model import State, relax_limits
 from nimblephysics_tpu_torch.ops import _build, device_step
 from nimblephysics_tpu_torch.ops import dynamics as dyn
 from nimblephysics_tpu_torch.ops.collide import detect_contacts
@@ -174,6 +194,8 @@ from nimblephysics_tpu_torch.ops.lcp import (
     direct_boxed_solve_lane,
     lcp_residual,
 )
+from nimblephysics_tpu_torch.realtime import MPC, AsyncMPC, MPCConfig
+from nimblephysics_tpu_torch.simulation.step import step
 from nimblephysics_tpu_torch.trajectory.costs import QuadraticCost, QuadraticFinalCost
 from nimblephysics_tpu_torch.trajectory.ilqr import (
     ILQRConfig,
@@ -260,7 +282,7 @@ REPLACES = {
                       "nimblephysics_tpu/ops/pallas_rollout.py:371"),
     "linearize_split": ("nimblephysics_tpu_torch/csrc/linearize.cu",
                         "nimblephysics_tpu/ops/pallas_linearize.py:335"),
-    "rollout_classes": ("nimblephysics_tpu_torch/csrc/rollout.cu",
+    "rollout_classes": ("nimblephysics_tpu_torch/csrc/classes.cu",
                         "nimblephysics_tpu/ops/pallas_rollout.py:213"),
     "rollout_gains[classes]": ("nimblephysics_tpu_torch/csrc/rollout.cu",
                                "nimblephysics_tpu/ops/pallas_rollout.py:371"),
@@ -427,7 +449,8 @@ def contact_least_work(model, B, T, A, itemsize):
     roll_in = B * nx + B * (T + 1) * nx + B * T * (na + na * nx + na) + A + 2 * n * m
     roll_out = A * B * ((T + 1) * nx + T * na + 1)
     return {
-        # K6: x0 and u in; xs, cmask and us out; one class_step per (world, t)
+        # K6 (csrc/classes.cu): x0 and u in; xs, cmask and us out; one
+        # class_step per (world, t)
         "rollout_classes": (itemsize * (B * nx + n * na + n * (nx + 2 * m)), n * cls),
         # K4: (xs, u, cmask, us) in, (fx, fu) out
         "linearize_split": (itemsize * n * (nx + na + 2 * m + nx * nx + nx * na), n * k4_point),
@@ -898,7 +921,6 @@ REPLACES.update({
 
 
 # each kernel's layout on the card, for the kernels' JSON line
-_THREAD = "one thread per {}"
 _K2_GROUPS = ("lane groups (csrc/frozen_group.cuh): one group per {} with the frozen "
               "step's rows on its lanes and Qf in shared memory")
 _K5_GROUPS = ("one fused kernel, a lane group per point (csrc/frozen_group.cuh): the primal "
@@ -924,7 +946,10 @@ DESIGN = {
                         "first direction), each direction's tangent right-hand side through the "
                         "factors of A, then its tangent PCG over the point's one Qf; what passes "
                         "between the phases in shared memory"),
-    "rollout_classes": _THREAD.format("world"),
+    "rollout_classes": ("one thread per world, 16 threads per block (csrc/classes.cu): the "
+                        "packed model by value in the kernel's parameters, u read and (xs, "
+                        "cmask) written in the wrapper's layouts, the next step's u loaded "
+                        "ahead, the step's loops under a plain #pragma unroll"),
     "rollout_gains[classes]": _K2_THREAD + ", the frozen PCG dividing no zero (qdiv)",
     "pgs_batched": ("a lane group per LCP (csrc/lcp.cu): the rows on the lanes, each lane's "
                     "rows of A in registers, the residual kept current by one broadcast per "
@@ -1449,6 +1474,172 @@ def phase_11_12(dev, records, work, warm, plain, full_w):
     return counts, {"jvp": rate_jvp, "split": rate_split, "chain": rate_chain}
 
 
+# ---------------------------------------------------------- the serving edge
+
+# tests/test_realtime.py's closed loop: the stock cartpole as the plant,
+# relax_limits of it as the planner, a replan every SERVE_EVERY plant steps;
+# gated on the pole at that test's MPCConfig (SERVE_TEST_CONFIG). At
+# MPCConfig's defaults (horizon 100) the relaxed planner drives the cart
+# into its 1 m limit and the pole falls, in the JAX package's MPC as in the
+# port's (PERF.md section 6, PR 11), so there the loop is timed and its
+# launches counted, and the pole only printed.
+SERVE_STEPS, SERVE_EVERY, SERVE_DT = 120, 5, 0.02
+SERVE_Q0 = (0.0, 0.15)
+SERVE_POLE_END, SERVE_POLE_MAX = 0.12, 0.6
+SERVE_LATENCY_MAX_S = 0.02
+SERVE_TEST_CONFIG = dict(horizon=40, replan_iters=6, first_solve_iters=30)
+
+
+def serving_setup(dev, dtype):
+    """(plant, planner, running cost, final cost, start state):
+    tests/test_realtime.py's costs as QuadraticCost (wq (0.2, 1.0), wu
+    1e-4) and QuadraticFinalCost (wx (10, 50, 1, 1))."""
+    plant = builders.cartpole(dt=SERVE_DT, dtype=dtype, device=dev)
+    planner = relax_limits(plant)
+    run = QuadraticCost(planner, wq=(0.2, 1.0), wu=1e-4)
+    fin = QuadraticFinalCost(planner, wx=(10.0, 50.0, 1.0, 1.0))
+    state = State(q=torch.tensor(SERVE_Q0, dtype=dtype, device=dev),
+                  v=torch.zeros(2, dtype=dtype, device=dev))
+    return plant, planner, run, fin, state
+
+
+def serving_replan(mpc, now, label):
+    """mpc.replan_at(now), holding the replan's launches to the iterations it
+    ran, as phase 4 counts them: K3 and K1 once per iteration, K2 once more
+    (the first open-loop rollout); returns its seconds."""
+    reset_counts()
+    iters = mpc.config.replan_iters if mpc.plan is not None else mpc.config.first_solve_iters
+    dur = mpc.replan_at(now)
+    expected = dict(_NONE, riccati_backward=iters, linearize=iters, rollout_gains=iters + 1)
+    counts = {n: fn.launches for n, fn in WRAPPERS.items()}
+    if counts != expected:
+        raise AssertionError(f"{label}: launch counts {counts}, expected {expected}")
+    return dur
+
+
+def serving_loop(dev, cfg, label, smi):
+    """The closed loop in f32 under ``cfg``: a cold replan at t = 0, then
+    SERVE_STEPS plant steps served by control_now, a replan every
+    SERVE_EVERY; returns (cold ms, mean warm ms, |pole| per step)."""
+    plant, planner, run, fin, state = serving_setup(dev, torch.float32)
+    mpc = MPC(plant, run, fin, cfg, planning_model=planner, device=dev)
+    t = 0.0
+    mpc.record_state(t, state)
+    cold = serving_replan(mpc, t, f"{label}: cold replan")
+    warm, poles = [], []
+    for i in range(SERVE_STEPS):
+        u = mpc.control_now(t, state)
+        state = step(plant, state, u)
+        t += SERVE_DT
+        mpc.record_state(t, state)
+        if i % SERVE_EVERY == 0:
+            warm.append(serving_replan(mpc, t, f"{label}: warm replan {len(warm) + 1}"))
+        poles.append(float(state.q[1]))
+    poles = np.abs(np.asarray(poles))
+    cold_ms, warm_ms = 1e3 * cold, 1e3 * sum(warm) / len(warm)
+    log(f"  {label} (horizon {cfg.horizon}, {cfg.replan_iters} warm and "
+        f"{cfg.first_solve_iters} cold iterations): {1 + len(warm)} replans, each launching "
+        f"K3 and K1 once per iteration and K2 once more; replan (host clock, ending in a "
+        f"synchronize) cold {cold_ms:.2f} ms, warm mean {warm_ms:.2f} ms (min "
+        f"{1e3 * min(warm):.2f}, max {1e3 * max(warm):.2f}); |pole| max {poles.max():.4f}, over "
+        f"the last 20 steps {poles[-20:].max():.4f}; {smi}")
+    return cold_ms, warm_ms, poles
+
+
+def phase_serving(dev, smi):
+    """The serving edge on the card (realtime/mpc.py, realtime/buffer.py,
+    the native buffer) in f32: tests/test_realtime.py's closed loop at its
+    own MPCConfig, gated on the pole, and at MPCConfig's defaults (horizon
+    100, 8 warm and 40 cold iterations), timed; the first warm replan at the
+    defaults against the plain path in f64; AsyncMPC on the simulated clock.
+    Returns (cold ms, mean warm ms) at the defaults and the median serving
+    ms."""
+    cfg = MPCConfig()
+    log(f"{elapsed()} phase 13: the serving edge, MPC on the cartpole (the plant with its "
+        f"limits, the planner relax_limits of it), f32, a replan every {SERVE_EVERY} of "
+        f"{SERVE_STEPS} plant steps")
+    _, _, poles = serving_loop(dev, MPCConfig(**SERVE_TEST_CONFIG), "test_realtime.py's loop",
+                               smi)
+    if not (poles.max() < SERVE_POLE_MAX and poles[-20:].max() < SERVE_POLE_END):
+        raise AssertionError(f"the serving MPC did not balance the cartpole: |pole| max "
+                             f"{poles.max():.4f} (limit {SERVE_POLE_MAX}), last 20 steps "
+                             f"{poles[-20:].max():.4f} (limit {SERVE_POLE_END})")
+    cold_ms, warm_ms, _ = serving_loop(dev, cfg, "MPCConfig's defaults", smi)
+
+    # the first warm replan in f64 against the same call on the plain path
+    plant, planner, run, fin, state = serving_setup(dev, torch.float64)
+    mpc = MPC(plant, run, fin, cfg, planning_model=planner, device=dev)
+    mpc.record_state(0.0, state)
+    serving_replan(mpc, 0.0, "f64 cold replan")
+    state = step(plant, state, mpc.control_now(0.0, state))
+    mpc.record_state(SERVE_DT, state)
+    seen, replan = [], mpc._replan
+
+    def recording(x0, u_warm, iters):
+        seen.append((x0, u_warm, iters))
+        return replan(x0, u_warm, iters)
+
+    mpc._replan = recording
+    serving_replan(mpc, SERVE_DT, "f64 first warm replan")
+    x0, u_warm, iters = seen[0]
+
+    def solve_one(x0, use_kernels):
+        return ilqr_solve_batch(planner, x0[None].contiguous(), u_warm[None].contiguous(), run,
+                                fin, ILQRConfig(iters=iters, kernels=use_kernels))
+
+    sol_k, sol_p = solve_one(x0, True), solve_one(x0, False)
+    if not torch.equal(sol_k.u[0], mpc.plan.u):
+        raise AssertionError("the MPC's f64 warm plan is not its replan's solution")
+    dc = float(((sol_k.cost - sol_p.cost).abs() / sol_p.cost.abs()).max())
+    dk = float((sol_k.K - sol_p.K).abs().max())
+    log(f"  f64 first warm replan, kernel path against plain path: max rel cost diff {dc:.3e} "
+        f"(tol {COST_RTOL_F64:.0e}), |u| diff {float((sol_k.u - sol_p.u).abs().max()):.3e}, "
+        f"|K| diff {dk:.3e}")
+    u_agreement("f64 first warm replan", sol_k, sol_p,
+                lambda shift: solve_one(x0 + shift, False), 1, flat_end=True)
+    if not dc <= COST_RTOL_F64:
+        raise AssertionError("f64 warm replan: kernel path and plain path disagree on the cost")
+
+    # AsyncMPC on the simulated clock: the replanner thread publishes through
+    # the native seqlock buffer while this thread serves and steps the plant
+    plant, planner, run, fin, state = serving_setup(dev, torch.float32)
+    mpc = MPC(plant, run, fin, cfg, planning_model=planner, device=dev)
+    clock = [0.0]
+    amp = AsyncMPC(mpc, clock=lambda: clock[0])
+    amp.record_state(0.0, state)
+    lat, poles = [], []
+    with amp:
+        deadline = time.perf_counter() + 60.0
+        while mpc.plan is None and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        if mpc.plan is None:
+            raise AssertionError("AsyncMPC: the replanner published no plan in 60 s")
+        for _ in range(SERVE_STEPS):
+            t0 = time.perf_counter()
+            u = amp.control_now(clock[0], state)
+            lat.append(time.perf_counter() - t0)
+            state = step(plant, state, u)
+            clock[0] += SERVE_DT
+            amp.record_state(clock[0], state)
+            poles.append(float(state.q[1]))
+        n_pub = amp.num_published
+    u_native = amp.control_now_native(clock[0])
+    med_ms = 1e3 * float(np.median(lat))
+    durs = amp.replan_durations
+    log(f"  AsyncMPC: {n_pub} plans published through the native buffer over {SERVE_STEPS} "
+        f"plant steps ({len(durs)} replans, mean {1e3 * sum(durs) / max(len(durs), 1):.2f} ms); "
+        f"control_now median {med_ms:.4f} ms, max {1e3 * max(lat):.4f} ms (limit "
+        f"{1e3 * SERVE_LATENCY_MAX_S:.0f} ms); control_now_native {u_native}; |pole| max "
+        f"{float(np.abs(poles).max()):.4f}; {smi}")
+    if n_pub < 2:
+        raise AssertionError(f"AsyncMPC published {n_pub} plans (at least 2 asked)")
+    if not med_ms < 1e3 * SERVE_LATENCY_MAX_S:
+        raise AssertionError(f"AsyncMPC: median serving latency {med_ms:.3f} ms")
+    if u_native is None or u_native.shape != (plant.num_actions,) or not np.isfinite(u_native).all():
+        raise AssertionError(f"AsyncMPC: control_now_native gave {u_native}")
+    return cold_ms, warm_ms, med_ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr, flush=True)
@@ -1473,6 +1664,9 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("  " + line.strip())
+    t0 = time.perf_counter()
+    native_path = native.build()
+    log(f"native serving library: {time.perf_counter() - t0:.1f} s -> {native_path}")
 
     log(f"{elapsed()} phase 3: each kernel against its plain version, B={B_CHECK}, T={H}")
     for dtype in (torch.float64, torch.float32):
@@ -1741,6 +1935,7 @@ def main() -> int:
     slice_counts, slice_rates = phase_11_12(dev, records, work, (sol_w.u, cl_w),
                                             (x0_w, sol_p_w), full_w)
     del full_w
+    serve_cold_ms, serve_warm_ms, serve_ms = phase_serving(dev, smi)
 
     out = []
     for name in list(KERNELS) + list(CONTACT_KERNELS) + list(WORM_KERNELS) + list(SLICE_KERNELS):
@@ -1770,8 +1965,9 @@ def main() -> int:
         f"{contact_rates[False]:.1f} (stock limits) and {contact_rates[True]:.1f} (narrowed) "
         f"solves/s (B={B_CONTACT}); worm {worm_rate:.1f} solves/s (B={WORM_B}), with "
         f"linearize=\"jvp\" {slice_rates['jvp']:.1f}, with \"split\" "
-        f"{slice_rates['split']:.1f}, with \"chain\" {slice_rates['chain']:.1f}; build "
-        f"{nvcc_s:.1f} s")
+        f"{slice_rates['split']:.1f}, with \"chain\" {slice_rates['chain']:.1f}; serving "
+        f"edge: replan cold {serve_cold_ms:.2f} ms, warm {serve_warm_ms:.2f} ms, control_now "
+        f"median {serve_ms:.4f} ms; build {nvcc_s:.1f} s")
     log(smi)
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,5 @@
-// K2: closed-loop line-search rollouts for every (alpha, world) pair, and
-// K6: the full-LCP class rollout of the contact replan.
+// K2: closed-loop line-search rollouts for every (alpha, world) pair (K6,
+// the full-LCP class rollout of the contact replan, is classes.cu).
 //
 // K2 replaces nimblephysics_tpu/ops/pallas_rollout.py :: rollout_gains_pallas
 // (kernel _rollout_kernel), which put (alpha, world) pairs on the TPU's
@@ -40,16 +40,6 @@
 // law and the running cost, the lanes share the frozen step's rows and its
 // Qf in shared memory, and lanes 0 .. nx - 1 (na - 1) write xs (us).
 //
-// K6 replaces rollout_classes_pallas (kernel _classes_kernel), which ran
-// the T-step scan of the full constrained step with the worlds on lanes
-// and the state carried in VMEM across time chunks. Bound on this card:
-// arithmetic (the LCP's three normal-equation rounds and eight PGS sweeps
-// per step); one thread per world carries x through the T steps in
-// registers, reads u packed (T, NA, B) and writes (x', cmask) packed
-// (T, NX + M, B), so neighbouring threads touch neighbouring addresses.
-// Least work (chip_smoke.py least_work): u and x0 read, (xs, cmask)
-// written once, one class_step per (world, t) (ops/device_step.py
-// class_step_ops).
 #include "frozen_group.cuh"
 
 namespace nptt {
@@ -241,32 +231,6 @@ NPTT_HD void rollout_group(const Grp& g, FrozenShared<T, NB, NQ, M, 1>& sh, long
   if (g.lane == 0) costs[l] = cost + cf;
 }
 
-template <typename T, int NB, int NQ, int NA, int M>
-NPTT_HD void classes_thread(long long b, long long B, int Tn, const T* __restrict__ P,
-                            const int* __restrict__ I, const T* __restrict__ x0,
-                            const T* __restrict__ u_tb, T* __restrict__ out) {
-  using L = StepLayout<NB, NQ, NA>;
-  constexpr int NX = 2 * NQ, E = NX + M;
-  T x[NX];
-#pragma unroll (unroll_by(true, NX))
-  for (int i = 0; i < NX; ++i) x[i] = x0[b * NX + i];
-  for (int t = 0; t < Tn; ++t) {
-    T u[NA], qn[NQ], vn[NQ], cm[M];
-#pragma unroll (unroll_by(true, NA))
-    for (int a = 0; a < NA; ++a) u[a] = u_tb[((long long)t * NA + a) * B + b];
-    class_step<T, T, NB, NQ, NA, M>(P, I, x, x + NQ, u, qn, vn, cm);
-#pragma unroll (unroll_by(true, NQ))
-    for (int i = 0; i < NQ; ++i) {
-      x[i] = qn[i];
-      x[NQ + i] = vn[i];
-    }
-#pragma unroll (unroll_by(true, NX))
-    for (int i = 0; i < NX; ++i) out[((long long)t * E + i) * B + b] = x[i];
-#pragma unroll (row_unroll(M, M))
-    for (int r = 0; r < M; ++r) out[((long long)t * E + NX + r) * B + b] = cm[r];
-  }
-}
-
 #ifdef __CUDACC__
 template <typename T, int NB, int NQ, int NA, int M, int NS>
 __global__ void rollout_kernel(long long A, long long B, int Tn, int n_cg, const T* __restrict__ P,
@@ -330,23 +294,6 @@ static int launch_rollout(long long A, long long B, int Tn, int n_cg, const void
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NB, int NQ, int NA, int M>
-__global__ void classes_kernel(long long B, int Tn, const T* __restrict__ P,
-                               const int* __restrict__ I, const T* __restrict__ x0,
-                               const T* __restrict__ u_tb, T* __restrict__ out) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b < B) classes_thread<T, NB, NQ, NA, M>(b, B, Tn, P, I, x0, u_tb, out);
-}
-
-template <typename T, int NB, int NQ, int NA, int M>
-static int launch_classes(long long B, int Tn, const void* P, const void* I, const void* x0,
-                          const void* u_tb, void* out, cudaStream_t stream) {
-  const int threads = 128;
-  const long long blocks = (B + threads - 1) / threads;
-  classes_kernel<T, NB, NQ, NA, M><<<(unsigned)blocks, threads, 0, stream>>>(
-      B, Tn, (const T*)P, (const int*)I, (const T*)x0, (const T*)u_tb, (T*)out);
-  return (int)cudaGetLastError();
-}
 #endif
 
 }  // namespace nptt
@@ -418,18 +365,4 @@ extern "C" int nptt_rollout_layout(int is_double, int m, long long* out) {
   return -1;
 }
 
-// K6. Returns 0, a cudaError_t, or -1 for a (dtype, nb, nq, na, m) without
-// an instance. u_tb (T, na, B); out (T, 2 nq + m, B).
-extern "C" int nptt_rollout_classes(int is_double, int nb, int nq, int na, int m, long long B,
-                                    int T, const void* P, const void* I, const void* x0,
-                                    const void* u_tb, void* out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-#define NPTT_CLASSES_CASE(NB, NQ, NA, M, NS)                                                 \
-  if (m == M && nb == NB && nq == NQ && na == NA)                                            \
-    return is_double ? nptt::launch_classes<double, NB, NQ, NA, M>(B, T, P, I, x0, u_tb, out, s) \
-                     : nptt::launch_classes<float, NB, NQ, NA, M>(B, T, P, I, x0, u_tb, out, s);
-  NPTT_CONTACT_SHAPES(NPTT_CLASSES_CASE)
-#undef NPTT_CLASSES_CASE
-  return -1;
-}
 #endif

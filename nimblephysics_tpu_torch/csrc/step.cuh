@@ -554,7 +554,7 @@ NPTT_UNROLL(L::kUnroll, NQ)
 // coupling enters the frozen solve through R = (I + diag(us) gov) diag(cm).
 //
 // The loops over the rows and the slots, and the loops that hold them,
-// unroll by row_unroll(M, trips): fully for small LCPs (the limited
+// unroll by row_unroll(M, trips) (NPTT_ROW_UNROLL): fully for small LCPs (the limited
 // cartpole's 4 rows), whose arrays then live in registers; not at all for
 // larger ones (the worm's 28 rows), where unrolled they made the build take
 // 330-465 s (60-100 s rolled) and the M-sized arrays live in local memory
@@ -568,6 +568,19 @@ NPTT_UNROLL(L::kUnroll, NQ)
 NPTT_HD constexpr int row_unroll(int m, int trips, int rolled = 1) {
   return m <= 8 ? unroll_by(true, trips) : rolled;
 }
+
+// The unroll pragma of a loop over rows or slots: #pragma unroll
+// (row_unroll(m, trips[, rolled])), or a plain #pragma unroll in a file
+// that defines NPTT_PLAIN_UNROLL (NPTT_UNROLL, common.cuh). Such a file
+// builds no LCP of more than 8 rows (classes.cu asserts it; K3's
+// linearize_free.cu builds none): the plain pragma unrolls every row loop
+// whatever m, and rolled row loops are what keep the worm's instances right
+// and their build short (above).
+#ifdef NPTT_PLAIN_UNROLL
+#define NPTT_ROW_UNROLL(...) _Pragma("unroll")
+#else
+#define NPTT_ROW_UNROLL(...) _Pragma(NPTT_STR(unroll (row_unroll(__VA_ARGS__))))
+#endif
 
 // Where the rows stay rolled (more than 8 of them, the worm's 28), K2, K4
 // and K5 run the frozen solve on a lane group (frozen_group.cuh) instead
@@ -834,7 +847,7 @@ NPTT_HD void contact_rows(const T* __restrict__ P, const int* __restrict__ I,
   using L = StepLayout<NB, NQ, NA>;
   S Rw[NB][9], pw[NB][3];
   world_frames<T, S, NB, NQ, NA>(I, R, p, Rw, pw);
-#pragma unroll (row_unroll(M, NS))
+NPTT_ROW_UNROLL(M, NS)
   for (int s = 0; s < NS; ++s) {
     S Jp[3][NQ];
     slot_jacobian<T, S, NB, NQ, NA, M, NS>(P, I, Rw, pw, s, Jp);
@@ -874,7 +887,7 @@ NPTT_HD void constraint_rows(const T* __restrict__ P, const int* __restrict__ I,
   int dofs[M];
   S Jc[C0 > 0 ? C0 : 1][NQ];
   if constexpr (NS > 0) contact_rows<T, S, NB, NQ, NA, M, NS>(P, I, R, p, vs, Jc, b, lo, hi);
-#pragma unroll (row_unroll(M, M - C0))
+NPTT_ROW_UNROLL(M, M - C0)
   for (int r = C0; r < M; ++r) {
     const int d = I[RL::iRowDof + r - C0], kind = I[RL::iRowKind + r - C0];
     const T lim = P[RL::kRow + r - C0];
@@ -902,9 +915,9 @@ NPTT_UNROLL(L::kUnroll, NQ)
       hi[r] = act * T(kBig);
     }
   }
-#pragma unroll (row_unroll(M, NQ))
+NPTT_ROW_UNROLL(M, NQ)
   for (int k = 0; k < NQ; ++k)
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
     for (int c = 0; c < M; ++c) {
       if (c < C0) {
         S mk = Mi[k][0] * Jc[c][0];
@@ -919,9 +932,9 @@ NPTT_UNROLL(L::kUnroll, NQ)
         MJ[k][c] = mk * coef[c];
       }
     }
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int r = 0; r < M; ++r)
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
     for (int c = 0; c < M; ++c) {
       if (r < C0) {
         S ar = Jc[r][0] * MJ[0][c];
@@ -945,9 +958,9 @@ NPTT_UNROLL(L::kUnroll, NQ)
 // rows to none (gov = 0 there, and A R = A C).
 template <typename T, typename S, int M, int NS>
 NPTT_HD void frozen_system(const S (&A)[M][M], const T* cm, const T* us, S (&Qf)[M][M]) {
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int i = 0; i < M; ++i)
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
     for (int j = 0; j < M; ++j) {
       S ar = A[i][j];
       if (j < 3 * NS && j % 3 == 0) ar = (ar + us[j + 1] * A[i][j + 1]) + us[j + 2] * A[i][j + 2];
@@ -960,7 +973,7 @@ NPTT_HD void frozen_system(const S (&A)[M][M], const T* cm, const T* us, S (&Qf)
 // friction row i coupled to f.
 template <typename T, typename S, int M, int NS>
 NPTT_HD void frozen_impulses(const T* cm, const T* us, const S (&xc)[M], S (&x)[M]) {
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int i = 0; i < M; ++i) {
     x[i] = cm[i] * (cm[i] * xc[i]);
     if (i < 3 * NS && i % 3 != 0) {
@@ -981,7 +994,7 @@ NPTT_HD void pcg_n(const S (&Qf)[M][M], S reg, const S (&diagM)[M], const S (&bb
   S r[NR][M], z[NR][M], p[NR][M], rz[NR];
 NPTT_UNROLL(true, NR)
   for (int s = 0; s < NR; ++s) {
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
     for (int i = 0; i < M; ++i) {
       x[s][i] = S(T(0));
       r[s][i] = bb[s][i];
@@ -989,7 +1002,7 @@ NPTT_UNROLL(true, NR)
       p[s][i] = z[s][i];
     }
     rz[s] = r[s][0] * z[s][0];
-#pragma unroll (row_unroll(M, M - 1, 8))
+NPTT_ROW_UNROLL(M, M - 1, 8)
     for (int i = 1; i < M; ++i) rz[s] = rz[s] + r[s][i] * z[s][i];
   }
 #pragma unroll 1
@@ -997,34 +1010,34 @@ NPTT_UNROLL(true, NR)
 NPTT_UNROLL(true, NR)
     for (int s = 0; s < NR; ++s) {
       S Qp[M], Ap[M];
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
       for (int i = 0; i < M; ++i) {
         Qp[i] = Qf[i][0] * p[s][0];
-#pragma unroll (row_unroll(M, M - 1, 8))
+NPTT_ROW_UNROLL(M, M - 1, 8)
         for (int j = 1; j < M; ++j) Qp[i] = Qp[i] + Qf[i][j] * p[s][j];
       }
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
       for (int j = 0; j < M; ++j) {
         S acc = Qf[0][j] * Qp[0];
-#pragma unroll (row_unroll(M, M - 1, 8))
+NPTT_ROW_UNROLL(M, M - 1, 8)
         for (int i = 1; i < M; ++i) acc = acc + Qf[i][j] * Qp[i];
         Ap[j] = acc + reg * p[s][j];
       }
       S pAp = p[s][0] * Ap[0];
-#pragma unroll (row_unroll(M, M - 1, 8))
+NPTT_ROW_UNROLL(M, M - 1, 8)
       for (int i = 1; i < M; ++i) pAp = pAp + p[s][i] * Ap[i];
       const S alpha = qdiv(rz[s], pAp + tiny);
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
       for (int i = 0; i < M; ++i) {
         x[s][i] = x[s][i] + alpha * p[s][i];
         r[s][i] = r[s][i] - alpha * Ap[i];
         z[s][i] = qdiv(r[s][i], diagM[i]);
       }
       S rz_new = r[s][0] * z[s][0];
-#pragma unroll (row_unroll(M, M - 1, 8))
+NPTT_ROW_UNROLL(M, M - 1, 8)
       for (int i = 1; i < M; ++i) rz_new = rz_new + r[s][i] * z[s][i];
       const S beta = qdiv(rz_new, rz[s] + tiny);
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
       for (int i = 0; i < M; ++i) p[s][i] = z[s][i] + beta * p[s][i];
       rz[s] = rz_new;
     }
@@ -1036,10 +1049,10 @@ template <typename T, typename S, int M>
 NPTT_HD void pcg(const S (&Qf)[M][M], S reg, const S (&diagM)[M], const S (&bb)[M], int n_cg,
                  S (&x)[M]) {
   S b1[1][M], x1[1][M];
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int i = 0; i < M; ++i) b1[0][i] = bb[i];
   pcg_n<T>(Qf, reg, diagM, b1, n_cg, x1);
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int i = 0; i < M; ++i) x[i] = x1[0][i];
 }
 
@@ -1050,18 +1063,18 @@ NPTT_HD void frozen_normal_eqs(const S (&A)[M][M], const S (&b)[M], const T* cm,
                                S (&Qf)[M][M], S& reg, S (&diagM)[M], S (&bvec)[M]) {
   S rhs[M];
   frozen_system<T, S, M, NS>(A, cm, us, Qf);
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int i = 0; i < M; ++i) rhs[i] = cm[i] * b[i];
   S qs = S(T(1));
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int i = 0; i < M; ++i)
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
     for (int j = 0; j < M; ++j) qs = pmax(qs, nabs(Qf[i][j]));
   reg = (Prec<T>::eps() * qs) * qs;
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int j = 0; j < M; ++j) {
     S dg = Qf[0][j] * Qf[0][j], bv = Qf[0][j] * rhs[0];
-#pragma unroll (row_unroll(M, M - 1, 8))
+NPTT_ROW_UNROLL(M, M - 1, 8)
     for (int i = 1; i < M; ++i) {
       dg = dg + Qf[i][j] * Qf[i][j];
       bv = bv + Qf[i][j] * rhs[i];
@@ -1091,18 +1104,18 @@ NPTT_HD void frozen_normal_eqs_dual(const Dual<V> (&A)[M][M], const Dual<V> (&b)
                                     Dual<V>& reg, V (&diagM)[M], Dual<V> (&bvec)[M]) {
   Dual<V> rhs[M];
   frozen_system<T, Dual<V>, M, NS>(A, cm, us, Qf);
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int i = 0; i < M; ++i) rhs[i] = cm[i] * b[i];
   T mx = nabs(val(Qf[0][0].v));
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int i = 0; i < M; ++i)
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
     for (int j = 0; j < M; ++j) mx = pmax(mx, nabs(val(Qf[i][j].v)));
   T cnt = T(0);
   V dsum = V(T(0));
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int i = 0; i < M; ++i)
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
     for (int j = 0; j < M; ++j) {
       const T w = nabs(val(Qf[i][j].v)) == mx ? T(1) : T(0);
       cnt = cnt + w;
@@ -1111,18 +1124,18 @@ NPTT_HD void frozen_normal_eqs_dual(const Dual<V> (&A)[M][M], const Dual<V> (&b)
   const T share = mx > T(1) ? T(1) / cnt : (mx == T(1) ? T(0.5) / cnt : T(0));
   const Dual<V> qs(V(pmax(mx, T(1))), dsum * share);
   reg = (Prec<T>::eps() * qs) * qs;
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int j = 0; j < M; ++j) {
     V dg = Qf[0][j].v * Qf[0][j].v;
     Dual<V> s = Qf[0][j] * rhs[0];
-#pragma unroll (row_unroll(M, M - 1, 8))
+NPTT_ROW_UNROLL(M, M - 1, 8)
     for (int i = 1; i < M; ++i) {
       dg = dg + Qf[i][j].v * Qf[i][j].v;
       s = s + Qf[i][j] * rhs[i];
     }
     diagM[j] = dg + reg.v;
     bvec[j] = s;
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
     for (int i = 0; i < M; ++i) Qv[i][j] = Qf[i][j].v;
   }
 }
@@ -1133,20 +1146,20 @@ template <typename V, int M>
 NPTT_HD void frozen_tangent_rhs(const Dual<V> (&Qf)[M][M], const Dual<V>& reg,
                                 const Dual<V> (&bvec)[M], const V (&xc)[M], V (&rt)[M]) {
   V Qx[M], dQx[M];
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int i = 0; i < M; ++i) {
     Qx[i] = Qf[i][0].v * xc[0];
     dQx[i] = Qf[i][0].d * xc[0];
-#pragma unroll (row_unroll(M, M - 1, 8))
+NPTT_ROW_UNROLL(M, M - 1, 8)
     for (int j = 1; j < M; ++j) {
       Qx[i] = Qx[i] + Qf[i][j].v * xc[j];
       dQx[i] = dQx[i] + Qf[i][j].d * xc[j];
     }
   }
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int j = 0; j < M; ++j) {
     V s1 = Qf[0][j].d * Qx[0], s2 = Qf[0][j].v * dQx[0];
-#pragma unroll (row_unroll(M, M - 1, 8))
+NPTT_ROW_UNROLL(M, M - 1, 8)
     for (int i = 1; i < M; ++i) {
       s1 = s1 + Qf[i][j].d * Qx[i];
       s2 = s2 + Qf[i][j].v * dQx[i];
@@ -1167,12 +1180,12 @@ NPTT_HD void solve_frozen(const Dual<V> (&A)[M][M], const Dual<V> (&b)[M], const
   Dual<V> Qf[M][M], reg, bvec[M], xd[M];
   V Qv[M][M], diagM[M], bv[M], xc[M], rt[M], dxc[M];
   frozen_normal_eqs_dual<T, V, M, NS>(A, b, cm, us, Qf, Qv, reg, diagM, bvec);
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int j = 0; j < M; ++j) bv[j] = bvec[j].v;
   pcg<T>(Qv, reg.v, diagM, bv, n_cg, xc);
   frozen_tangent_rhs<V, M>(Qf, reg, bvec, xc, rt);
   pcg<T>(Qv, reg.v, diagM, rt, n_cg, dxc);
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int i = 0; i < M; ++i) xd[i] = Dual<V>(xc[i], dxc[i]);
   frozen_impulses<T, Dual<V>, M, NS>(cm, us, xd, x);
 }
@@ -1184,10 +1197,10 @@ NPTT_HD S comp_residual(const S (&A)[M][M], const S (&b)[M], const T (&lo)[M], c
                         const S (&x)[M]) {
   const T tol = Prec<T>::tol();
   S res = S(T(0));
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int i = 0; i < M; ++i) {
     S w = A[i][0] * x[0];
-#pragma unroll (row_unroll(M, M - 1, 8))
+NPTT_ROW_UNROLL(M, M - 1, 8)
     for (int j = 1; j < M; ++j) w = w + A[i][j] * x[j];
     w = w - b[i];
     const S nw = -w;
@@ -1204,44 +1217,44 @@ template <typename T, typename S, int M>
 NPTT_HD void lcp_subsolve(const S (&A)[M][M], const S (&b)[M], const T (&lo)[M], const T (&hi)[M],
                           const T (&im)[M], const S (&x)[M], S (&xn)[M]) {
   S xb[M], rhs[M], Af[M][M], AtA[M][M], Atr[M], Ai[M][M];
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int i = 0; i < M; ++i) xb[i] = nclip(x[i], lo[i], hi[i]) * (T(1) - im[i]);
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int i = 0; i < M; ++i) {
     S ax = A[i][0] * xb[0];
-#pragma unroll (row_unroll(M, M - 1, 8))
+NPTT_ROW_UNROLL(M, M - 1, 8)
     for (int j = 1; j < M; ++j) ax = ax + A[i][j] * xb[j];
     rhs[i] = im[i] * (b[i] - ax);
   }
   S sc = S(T(1));
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int i = 0; i < M; ++i)
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
     for (int j = 0; j < M; ++j) {
       Af[i][j] = (im[i] * A[i][j]) * im[j];
       if (i == j) Af[i][j] = Af[i][j] + (T(1) - im[i]);
       sc = pmax(sc, nabs(Af[i][j]));
     }
   const S reg = (Prec<T>::eps() * sc) * sc;
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int i = 0; i < M; ++i) {
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
     for (int j = 0; j < M; ++j) {
       S s = Af[0][i] * Af[0][j];
-#pragma unroll (row_unroll(M, M - 1, 8))
+NPTT_ROW_UNROLL(M, M - 1, 8)
       for (int k = 1; k < M; ++k) s = s + Af[k][i] * Af[k][j];
       AtA[i][j] = i == j ? s + reg : s;
     }
     S t = Af[0][i] * rhs[0];
-#pragma unroll (row_unroll(M, M - 1, 8))
+NPTT_ROW_UNROLL(M, M - 1, 8)
     for (int k = 1; k < M; ++k) t = t + Af[k][i] * rhs[k];
     Atr[i] = t;
   }
   inv_spd<T, 1>(AtA, Ai);
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int i = 0; i < M; ++i) {
     S xi = Ai[i][0] * Atr[0];
-#pragma unroll (row_unroll(M, M - 1, 8))
+NPTT_ROW_UNROLL(M, M - 1, 8)
     for (int j = 1; j < M; ++j) xi = xi + Ai[i][j] * Atr[j];
     xn[i] = xi * im[i] + xb[i];
   }
@@ -1255,21 +1268,21 @@ NPTT_HD void direct_boxed_solve_lane(const S (&A)[M][M], const S (&b)[M], const 
                                      const T (&hi)[M], S (&out)[M]) {
   T im[M];
   S x[M], best[M];
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int i = 0; i < M; ++i) {
     im[i] = T(1);
     x[i] = S(T(0));
     best[i] = nclip(x[i], lo[i], hi[i]);
   }
   S best_res = comp_residual<T>(A, b, lo, hi, best);
-#pragma unroll (row_unroll(M, 3))
+NPTT_ROW_UNROLL(M, 3)
   for (int round = 0; round < 3; ++round) {
     S xn[M];
     lcp_subsolve<T>(A, b, lo, hi, im, x, xn);
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
     for (int i = 0; i < M; ++i) {
       S w = A[i][0] * xn[0];
-#pragma unroll (row_unroll(M, M - 1, 8))
+NPTT_ROW_UNROLL(M, M - 1, 8)
       for (int j = 1; j < M; ++j) w = w + A[i][j] * xn[j];
       w = w - b[i];
       const bool below = val(xn[i]) <= lo[i], above = val(xn[i]) >= hi[i];
@@ -1279,31 +1292,31 @@ NPTT_HD void direct_boxed_solve_lane(const S (&A)[M][M], const S (&b)[M], const 
     }
     const S res = comp_residual<T>(A, b, lo, hi, x);
     if (val(res) < val(best_res)) {
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
       for (int i = 0; i < M; ++i) best[i] = x[i];
       best_res = res;
     }
   }
   S y[M], inv_diag[M];
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int i = 0; i < M; ++i) {
     y[i] = best[i];
     const S id = T(1) / A[i][i];
     inv_diag[i] = nabs(val(A[i][i])) > T(1e-12) ? id : S(T(0));
   }
-#pragma unroll (row_unroll(M, 8))
+NPTT_ROW_UNROLL(M, 8)
   for (int sweep = 0; sweep < 8; ++sweep)
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
     for (int i = 0; i < M; ++i) {
       S rs = A[i][0] * y[0];
-#pragma unroll (row_unroll(M, M - 1, 8))
+NPTT_ROW_UNROLL(M, M - 1, 8)
       for (int j = 1; j < M; ++j) rs = rs + A[i][j] * y[j];
       rs = rs - b[i];
       const S xi = nclip(y[i] - rs * inv_diag[i], lo[i], hi[i]);
       y[i] = y[i] + (xi - y[i]);
     }
   const bool better = val(comp_residual<T>(A, b, lo, hi, y)) < val(best_res);
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int i = 0; i < M; ++i) out[i] = better ? y[i] : best[i];
 }
 
@@ -1311,7 +1324,7 @@ NPTT_HD void direct_boxed_solve_lane(const S (&A)[M][M], const S (&b)[M], const 
 template <typename T, typename S, int M>
 NPTT_HD void classify_rows(const S (&x)[M], const T (&lo)[M], const T (&hi)[M], T (&cm)[M]) {
   const T thr = T(kClampThreshold), half_big = T(kBig / 2);
-#pragma unroll (row_unroll(M, M))
+NPTT_ROW_UNROLL(M, M)
   for (int r = 0; r < M; ++r) {
     const T xv = val(x[r]);
     const bool normal_clamp = xv > thr && hi[r] > half_big;
@@ -1350,10 +1363,10 @@ NPTT_HD void frozen_step(const T* __restrict__ P, const int* __restrict__ I, con
   S vs[NQ], A[M][M], b[M], MJ[NQ][M], x[M];
   frozen_inputs<T, S, NB, NQ, NA, M, NS>(P, I, q, v, u, qn, vs, A, b, MJ);
   solve_frozen<NS, T>(A, b, cm, us, n_cg, x);
-#pragma unroll (row_unroll(M, NQ))
+NPTT_ROW_UNROLL(M, NQ)
   for (int d = 0; d < NQ; ++d) {
     S s = MJ[d][0] * x[0];
-#pragma unroll (row_unroll(M, M - 1, 8))
+NPTT_ROW_UNROLL(M, M - 1, 8)
     for (int c = 1; c < M; ++c) s = s + MJ[d][c] * x[c];
     vn[d] = vs[d] + s;
   }
@@ -1377,10 +1390,10 @@ NPTT_UNROLL(L::kUnroll, NQ)
   inv_spd<T, L::kUnroll>(Mm, Mi);
   constraint_rows<T, S, NB, NQ, NA, M, 0, false>(P, I, q, vs, R, p, Mi, A, b, lo, hi, MJ);
   direct_boxed_solve_lane<T>(A, b, lo, hi, x);
-#pragma unroll (row_unroll(M, NQ))
+NPTT_ROW_UNROLL(M, NQ)
   for (int d = 0; d < NQ; ++d) {
     S s = MJ[d][0] * x[0];
-#pragma unroll (row_unroll(M, M - 1, 8))
+NPTT_ROW_UNROLL(M, M - 1, 8)
     for (int c = 1; c < M; ++c) s = s + MJ[d][c] * x[c];
     vn[d] = vs[d] + s;
   }

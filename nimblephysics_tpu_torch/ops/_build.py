@@ -43,7 +43,7 @@ SIGNATURES = {
     "nptt_linearize": [_I, _I, _I, _I, _LL] + [_P] * 7,
     "nptt_rollout": [_I, _I, _I, _I, _I, _I, _LL, _LL, _I, _I] + [_P] * 15,
     "nptt_linearize_split": [_I, _I, _I, _I, _I, _LL, _I] + [_P] * 9,
-    "nptt_rollout_classes": [_I, _I, _I, _I, _I, _LL, _I] + [_P] * 6,
+    "nptt_classes": [_I] * 7 + [_LL, _I] + [_P] * 7,
     "nptt_linearize_vjp": [_I, _I, _I, _I, _I, _I, _LL, _I] + [_P] * 9,
     "nptt_pgs": [_I, _I, _LL, _I] + [_P] * 9,
     "nptt_linearize_vjp_group_shape": [_I, _P],

@@ -184,20 +184,20 @@ def rollout_classes(model: Model, x0: torch.Tensor, u: torch.Tensor):
     if dev.type == "cpu":
         return rollout_classes_plain(model, x0, u)
     m = device_step.check_contact_model(name, model)
-    P, I = device_step.pack_model(model)
-    u_tb = u.permute(1, 2, 0).contiguous()                        # (T, na, B)
-    out = torch.empty((T, nx + m, B), dtype=dtype, device=dev)
+    # the kernel takes the packed model by value in its launch parameters
+    P, I = device_step.pack_model_host(model)
+    u = u.contiguous()
+    xs = torch.empty((B, T, nx), dtype=dtype, device=dev)
+    cm = torch.empty((B, T, m), dtype=dtype, device=dev)
     lib = _build.load()
-    rc = lib.nptt_rollout_classes(
-        int(dtype == torch.float64), model.num_bodies, model.nq, na, m, B, T,
-        P.data_ptr(), I.data_ptr(), x0.data_ptr(), u_tb.data_ptr(), out.data_ptr(),
-        _build.stream_ptr(dev))
+    rc = lib.nptt_classes(
+        int(dtype == torch.float64), model.num_bodies, model.nq, na, m, P.numel(), I.numel(), B,
+        T, P.data_ptr(), I.data_ptr(), x0.data_ptr(), u.data_ptr(), xs.data_ptr(),
+        cm.data_ptr(), _build.stream_ptr(dev))
     _build.check(rc, name)
     rollout_classes.launches += 1
-    rows = out.permute(2, 0, 1)                                   # (B, T, nx + m)
-    cm = rows[..., nx:].contiguous()
     # no device row is friction-coupled, so none is UPPER: us = 0
-    return rows[..., :nx].contiguous(), FrozenClasses(cmask=cm, us=torch.zeros_like(cm))
+    return xs, FrozenClasses(cmask=cm, us=torch.zeros_like(cm))
 
 
 rollout_classes.launches = 0

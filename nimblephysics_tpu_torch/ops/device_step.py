@@ -115,6 +115,22 @@ def pack_model(model: Model):
     return packed
 
 
+_PACKED_HOST: "weakref.WeakKeyDictionary[Model, tuple]" = weakref.WeakKeyDictionary()
+
+
+def pack_model_host(model: Model):
+    """pack_model's (reals, ints) as CPU tensors, for a kernel that takes
+    the model by value in its launch parameters (K6, csrc/classes.cu):
+    copied from the model's device once per packing."""
+    packed = pack_model(model)
+    hit = _PACKED_HOST.get(model)
+    if hit is not None and hit[0] is packed:
+        return hit[1]
+    host = tuple(t.detach().cpu().contiguous() for t in packed)
+    _PACKED_HOST[model] = (packed, host)
+    return host
+
+
 def _pack(model: Model):
     check_model(model)
     nb = model.num_bodies

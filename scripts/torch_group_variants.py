@@ -14,9 +14,11 @@ VARIANTS, each of which sets some of the layout constants
 kK5Group, kK4Group, and K4's tangent right-hand sides per pass over Qf,
 kK4Rhs; csrc/lcp.cu: K7's, kK7Group; the cartpole's layouts,
 frozen_group.cuh kK4PointRhs, the one-thread K4's tangent PCGs per pass,
-and csrc/rollout.cu kK2Threads, the one-thread K2's threads per block; or
-"small_unrolled", scripts/torch_unroll_variants.py's plain ``#pragma
-unroll`` on the small loops);
+and csrc/rollout.cu kK2Threads, the one-thread K2's threads per block;
+csrc/classes.cu kK6Threads, K6's threads per block; "k6_counted", K6's
+file without NPTT_PLAIN_UNROLL; or "small_unrolled",
+scripts/torch_unroll_variants.py's plain ``#pragma unroll`` on the small
+loops);
 ``--variants`` picks some of them
 (comma-separated; by default all). All ``nvcc`` calls run at once, into
 ``--out`` (by default the gitignored
@@ -40,6 +42,9 @@ f64:
     10): K2 with classes, also at A=1 (one alpha: a latency-bound kernel
     takes about as long) and at PCG depth 1, and K4, also at PCG depth 1;
     K2 without classes at the contact-free path's shapes (phase 3b's, B=4096);
+    and K1, K3 and K6 of K1K3_NAMES (each wrapper call and its launch
+    alone, K1 and K6 also at T = 1 and 10; in f64 at chip_smoke.py's check
+    sizes, K1's PD flags and K6's classes held identical);
   * in f32, each library's replans of REPLANS (``--replans``), 3 calls
     each, in turns: the warm worm replans (ILQRConfig(linearize=...):
     "auto", bench.py's row, and "jvp", K3 classes=; "split" and "chain" on
@@ -72,6 +77,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from nimblephysics_tpu_torch.ops import _build  # noqa: E402
+from nimblephysics_tpu_torch.ops.frozen_contact import FrozenClasses  # noqa: E402
 from nimblephysics_tpu_torch.trajectory import ilqr  # noqa: E402
 from torch_unroll_variants import ptxas_table  # noqa: E402
 from torch_unroll_variants import transform as unroll_transform  # noqa: E402
@@ -89,6 +95,7 @@ CONSTANTS = {
     "kK1Lanes": ("riccati.cu", r"kK1Lanes = \d+"),
     "kK1Chunk": ("riccati.cu", r"kK1Chunk = \d+"),
     "kK3Threads": ("linearize_free.cu", r"kK3Threads = \d+"),
+    "kK6Threads": ("classes.cu", r"kK6Threads = \d+"),
 }
 # name -> the constants it sets (the others as the sources have them)
 VARIANTS = {
@@ -108,6 +115,10 @@ VARIANTS = {
     "k1_c4": {"kK1Chunk": 4},
     "k1_c16": {"kK1Chunk": 16},
     "k3_t256": {"kK3Threads": 256},
+    "k6t32": {"kK6Threads": 32},
+    "k6t64": {"kK6Threads": 64},
+    "k6t128": {"kK6Threads": 128},
+    "k6_counted": {"_sub": ("classes.cu", "#define NPTT_PLAIN_UNROLL\n", "")},
 }
 # the worm's kernels (its shape in the mangled names) and K7's, in ptxas's output
 WORM_SHAPE = "Li3ELi4ELi2ELi28ELi8E"
@@ -129,15 +140,18 @@ CART_REPLANS = ("cartpole_limits", "cartpole_limits_narrow", "cartpole_free")
 REPLANS = ("auto", "jvp", "split", "chain") + CART_REPLANS + ("none",)
 REPS = 3
 # K1 at (4, 1) (the cartpole, B=4096) and at (8, 2) (the worm, B=2048), K3
-# (the cartpole, B=4096): each timed as its wrapper call and as its launch
-# alone (CUDA events around the nptt_* call only, inputs packed before),
-# K1 also alone at T = 1 and 10 (the cost per step)
-K1K3_NAMES = ("riccati_backward", "riccati_backward[worm]", "linearize")
+# (the cartpole, B=4096) and K6 (the narrowed cartpole, B=2048): each timed
+# as its wrapper call and as its launch alone (CUDA events around the
+# nptt_* call only, inputs packed before), K6 also its wrapper's permutes
+# alone, K1 and K6 also alone at T = 1 and 10 (the cost per step)
+K1K3_NAMES = ("riccati_backward", "riccati_backward[worm]", "linearize", "rollout_classes")
 K1_STEPS = (1, 10)
-# the kernels of K1 and K3 in ptxas's output and in the SASS
-K1K3_ENTRIES = ("riccati", "linearize_kernel", "linearize_dir")
+# the kernels of K1, K3 and K6 in ptxas's output and in the SASS
+K1K3_ENTRIES = ("riccati", "linearize_kernel", "linearize_dir", "classes_")
 # PR 9's K1 launcher: the inputs packed to (T, E, B), (K, k) out as (T, Eo, B)
 LEGACY_RICCATI = [ctypes.c_int] * 3 + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 8
+# PR 10's K6 launcher: u as (T, na, B), the output (T, nx + m, B)
+LEGACY_CLASSES = [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 6
 
 
 def transform(name: str, text: str, file: str) -> str:
@@ -146,6 +160,13 @@ def transform(name: str, text: str, file: str) -> str:
     for const, value in VARIANTS[name].items():
         if const == "_unroll":
             text = unroll_transform(value, text)
+            continue
+        if const == "_sub":
+            where, old, new = value
+            if file == where:
+                if old not in text:
+                    raise RuntimeError(f"{file} no longer holds {old!r}")
+                text = text.replace(old, new)
             continue
         where, pattern = CONSTANTS[const]
         if file != where:
@@ -205,21 +226,24 @@ def cuobjdump() -> str:
 
 
 def sass_counts(lib: Path) -> dict:
-    """Per kernel instanced at a cartpole shape (CART_SHAPES) and of K1 and
-    K3 (K1K3_ENTRIES): its SASS instructions in all and those of SASS_OPS
-    (MUFU also by function, CALL also where the line names a division's
-    slow path), from ``cuobjdump -sass``. K3's f32 kernels' SASS goes to
-    ``k3.sass`` beside the library (where its local loads sit)."""
+    """Per kernel instanced at a cartpole shape (CART_SHAPES) and of K1, K3
+    and K6 (K1K3_ENTRIES): its SASS instructions in all and those of
+    SASS_OPS (MUFU also by function, CALL also where the line names a
+    division's slow path), from ``cuobjdump -sass``. K3's and K6's f32
+    kernels' SASS go to ``k3.sass`` and ``k6.sass`` beside the library
+    (where their local loads sit)."""
     out = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True, text=True,
                          timeout=900).stdout
-    keep, dump = False, []
-    for line in out.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            keep = "linearize" in m.group(1) and "IfLi2ELi2ELi1EE" in m.group(1)
-        if keep:
-            dump.append(line)
-    (lib.parent / "k3.sass").write_text("\n".join(dump) + "\n")
+    for name, want in (("k3", lambda f: "linearize" in f and "IfLi2ELi2ELi1EE" in f),
+                       ("k6", lambda f: "classes_" in f and "IfLi2ELi2ELi1ELi4EE" in f)):
+        keep, dump = False, []
+        for line in out.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                keep = want(m.group(1))
+            if keep:
+                dump.append(line)
+        (lib.parent / f"{name}.sass").write_text("\n".join(dump) + "\n")
     counts, fn = {}, None
     for line in out.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
@@ -427,11 +451,99 @@ def linearize_calls(lib, args):
     return alone, (lambda: cs.linearize(*args))
 
 
+def classes_is_legacy(lib) -> bool:
+    """Whether a library's K6 is PR 10's: u as (T, na, B), the output
+    (T, nx + m, B), the model behind a device pointer."""
+    return not hasattr(lib, "nptt_classes")
+
+
+def legacy_launch(lib, model, x0, u_tb, out):
+    """PR 10's K6 launch on a legacy library, its inputs already packed."""
+    T, na, B = u_tb.shape
+    P, I = cs.device_step.pack_model(model)
+    lib.nptt_rollout_classes.argtypes = LEGACY_CLASSES
+    lib.nptt_rollout_classes.restype = ctypes.c_int
+    _build.check(lib.nptt_rollout_classes(
+        int(u_tb.dtype == torch.float64), model.num_bodies, model.nq, na, cs.lcp_dim(model), B, T,
+        P.data_ptr(), I.data_ptr(), x0.data_ptr(), u_tb.data_ptr(), out.data_ptr(),
+        _build.stream_ptr(u_tb.device)), "legacy K6")
+
+
+def legacy_unpack(out, nx):
+    rows = out.permute(2, 0, 1)
+    cm = rows[..., nx:].contiguous()
+    return rows[..., :nx].contiguous(), FrozenClasses(cmask=cm, us=torch.zeros_like(cm))
+
+
+def legacy_classes(lib, model, x0, u):
+    """PR 10's K6 wrapper on a legacy library: u permuted to (T, na, B)
+    before the launch, the output permuted back after it."""
+    B, T, _ = u.shape
+    nx = x0.shape[-1]
+    u_tb = u.permute(1, 2, 0).contiguous()
+    out = torch.empty((T, nx + cs.lcp_dim(model), B), dtype=u.dtype, device=u.device)
+    legacy_launch(lib, model, x0, u_tb, out)
+    return legacy_unpack(out, nx)
+
+
+def classes_calls(lib, args):
+    """(the launch alone, the wrapper call, the wrapper's permutes alone or
+    None) of K6 on ``lib``; a legacy library gets PR 10's wrapper."""
+    model, x0, u = args
+    B, T, na = u.shape
+    nx, m = x0.shape[-1], cs.lcp_dim(model)
+    shape = dict(dtype=u.dtype, device=u.device)
+    if classes_is_legacy(lib):
+        u_tb, out = u.permute(1, 2, 0).contiguous(), torch.empty((T, nx + m, B), **shape)
+
+        def permutes():
+            u.permute(1, 2, 0).contiguous()
+            return legacy_unpack(out, nx)
+
+        return ((lambda: legacy_launch(lib, model, x0, u_tb, out)),
+                (lambda: legacy_classes(lib, *args)), permutes)
+    isd, stream = int(u.dtype == torch.float64), _build.stream_ptr(u.device)
+    P, I = cs.device_step.pack_model_host(model)
+    xs, cm = torch.empty((B, T, nx), **shape), torch.empty((B, T, m), **shape)
+
+    def alone():
+        _build.check(lib.nptt_classes(isd, model.num_bodies, model.nq, na, m, P.numel(),
+                                      I.numel(), B, T, P.data_ptr(), I.data_ptr(), x0.data_ptr(),
+                                      u.data_ptr(), xs.data_ptr(), cm.data_ptr(), stream), "K6")
+
+    return alone, (lambda: cs.rollout_classes(*args)), None
+
+
+CALLS = {"riccati": riccati_calls, "linearize": linearize_calls,
+         "rollout_classes": classes_calls}
+PLAINS = {"riccati": lambda: cs.riccati_backward_plain, "linearize": lambda: cs.linearize_plain,
+          "rollout_classes": lambda: cs.rollout_classes_plain}
+
+
+def family(kname: str) -> str:
+    """riccati, linearize or rollout_classes: the calls of a K1K3_NAMES entry."""
+    return next(f for f in CALLS if kname.startswith(f))
+
+
+def outputs(kname, out):
+    """A K1K3 call's float outputs, and its flags that must agree exactly
+    (K1's PD flags, K6's class masks)."""
+    if family(kname) == "rollout_classes":
+        return [out[0]], out[1].cmask
+    return [a for a in out if a.dtype != torch.bool], (
+        out[3] if family(kname) == "riccati" else None)
+
+
 def k1k3_inputs(dev, dtype, chosen):
     """name -> (wrapper arguments, plain call) of K1K3_NAMES in ``chosen``,
-    at their paths' shapes (chip_smoke.py's phase 3b and phase 8b inputs),
-    and K1 at T of K1_STEPS."""
+    at their paths' shapes (chip_smoke.py's phase 3b, 5b and 8b inputs),
+    and K1 and K6 at T of K1_STEPS."""
     out = {}
+    if "rollout_classes" in chosen:
+        args = cs.contact_kernel_inputs(dev, cs.B_CONTACT, cs.H, dtype)["rollout_classes"][0]
+        out["rollout_classes"] = args
+        for T in K1_STEPS:
+            out[f"rollout_classes T={T}"] = args[:2] + (args[2][:, :T].contiguous(),)
     if {"riccati_backward", "linearize"} & set(chosen):
         free = cs.kernel_inputs(dev, cs.B_FULL, cs.H, dtype)
         for name in ("riccati_backward", "linearize"):
@@ -461,22 +573,23 @@ def check_k1k3_f64(dev, chosen, libs_named, libs, use, result):
     if "riccati_backward[worm]" in chosen:
         inputs["riccati_backward[worm]"] = cs.worm_kernel_inputs(
             dev, cs.WORM_B_CHECK, cs.H, torch.float64)["riccati_backward[worm]"][0]
+    if "rollout_classes" in chosen:
+        inputs["rollout_classes"] = cs.contact_kernel_inputs(
+            dev, cs.B_CHECK, cs.H, torch.float64)["rollout_classes"][0]
     for kname, args in inputs.items():
         if kname.split(" ")[0] not in chosen:
             continue
-        lin = kname == "linearize"
-        want = (cs.linearize_plain if lin else cs.riccati_backward_plain)(*args)
+        want_f, want_flags = outputs(kname, PLAINS[family(kname)]()(*args))
         line = []
         for n in libs_named:
             use(n)
-            got = (linearize_calls if lin else riccati_calls)(libs[n], args)[1]()
+            got_f, got_flags = outputs(kname, CALLS[family(kname)](libs[n], args)[1]())
             torch.cuda.synchronize()
-            pairs = [(a, b) for a, b in zip(got, want) if a.dtype != torch.bool]
-            err = rel_error([a for a, _ in pairs], [b for _, b in pairs])
-            same = lin or bool(torch.equal(got[3], want[3]))
+            err = rel_error(got_f, want_f)
+            same = want_flags is None or bool(torch.equal(got_flags, want_flags))
             result[n].setdefault("max_rel_err", {})[f"{kname} float64"] = err
             result[n].setdefault("ok_identical", {})[f"{kname} float64"] = same
-            line.append(f"{n} {err:.2e}{'' if same else ' (ok flags differ)'}")
+            line.append(f"{n} {err:.2e}{'' if same else ' (flags or classes differ)'}")
         print(f"  {kname:24s} float64 rel err: " + "; ".join(line), flush=True)
 
 
@@ -486,26 +599,27 @@ def time_k1k3(dev, dtype, chosen, libs_named, libs, use, result):
     K1_STEPS) and its launch's alone."""
     dname = str(dtype).split(".")[-1]
     for kname, args in k1k3_inputs(dev, dtype, chosen).items():
-        plain = cs.linearize_plain if kname == "linearize" else cs.riccati_backward_plain
-        want = plain(*args)
+        want_f, want_flags = outputs(kname, PLAINS[family(kname)]()(*args))
         calls = {}
         for n in libs_named:
             use(n)
-            calls[n] = (linearize_calls if kname == "linearize" else riccati_calls)(libs[n], args)
-            got = calls[n][1]()
+            calls[n] = CALLS[family(kname)](libs[n], args)
+            got_f, got_flags = outputs(kname, calls[n][1]())
             torch.cuda.synchronize()
-            pairs = [(a, b) for a, b in zip(got, want) if a.dtype != torch.bool]
-            result[n].setdefault("max_rel_err", {})[f"{kname} {dname}"] = rel_error(
-                [a for a, _ in pairs], [b for _, b in pairs])
-            if kname.startswith("riccati"):
+            result[n].setdefault("max_rel_err", {})[f"{kname} {dname}"] = rel_error(got_f, want_f)
+            if want_flags is not None:
                 result[n].setdefault("ok_identical", {})[f"{kname} {dname}"] = bool(
-                    torch.equal(got[3], want[3]))
+                    torch.equal(got_flags, want_flags))
         kinds = ("alone",) if " T=" in kname else ("wrapper", "alone")
+        if kname == "rollout_classes" and any(calls[n][2] for n in libs_named):
+            kinds += ("permutes",)
+        which = {"alone": 0, "wrapper": 1, "permutes": 2}
         times = {(n, kind): [] for n in libs_named for kind in kinds}
         for n in libs_named + libs_named[::-1]:
             use(n)
             for kind in kinds:
-                times[(n, kind)].append(cs.time_ms(calls[n][0 if kind == "alone" else 1], REPS * 4))
+                fn = calls[n][which[kind]]
+                times[(n, kind)].append(cs.time_ms(fn, REPS * 4) if fn else float("nan"))
         for n in libs_named:
             for kind in kinds:
                 result[n].setdefault("ms", {})[f"{kname} {kind} {dname}"] = times[(n, kind)]
@@ -553,7 +667,7 @@ def main() -> int:
     global OUT
     args = sys.argv[1:]
     if "--sass" in args:
-        # a dump written by sass_counts (k3.sass), read without a card
+        # a dump written by sass_counts (k3.sass, k6.sass), read without a card
         for path in args[args.index("--sass") + 1:]:
             for fn, row in local_placement(Path(path).read_text()).items():
                 print(f"{path}: {fn[:70]}: {row}")
@@ -625,13 +739,16 @@ def main() -> int:
                       f"block, chunks of {out[2]} steps, {out[3]} shared bytes per block",
                       flush=True)
 
-    real_k1 = ilqr.riccati_backward
+    real_k1, real_k6 = ilqr.riccati_backward, ilqr.rollout_classes
 
     def use(name):
         _build.load = lambda: libs[name]
-        # the replans call K1 through ilqr; a legacy library gets PR 9's wrapper
+        # the replans call K1 and K6 through ilqr; a legacy library gets PR
+        # 9's K1 wrapper or PR 10's K6 wrapper
         ilqr.riccati_backward = ((lambda *a: riccati_calls(libs[name], a)[1]())
                                  if riccati_is_legacy(libs[name]) else real_k1)
+        ilqr.rollout_classes = ((lambda *a: legacy_classes(libs[name], *a))
+                                if classes_is_legacy(libs[name]) else real_k6)
 
     for dtype in (torch.float32, torch.float64):
         if dtype == torch.float32:

@@ -225,13 +225,19 @@ def test_step_op_count_matches_device_step(host_exe, name):
 
 
 def test_pack_model_follows_in_place_edits():
+    """pack_model, and its host copy (K6 takes the model by value), repack
+    after an edit in place."""
     model = builders.cartpole(dtype=torch.float64, device="cpu")
     P0, I0 = device_step.pack_model(model)
     assert device_step.pack_model(model)[0] is P0
+    H0 = device_step.pack_model_host(model)
+    assert device_step.pack_model_host(model) is H0 and torch.equal(H0[0], P0)
     with torch.no_grad():
         model.mass[1] *= 1.1
         model.gravity[1] = -3.0
     P1, I1 = device_step.pack_model(model)
+    H1 = device_step.pack_model_host(model)
+    assert H1 is not H0 and torch.equal(H1[0], P1) and torch.equal(H1[1], I1)
     fresh = builders.cartpole(dtype=torch.float64, device="cpu")
     with torch.no_grad():
         fresh.mass[1] *= 1.1
@@ -242,7 +248,8 @@ def test_pack_model_follows_in_place_edits():
 
 
 # The constrained device code (csrc/step.cuh frozen_step and class_step) and
-# the thread bodies of K2 with classes, K4 and K6, built for the host.
+# the thread bodies of K2 with classes, K4 and K6 (csrc/classes.cu), built
+# for the host.
 # Reads "nb nq na m n nr ni n_cg", the packed reals and ints, the cost
 # weights (2 nq + na + nx), then n points (x, u, cmask); writes the
 # operation counts by kind of frozen_step on the counting scalar, of
@@ -262,6 +269,7 @@ CONTACT_MAIN = r"""
 #include <vector>
 #include "linearize.cu"
 #include "rollout.cu"
+#include "classes.cu"
 
 namespace nptt {
 long long g_ops[8];  // add, add_c, mul, mul_c, div, sin, cos, sqrt
@@ -362,16 +370,18 @@ void run(const double* P, const int* I, const double* w, const std::vector<doubl
     printf("\n");
   }
   // one trajectory of n steps from the first point: K6, then K2 (zero gains)
-  std::vector<double> out(n * (NX + M)), xs_ref((n + 1) * NX, 0.0), Kg(n * NA * NX, 0.0),
+  std::vector<double> xs6(n * NX), cm6(n * M), xs_ref((n + 1) * NX, 0.0), Kg(n * NA * NX, 0.0),
       kf(n * NA, 0.0), xs2((n + 1) * NX), us2(n * NA);
   double alpha = 1.0, cost = 0.0;
-  nptt::classes_thread<double, NB, NQ, NA, M>(0, 1, n, P, I, xs.data(), us.data(), out.data());
+  nptt::classes_thread<double, NB, NQ, NA, M>(0, n, P, I, xs.data(), us.data(), xs6.data(),
+                                               cm6.data());
   nptt::rollout_thread<double, NB, NQ, NA, M, 0>(0, 1, n, n_cg, P, I, w, xs.data(),
                                                   xs_ref.data(), us.data(), Kg.data(), kf.data(),
                                                   &alpha, cms.data(), zs.data(), xs2.data(),
                                                   us2.data(), &cost);
   for (int t = 0; t < n; ++t) {
-    for (int e = 0; e < NX + M; ++e) printf("%.17g ", out[t * (NX + M) + e]);
+    for (int i = 0; i < NX; ++i) printf("%.17g ", xs6[t * NX + i]);
+    for (int r = 0; r < M; ++r) printf("%.17g ", cm6[t * M + r]);
     for (int i = 0; i < NX; ++i) printf("%.17g ", xs2[(t + 1) * NX + i]);
     printf("\n");
   }
@@ -561,7 +571,8 @@ def test_linearize_split_thread_rejects_the_iterated_tangent(contact_exe, monkey
 
 
 def test_class_and_rollout_threads_match_plain(contact_exe):
-    """K6's and K2's (with classes) thread bodies over one trajectory."""
+    """K6's (csrc/classes.cu) and K2's (with classes) thread bodies over one
+    trajectory."""
     from nimblephysics_tpu_torch.ops.cuda_rollout import rollout_classes_plain, rollout_gains_plain
     from nimblephysics_tpu_torch.trajectory.costs import QuadraticCost, QuadraticFinalCost
 

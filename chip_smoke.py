@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths on the card, after building the CUDA kernels
+Drives the port's paths on the card, after building the CUDA kernels
 and holding each one against its plain PyTorch version:
 
   * the contact-free batched iLQR replan of ``bench.py``'s cartpole row
@@ -28,9 +28,14 @@ and holding each one against its plain PyTorch version:
     ``chained_step_rollout``, K2's kernel at one alpha with zero gains) at
     the worm's full width;
   * the serving edge: ``realtime/mpc.py`` ``MPC`` (every replan one
-    ``ilqr_solve_batch`` call at B=1: K3, K1 and K2) closing the loop on the
-    cartpole, and ``AsyncMPC`` publishing through the native seqlock buffer
-    (``native/``, built with g++ in phase 2).
+    ``ilqr_solve_batch`` call at B=1: K3, K1 and K2 on the relaxed
+    planner; K1 planning on the limits) closing the loop on the cartpole,
+    and ``AsyncMPC`` publishing through the native seqlock buffer
+    (``native/``, built with g++ in phase 2);
+  * the full constrained step: ``ilqr_solve_batch`` without classes on the
+    jump worm (the LCP solved in every step of every rollout and of the
+    linearization, differentiated by its implicit rule): kernels K7 and
+    K1.
 
 Phases:
 
@@ -61,7 +66,7 @@ Phases:
      leave the comparison); then each at the contact path's shapes in f32
      (B=2048, T=100) with kernel and plain times;
   6. the contact path in f64, kernel path against plain path, narrowed
-     model, B=256: costs rel 1e-10, u as in phase 4; besides, a world
+     model, B=256, H=50: costs rel 1e-10, u as in phase 4; besides, a world
      whose last accepted step improved the cost by less than rel 1e-12 in
      both paths (a step that rounding decides; the contact solve ends so in
      most worlds) passes when its two costs agree to rel 1e-14 (the count
@@ -121,20 +126,36 @@ Phases:
      under phase 9's rules (K8 4, K5 0), then f32 as "jvp" in phase 11;
  13. the serving edge (realtime/mpc.py, realtime/buffer.py, the native
      buffer) in f32: tests/test_realtime.py's closed loop on the stock
-     cartpole (the plant keeps its limits, the planner is relax_limits of
-     it), 120 plant steps with a replan every 5, each replan launching K3
-     and K1 once per iteration and K2 once more, at that test's MPCConfig
-     (horizon 40, 6 warm and 30 cold iterations) with the pole within its
-     bounds, then at MPCConfig's defaults (horizon 100, 8 warm and 40
-     cold), where the relaxed planner lets the pole fall in the JAX
-     package too, so the pole is printed, not held; cold and warm replan
-     ms; the first warm replan at the defaults in f64 against the same
+     cartpole (the plant keeps its limits), 120 plant steps, the pole
+     held within that test's bounds: planned on relax_limits of it at that
+     test's MPCConfig (horizon 40, 6 warm and 30 cold iterations), a
+     replan every 5 steps, each launching K3 and K1 once per iteration and
+     K2 once more; then planned on the limits themselves (the full
+     constrained step) at MPCConfig's defaults (horizon 100, 8 warm and 40
+     cold), a replan every 20 steps, each launching K1 once per iteration
+     and nothing else; cold and warm replan ms; the first warm replan of
+     the relaxed planner at the defaults in f64 against the same
      ilqr_solve_batch call under kernels=False (phase 6's rules for cost
-     and u); AsyncMPC at the defaults on the simulated clock for the same
-     120 steps: at least 2 plans published through the native buffer,
-     control_now's median latency below 20 ms, control_now_native finite;
- 14. a JSON line with every kernel's numbers and its layout ("design"),
-     then the result line.
+     and u); AsyncMPC with the relaxed planner at the defaults on the
+     simulated clock for the same 120 steps: at least 2 plans published
+     through the native buffer, control_now's median latency below 20 ms,
+     control_now_native finite;
+ 14. the full constrained step: boxed_lcp's implicit derivative in f64
+     (jvp, vjp and vmap(jacfwd)) through K7 on 512 of the worm's LCPs and
+     through the direct solve on 512 of the limited cartpole's, against
+     the same calls with kernels=False (rel 1e-9 on every LCP whose
+     classes the two solutions share; an LCP whose classes differ passes
+     only near a class boundary, phase 8's share), K7 launched once per
+     call under each transform; the worm's ilqr_solve_batch without
+     classes in f64 at B=16, H=20, 2 iterations, kernel path against plain
+     path (phase 6's rules; K7 62 launches, K1 2); then at bench.py's worm
+     widths in f32 (B=2048, H=100, 4 iterations, 4 alphas), cold and warm,
+     timed, with its launches (K7 900: the first rollout and every line
+     search one per step, every linearization one per one-step chunk; K1
+     4), no world above its initial cost, and its peak device memory;
+ 15. a JSON line with every kernel's numbers and its layout ("design"; K7
+     and K1 worm also their launches per full-step replan), then the
+     result line.
 
 Exits non-zero without CUDA, and on any failure. Imports nothing of JAX.
 """
@@ -191,6 +212,7 @@ from nimblephysics_tpu_torch.ops.lcp import (
     _BIG,
     CLAMPING_THRESHOLD,
     _classify,
+    boxed_lcp,
     direct_boxed_solve_lane,
     lcp_residual,
 )
@@ -200,6 +222,7 @@ from nimblephysics_tpu_torch.trajectory.costs import QuadraticCost, QuadraticFin
 from nimblephysics_tpu_torch.trajectory.ilqr import (
     ILQRConfig,
     _cost_derivatives,
+    _full_step_fns,
     ilqr_solve_batch,
     solve_contact_mpc_batch,
 )
@@ -223,6 +246,9 @@ COST_RTOL_F64 = 1e-10
 FLAT_IMPROVEMENT, FLAT_COST_RTOL = 1e-12, 1e-14
 # the contact path (bench.py cartpole_limits)
 B_CONTACT, B_CONTACT_PATH = 2048, 256
+# the f64 check's horizon: its plain path and the plain reruns of
+# u_agreement take ~90 s on the card at H, so it runs half of it
+H_CONTACT_PATH = 50
 CONTACT_SEED = 1
 NARROW_LOWER, NARROW_UPPER = (-0.6, -0.5), (0.6, 0.5)
 MIN_ACTIVE_SHARE = 0.05
@@ -1474,28 +1500,271 @@ def phase_11_12(dev, records, work, warm, plain, full_w):
     return counts, {"jvp": rate_jvp, "split": rate_split, "chain": rate_chain}
 
 
+# ------------------------------------------------- the full constrained step
+
+# boxed_lcp's implicit derivative (ops/lcp.py _ImplicitLCP) on the worm's
+# LCPs through K7 and on the limited cartpole's through the direct solve, f64,
+# kernel against plain; the worm's full-step iLQR (the LCP solved in every
+# step of every rollout and of the linearization) in f64 at a small size,
+# kernel path against plain path, then at bench.py's worm widths in f32
+FULL_LCP_B, FULL_JAC_B, FULL_LCP_STEPS = 512, 32, 100
+FULL_CHECK_B, FULL_CHECK_H, FULL_CHECK_ITERS = 16, 20, 2
+# the kernels of the full-step path, by their rows in the kernels' line
+FULL_STEP_COUNTER = {"pgs_batched": "pgs_batched", "riccati_backward[worm]": "riccati_backward"}
+
+
+def full_step_launches(B, T, iters):
+    """K7 launches of one ilqr_solve_batch on the worm's full step: the
+    first rollout and each line search one per time step (the alphas folded
+    into the batch), each linearization one per chunk of Tc steps (the JAX
+    package's chunking); K1 once per iteration."""
+    Tc = max(1, min(T, 16384 // B))
+    if T % Tc:
+        Tc = 1
+    return dict(_NONE, pgs_batched=T + iters * (T // Tc + T), riccati_backward=iters)
+
+
+def full_step_points(model, B, steps, seed):
+    """B worm states after ``steps`` full steps from bench.py's x0 under
+    controls of std 5 (seed), the last controls beside them: feet on the
+    floor, so the LCPs have clamping contact rows."""
+    dev, dtype = model.device, model.dtype
+    x = torch.tensor(worm_x0(B), dtype=dtype, device=dev)
+    rng = np.random.default_rng(seed)
+    for _ in range(steps):
+        u = torch.tensor(5.0 * rng.standard_normal((B, 2)), dtype=dtype, device=dev)
+        x = step(model, State.from_flat(x), u).flat()
+    return x, u
+
+
+def lcp_grad_rows(label, x_k, x_p, outs_k, outs_p, lo, hi, fs, findex, tol):
+    """Hold a derivative of boxed_lcp through the kernel to the plain one,
+    per LCP (the leading axis): where the two solutions' classes agree,
+    within rel ``tol`` of the plain output's largest entry; an LCP whose
+    classes differ passes only where rounding may decide a row's class
+    there (lcp_class_near of the plain solution), for at most
+    EXCUSE_SHARE_MAX of the LCPs (at least EXCUSE_ROWS_MIN). Returns the
+    largest absolute error over the LCPs held."""
+    cls_k = _classify(x_k, lo, hi, fs, findex)
+    cls_p = _classify(x_p, lo, hi, fs, findex)
+    differ = ((cls_k[0] != cls_p[0]) | (cls_k[1] != cls_p[1])).any(-1)
+    near = lcp_class_near(x_p, fs, findex).any(-1)
+    n = differ.shape[0]
+    cap = max(EXCUSE_ROWS_MIN, int(EXCUSE_SHARE_MAX * n))
+    if bool((differ & ~near).any()) or int(differ.sum()) > cap:
+        raise AssertionError(f"{label}: the classes differ in {int(differ.sum())} of {n} LCPs, "
+                             f"{int((differ & ~near).sum())} of them not near a class "
+                             "boundary")
+    abs_max = 0.0
+    for out_k, out_p in zip(outs_k, outs_p):
+        keep = ~differ.reshape((n,) + (1,) * (out_p.dim() - 1))
+        err = float(torch.where(keep, (out_k - out_p).abs(), 0.0).max())
+        rel = err / max(float(out_p.abs().max()), 1e-300)
+        abs_max = max(abs_max, err)
+        if not rel <= tol:
+            raise AssertionError(f"{label}: rel err {rel:.3e} (tol {tol:.0e})")
+    log(f"  {label}: max abs err {abs_max:.3e} (tol rel {tol:.0e}); classes differ in "
+        f"{int(differ.sum())} of {n} LCPs, each near a class boundary")
+    return abs_max
+
+
+def phase_lcp_grad(dev):
+    """boxed_lcp's jvp, vjp and vmap(jacfwd) on the card in f64: through K7
+    on the worm's LCPs, through the direct solve on the limited cartpole's,
+    each against the same call with kernels=False; K7 launched once per
+    call under each transform and never by the plain calls."""
+    f64 = torch.float64
+    log(f"{elapsed()} phase 14: boxed_lcp's implicit derivative in f64, kernel against plain "
+        f"(the jump worm's LCPs through K7, B={FULL_LCP_B}; the limited cartpole's through the "
+        "direct solve)")
+    model = worm_model(dev, f64)
+    pre, u = full_step_points(model, FULL_LCP_B, FULL_LCP_STEPS, SEED)
+    A, b, lo, hi, fs, x0 = worm_lcps(model, pre, u)
+    findex = lcp_findex(model)
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    dA, db, g = (torch.randn(t.shape, generator=gen, dtype=f64).to(dev) for t in (A, b, b))
+
+    def solver(use_kernels, lo_=lo, hi_=hi, fs_=fs, x0_=x0):
+        return lambda A_, b_: boxed_lcp(A_, b_, lo_, hi_, fs_, x0_, findex, WORM_LCP_ITERS, "gs",
+                                        kernels=use_kernels)
+
+    def transforms(use_kernels):
+        f = solver(use_kernels)
+        out, counts = {}, []
+        reset_counts()
+        out["jvp"] = torch.func.jvp(f, (A, b), (dA, db))
+        counts.append(pgs_batched.launches)
+        Ag, bg = A.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        x = f(Ag, bg)
+        x.backward(g)
+        out["vjp"] = (x.detach(), Ag.grad, bg.grad)
+        counts.append(pgs_batched.launches - sum(counts))
+        n = FULL_JAC_B
+        jac = torch.func.vmap(torch.func.jacfwd(
+            lambda A_, b_, lo_, hi_, fs_, x0_: solver(use_kernels, lo_, hi_, fs_, x0_)(A_, b_),
+            argnums=(0, 1)))
+        out["jacfwd"] = jac(A[:n], b[:n], lo[:n], hi[:n], fs[:n], x0[:n])
+        counts.append(pgs_batched.launches - sum(counts))
+        return out, counts
+
+    out_k, counts_k = transforms(True)
+    out_p, counts_p = transforms(False)
+    log(f"  K7 launches under jvp, backward and vmap(jacfwd): {counts_k} (kernels=True), "
+        f"{counts_p} (kernels=False)")
+    if counts_k != [1, 1, 1] or counts_p != [0, 0, 0]:
+        raise AssertionError("boxed_lcp(method='gs') did not reach K7 once per call under "
+                             "each transform")
+    x_k, x_p = out_k["jvp"][0], out_p["jvp"][0]
+    clamping = _classify(x_p, lo, hi, fs, findex)[0]
+    log(f"  worm LCPs: {float(clamping[:, :24].any(-1).float().mean()):.4f} with a clamping "
+        f"contact row, {int(clamping.sum(-1).max())} clamping rows at most")
+    if not bool(clamping[:, :24].any()):
+        raise AssertionError("the worm's LCPs have no clamping contact row")
+    err = lcp_grad_rows("jvp (x, dx) through K7", x_k, x_p, out_k["jvp"], out_p["jvp"],
+                        lo, hi, fs, findex, TOL["float64"])
+    err = max(err, lcp_grad_rows("vjp (x, gA, gb) through K7", x_k, x_p, out_k["vjp"],
+                                 out_p["vjp"], lo, hi, fs, findex, TOL["float64"]))
+    n = FULL_JAC_B
+    err = max(err, lcp_grad_rows("vmap(jacfwd) (dx/dA, dx/db) through K7", x_k[:n], x_p[:n],
+                                 out_k["jacfwd"], out_p["jacfwd"], lo[:n], hi[:n], fs[:n],
+                                 findex, TOL["float64"]))
+
+    # the limited cartpole: the direct solve, plain torch on either flag
+    cp = builders.cartpole(dt=SERVE_DT, dtype=f64, device=dev)
+    rng = np.random.default_rng(SEED)
+    side = rng.choice([-1.0, 1.0], FULL_LCP_B)
+    # carts past a limit and moving outward, poles within theirs
+    xs = torch.tensor(np.stack([side * rng.uniform(1.0, 1.1, FULL_LCP_B),
+                                rng.uniform(-0.3, 0.3, FULL_LCP_B),
+                                side * rng.uniform(0.5, 2.0, FULL_LCP_B),
+                                rng.uniform(-1.0, 1.0, FULL_LCP_B)], 1), dtype=f64, device=dev)
+    us = torch.full((FULL_LCP_B, 1), 5.0, dtype=f64, device=dev)
+    Ac, bc, loc, hic, fsc, x0c = worm_lcps(cp, xs, us)
+    fi_c = lcp_findex(cp)
+    res = []
+    for use_kernels in (True, False):
+        fc = (lambda A_, b_: boxed_lcp(A_, b_, loc, hic, fsc, x0c, fi_c, 3, "direct",
+                                       kernels=use_kernels))
+        xj, dxj = torch.func.jvp(fc, (Ac, bc), (torch.ones_like(Ac), torch.ones_like(bc)))
+        Ag = Ac.clone().requires_grad_(True)
+        fc(Ag, bc).sum().backward()
+        res.append((xj, dxj, Ag.grad))
+    rows = int(_classify(res[1][0], loc, hic, fsc, fi_c)[0].any(-1).sum())
+    same = all(torch.equal(a, b) for a, b in zip(*res))
+    log(f"  limited cartpole LCPs (direct solve): {rows} of {FULL_LCP_B} with a clamping row; "
+        f"jvp and vjp with kernels=True {'equal' if same else 'NOT equal'} to kernels=False")
+    if not same or rows == 0:
+        raise AssertionError("the direct solve's derivative differs between the two flags, "
+                             "or no limit row clamps")
+    return err
+
+
+def full_step_solve(model, x0, u0, iters, alphas, use_kernels):
+    """One ilqr_solve_batch on the worm's full constrained step (no classes)
+    with bench.py's worm costs; returns (solution, host seconds ending in a
+    synchronize)."""
+    rc, fc = worm_costs(model)
+    cfg = ILQRConfig(iters=iters, alphas=alphas, kernels=use_kernels)
+    sync()
+    t0 = time.perf_counter()
+    sol = ilqr_solve_batch(model, x0, u0, rc, fc, cfg)
+    sync()
+    return sol, time.perf_counter() - t0
+
+
+def full_step_cost0(model, x0, u0):
+    """Each world's cost before the solve: u0 rolled on the full step by the
+    solve's own first rollout (the same calls on the same inputs)."""
+    rc, fc = worm_costs(model)
+    _, roll = _full_step_fns(model, rc, fc, True)
+    B, T, na = u0.shape
+    nx = x0.shape[-1]
+    return roll(model, rc, fc, x0, u0.new_zeros(B, T + 1, nx), u0, u0.new_zeros(B, T, na, nx),
+                u0.new_zeros(B, T, na), u0.new_ones(1))[2][0]
+
+
+def phase_full_step(dev, smi):
+    """The worm's full-step iLQR: f64 kernel path against plain path at a
+    small size, then bench.py's worm cell in f32, cold and warm, timed,
+    with its launches and peak memory. Returns (launches per call, cold s,
+    warm s)."""
+    f64, f32 = torch.float64, torch.float32
+    B, T, it = FULL_CHECK_B, FULL_CHECK_H, FULL_CHECK_ITERS
+    log(f"{elapsed()} phase 14b: ilqr_solve_batch on the jump worm's full constrained step "
+        f"(no classes) in f64, kernel path against plain path, B={B}, H={T}, iters={it}")
+    model = worm_model(dev, f64)
+    x0_np = worm_x0(B)
+    x0 = torch.tensor(x0_np, dtype=f64, device=dev)
+    u0 = torch.zeros((B, T, 2), dtype=f64, device=dev)
+    cost0 = full_step_cost0(model, x0, u0)
+    expected = full_step_launches(B, T, it)
+    reset_counts()
+    sol_k, s_k = full_step_solve(model, x0, u0, it, WORM_ALPHAS, True)
+    check_counts("f64 full step, kernel path", expected)
+    sol_p, s_p = full_step_solve(model, x0, u0, it, WORM_ALPHAS, False)
+    dc = float(((sol_k.cost - sol_p.cost).abs() / sol_p.cost.abs()).max())
+    log(f"  f64: kernel path {s_k:.3f} s, plain path {s_p:.3f} s; max rel cost diff {dc:.3e} "
+        f"(tol {COST_RTOL_F64:.0e})")
+    u_agreement("f64 worm full step", sol_k, sol_p,
+                lambda shift: full_step_solve(model, x0 + shift, u0, it, WORM_ALPHAS,
+                                              False)[0], B, flat_end=True)
+    if not dc <= COST_RTOL_F64:
+        raise AssertionError("f64 full step: kernel path and plain path disagree on the cost")
+    check_solution(sol_k, cost0, "f64 full step, kernel path")
+
+    B, T, it = WORM_B, H, WORM_ITERS
+    log(f"{elapsed()} phase 14c: the full-step replan at bench.py's worm widths, f32, B={B}, "
+        f"H={T}, iters={it}, alphas={WORM_ALPHAS}, x0 as phase 10's")
+    model = worm_model(dev, f32)
+    x0 = torch.tensor(worm_x0(B), dtype=f32, device=dev)
+    u0 = torch.zeros((B, T, 2), dtype=f32, device=dev)
+    cost0 = full_step_cost0(model, x0, u0)
+    expected = full_step_launches(B, T, it)
+    times, peaks = [], []
+    for label in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        reset_counts()
+        sol, s = full_step_solve(model, x0, u0, it, WORM_ALPHAS, True)
+        counts = check_counts(f"f32 full-step replan, {label}", expected)
+        check_solution(sol, cost0, f"f32 full-step replan, {label}")
+        times.append(s)
+        # the call's own peak, above what earlier phases left allocated
+        peaks.append((torch.cuda.max_memory_allocated(dev) - before) / 2**30)
+    log(f"  f32 full-step replan (B={B}, H={T}, {it} iterations): cold {times[0]:.3f} s, warm "
+        f"{times[1]:.3f} s (host clock, ending in a synchronize) -> {B / times[1]:.1f} "
+        f"solves/s warm; per call K7 {counts['pgs_batched']} launches, K1 "
+        f"{counts['riccati_backward']}; peak device memory of the call {peaks[0]:.3f} / "
+        f"{peaks[1]:.3f} GiB; {smi}")
+    return counts, times
+
+
 # ---------------------------------------------------------- the serving edge
 
-# tests/test_realtime.py's closed loop: the stock cartpole as the plant,
-# relax_limits of it as the planner, a replan every SERVE_EVERY plant steps;
-# gated on the pole at that test's MPCConfig (SERVE_TEST_CONFIG). At
-# MPCConfig's defaults (horizon 100) the relaxed planner drives the cart
-# into its 1 m limit and the pole falls, in the JAX package's MPC as in the
-# port's (PERF.md section 6, PR 11), so there the loop is timed and its
-# launches counted, and the pole only printed.
-SERVE_STEPS, SERVE_EVERY, SERVE_DT = 120, 5, 0.02
+# tests/test_realtime.py's closed loop: the stock cartpole as the plant, a
+# replan every SERVE_EVERY plant steps, gated on the pole: with relax_limits
+# of it as the planner at that test's MPCConfig (SERVE_TEST_CONFIG), and
+# planning on the limits themselves (the full constrained step) at
+# MPCConfig's defaults (horizon 100), where the relaxed planner drives the
+# cart into its 1 m limit and the pole falls, in the JAX package's MPC as in
+# the port's (PERF.md section 6). Planning on the limits replans
+# every SERVE_EVERY_LIMITS steps: its eager full-step replan takes ~15 s
+# warm on the card (PERF.md section 5), so every 5 steps the loop alone
+# would take ~460 s of the script's 1,200.
+SERVE_STEPS, SERVE_EVERY, SERVE_EVERY_LIMITS, SERVE_DT = 120, 5, 20, 0.02
 SERVE_Q0 = (0.0, 0.15)
 SERVE_POLE_END, SERVE_POLE_MAX = 0.12, 0.6
 SERVE_LATENCY_MAX_S = 0.02
 SERVE_TEST_CONFIG = dict(horizon=40, replan_iters=6, first_solve_iters=30)
 
 
-def serving_setup(dev, dtype):
+def serving_setup(dev, dtype, limits=False):
     """(plant, planner, running cost, final cost, start state):
     tests/test_realtime.py's costs as QuadraticCost (wq (0.2, 1.0), wu
-    1e-4) and QuadraticFinalCost (wx (10, 50, 1, 1))."""
+    1e-4) and QuadraticFinalCost (wx (10, 50, 1, 1)); the planner is the
+    plant itself with ``limits``, else relax_limits of it."""
     plant = builders.cartpole(dt=SERVE_DT, dtype=dtype, device=dev)
-    planner = relax_limits(plant)
+    planner = plant if limits else relax_limits(plant)
     run = QuadraticCost(planner, wq=(0.2, 1.0), wu=1e-4)
     fin = QuadraticFinalCost(planner, wx=(10.0, 50.0, 1.0, 1.0))
     state = State(q=torch.tensor(SERVE_Q0, dtype=dtype, device=dev),
@@ -1506,22 +1775,30 @@ def serving_setup(dev, dtype):
 def serving_replan(mpc, now, label):
     """mpc.replan_at(now), holding the replan's launches to the iterations it
     ran, as phase 4 counts them: K3 and K1 once per iteration, K2 once more
-    (the first open-loop rollout); returns its seconds."""
+    (the first open-loop rollout); planning on the limits (the full step,
+    the direct LCP solve in plain torch) K1 once per iteration and nothing
+    else. Returns its seconds."""
     reset_counts()
     iters = mpc.config.replan_iters if mpc.plan is not None else mpc.config.first_solve_iters
     dur = mpc.replan_at(now)
-    expected = dict(_NONE, riccati_backward=iters, linearize=iters, rollout_gains=iters + 1)
+    if lcp_dim(mpc.plan_model) > 0:
+        expected = dict(_NONE, riccati_backward=iters)
+    else:
+        expected = dict(_NONE, riccati_backward=iters, linearize=iters, rollout_gains=iters + 1)
     counts = {n: fn.launches for n, fn in WRAPPERS.items()}
     if counts != expected:
         raise AssertionError(f"{label}: launch counts {counts}, expected {expected}")
     return dur
 
 
-def serving_loop(dev, cfg, label, smi):
+def serving_loop(dev, cfg, label, smi, limits=False):
     """The closed loop in f32 under ``cfg``: a cold replan at t = 0, then
     SERVE_STEPS plant steps served by control_now, a replan every
-    SERVE_EVERY; returns (cold ms, mean warm ms, |pole| per step)."""
-    plant, planner, run, fin, state = serving_setup(dev, torch.float32)
+    SERVE_EVERY (SERVE_EVERY_LIMITS with ``limits``); the pole gated
+    (SERVE_POLE_END over the last 20 steps, SERVE_POLE_MAX throughout).
+    Returns (cold ms, mean warm ms)."""
+    every = SERVE_EVERY_LIMITS if limits else SERVE_EVERY
+    plant, planner, run, fin, state = serving_setup(dev, torch.float32, limits)
     mpc = MPC(plant, run, fin, cfg, planning_model=planner, device=dev)
     t = 0.0
     mpc.record_state(t, state)
@@ -1532,39 +1809,43 @@ def serving_loop(dev, cfg, label, smi):
         state = step(plant, state, u)
         t += SERVE_DT
         mpc.record_state(t, state)
-        if i % SERVE_EVERY == 0:
+        if i % every == 0:
             warm.append(serving_replan(mpc, t, f"{label}: warm replan {len(warm) + 1}"))
         poles.append(float(state.q[1]))
     poles = np.abs(np.asarray(poles))
     cold_ms, warm_ms = 1e3 * cold, 1e3 * sum(warm) / len(warm)
+    kernels = ("K1 once per iteration (the full step: jacfwd, the direct LCP solve in plain "
+               "torch)" if limits else "K3 and K1 once per iteration and K2 once more")
     log(f"  {label} (horizon {cfg.horizon}, {cfg.replan_iters} warm and "
-        f"{cfg.first_solve_iters} cold iterations): {1 + len(warm)} replans, each launching "
-        f"K3 and K1 once per iteration and K2 once more; replan (host clock, ending in a "
-        f"synchronize) cold {cold_ms:.2f} ms, warm mean {warm_ms:.2f} ms (min "
-        f"{1e3 * min(warm):.2f}, max {1e3 * max(warm):.2f}); |pole| max {poles.max():.4f}, over "
-        f"the last 20 steps {poles[-20:].max():.4f}; {smi}")
-    return cold_ms, warm_ms, poles
+        f"{cfg.first_solve_iters} cold iterations, a replan every {every} plant steps): "
+        f"{1 + len(warm)} replans, each launching "
+        f"{kernels}; replan (host clock, ending in a synchronize) cold {cold_ms:.2f} ms, warm "
+        f"mean {warm_ms:.2f} ms (min {1e3 * min(warm):.2f}, max {1e3 * max(warm):.2f}); |pole| "
+        f"max {poles.max():.4f}, over the last 20 steps {poles[-20:].max():.4f}; {smi}")
+    if not (poles.max() < SERVE_POLE_MAX and poles[-20:].max() < SERVE_POLE_END):
+        raise AssertionError(f"{label}: the serving MPC did not balance the cartpole: |pole| "
+                             f"max {poles.max():.4f} (limit {SERVE_POLE_MAX}), last 20 steps "
+                             f"{poles[-20:].max():.4f} (limit {SERVE_POLE_END})")
+    return cold_ms, warm_ms
 
 
 def phase_serving(dev, smi):
     """The serving edge on the card (realtime/mpc.py, realtime/buffer.py,
-    the native buffer) in f32: tests/test_realtime.py's closed loop at its
-    own MPCConfig, gated on the pole, and at MPCConfig's defaults (horizon
-    100, 8 warm and 40 cold iterations), timed; the first warm replan at the
-    defaults against the plain path in f64; AsyncMPC on the simulated clock.
-    Returns (cold ms, mean warm ms) at the defaults and the median serving
-    ms."""
+    the native buffer) in f32: tests/test_realtime.py's closed loop planned
+    on relax_limits of the plant at that test's MPCConfig, and planned on
+    the limits (the full constrained step) at MPCConfig's defaults (horizon
+    100, 8 warm and 40 cold iterations), both gated on the pole and timed;
+    the first warm replan of the relaxed planner at the defaults against
+    the plain path in f64; AsyncMPC on the simulated clock. Returns (cold
+    ms, mean warm ms) planning on the limits at the defaults and the median
+    serving ms."""
     cfg = MPCConfig()
     log(f"{elapsed()} phase 13: the serving edge, MPC on the cartpole (the plant with its "
-        f"limits, the planner relax_limits of it), f32, a replan every {SERVE_EVERY} of "
-        f"{SERVE_STEPS} plant steps")
-    _, _, poles = serving_loop(dev, MPCConfig(**SERVE_TEST_CONFIG), "test_realtime.py's loop",
-                               smi)
-    if not (poles.max() < SERVE_POLE_MAX and poles[-20:].max() < SERVE_POLE_END):
-        raise AssertionError(f"the serving MPC did not balance the cartpole: |pole| max "
-                             f"{poles.max():.4f} (limit {SERVE_POLE_MAX}), last 20 steps "
-                             f"{poles[-20:].max():.4f} (limit {SERVE_POLE_END})")
-    cold_ms, warm_ms, _ = serving_loop(dev, cfg, "MPCConfig's defaults", smi)
+        f"limits), f32, {SERVE_STEPS} plant steps")
+    serving_loop(dev, MPCConfig(**SERVE_TEST_CONFIG),
+                 "test_realtime.py's loop, planning on relax_limits", smi)
+    cold_ms, warm_ms = serving_loop(dev, cfg, "MPCConfig's defaults, planning on the limits",
+                                    smi, limits=True)
 
     # the first warm replan in f64 against the same call on the plain path
     plant, planner, run, fin, state = serving_setup(dev, torch.float64)
@@ -1778,12 +2059,12 @@ def main() -> int:
                                    len(ALPHAS), 4))
 
     log(f"{elapsed()} phase 6: solve_contact_mpc_batch in f64, kernel path against plain "
-        f"path, narrowed limits, B={B_CONTACT_PATH}, H={H}")
+        f"path, narrowed limits, B={B_CONTACT_PATH}, H={H_CONTACT_PATH}")
     x0_c = contact_x0(B_CONTACT_PATH, True)
     reset_counts()
-    sol_k, cl_k, s_k = contact_solve(dev, torch.float64, True, x0_c, True)
+    sol_k, cl_k, s_k = contact_solve(dev, torch.float64, True, x0_c, True, H_CONTACT_PATH)
     check_counts("f64 contact kernel path", EXPECTED_CONTACT)
-    sol_p, cl_p, s_p = contact_solve(dev, torch.float64, False, x0_c, True)
+    sol_p, cl_p, s_p = contact_solve(dev, torch.float64, False, x0_c, True, H_CONTACT_PATH)
     dc = float(((sol_k.cost - sol_p.cost).abs() / sol_p.cost.abs()).max())
     log(f"  f64: kernel path {s_k:.3f} s, plain path {s_p:.3f} s; max rel cost diff {dc:.3e} "
         f"(tol {COST_RTOL_F64:.0e}); returned classes differ at "
@@ -1791,11 +2072,13 @@ def main() -> int:
     # the contact solve takes rounding-level steps (rel 1e-15 improvements)
     # in most worlds near its end
     u_agreement("f64 contact", sol_k, sol_p,
-                lambda shift: contact_solve(dev, torch.float64, False, x0_c + shift, True)[0],
+                lambda shift: contact_solve(dev, torch.float64, False, x0_c + shift, True,
+                                            H_CONTACT_PATH)[0],
                 B_CONTACT_PATH, flat_end=True)
     if not dc <= COST_RTOL_F64:
         raise AssertionError("f64 contact kernel path and plain path disagree on the cost")
-    check_solution(sol_k, contact_cost0(dev, torch.float64, x0_c, True), "f64 contact kernel path")
+    check_solution(sol_k, contact_cost0(dev, torch.float64, x0_c, True, H_CONTACT_PATH),
+                   "f64 contact kernel path")
 
     log(f"{elapsed()} phase 7: solve_contact_mpc_batch at full width, f32, B={B_CONTACT}, "
         f"H={H}, iters={ITERS}, alphas={ALPHAS}")
@@ -1936,6 +2219,8 @@ def main() -> int:
                                             (x0_w, sol_p_w), full_w)
     del full_w
     serve_cold_ms, serve_warm_ms, serve_ms = phase_serving(dev, smi)
+    lcp_grad_err = phase_lcp_grad(dev)
+    full_counts, full_times = phase_full_step(dev, smi)
 
     out = []
     for name in list(KERNELS) + list(CONTACT_KERNELS) + list(WORM_KERNELS) + list(SLICE_KERNELS):
@@ -1959,6 +2244,10 @@ def main() -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "design": DESIGN[name],
         })
+        if name in FULL_STEP_COUNTER:
+            # the same kernel's launches per call of the worm's full-step
+            # replan (phase 14c)
+            out[-1]["launches_full_step"] = full_counts[FULL_STEP_COUNTER[name]]
         log(f"  {name}: least bytes {b} ({t_bytes:.5f} ms), operations {ops} "
             f"({t_ops:.5f} ms)")
     log(f"{elapsed()} done: contact-free {rate:.1f} solves/s (B={B_FULL}); contact "
@@ -1967,7 +2256,10 @@ def main() -> int:
         f"linearize=\"jvp\" {slice_rates['jvp']:.1f}, with \"split\" "
         f"{slice_rates['split']:.1f}, with \"chain\" {slice_rates['chain']:.1f}; serving "
         f"edge: replan cold {serve_cold_ms:.2f} ms, warm {serve_warm_ms:.2f} ms, control_now "
-        f"median {serve_ms:.4f} ms; build {nvcc_s:.1f} s")
+        f"median {serve_ms:.4f} ms (cold and warm planning on the limits at MPCConfig's "
+        f"defaults); worm full-step replan cold {full_times[0]:.3f} s, warm "
+        f"{full_times[1]:.3f} s (B={WORM_B}); boxed_lcp derivative through K7 max abs err "
+        f"{lcp_grad_err:.3e}; build {nvcc_s:.1f} s")
     log(smi)
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

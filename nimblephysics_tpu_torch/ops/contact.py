@@ -13,7 +13,8 @@ States carry leading batch dimensions. The LCP rows are the contact rows
 coupled to their normal impulse), the joint-limit rows and the Coulomb
 joint-friction rows. ``contact_step`` solves a model with contact slots by
 projected Gauss-Seidel (``method="gs"``, 60 sweeps, the CUDA kernel K7 on
-CUDA tensors) and a limits-only model by the direct active-set solve.
+CUDA tensors) and a limits-only model by the direct active-set solve,
+both differentiated by the LCP's implicit rule (``ops/lcp.boxed_lcp``).
 Servo, mimic and loop-closure rows and the staged accuracy cascade are
 ROADMAP queue A, M4.
 """
@@ -47,15 +48,16 @@ _ROW_DOFS: "weakref.WeakKeyDictionary[Model, tuple]" = weakref.WeakKeyDictionary
 
 def _row_dofs(model: Model):
     """The dofs with limit rows and with Coulomb rows: static topology read
-    from the leaves' values, once per version of those leaves (a torch.func
-    transform cannot read a tensor's values, so the first read has to come
-    before it, as building the dynamics does)."""
+    from the leaves' values, once per version of those leaves (with
+    torch.func's dispatch off, so that a first read inside a transform, as
+    in jacfwd of ``step``, sees the plain leaves)."""
     leaves = (model.q_lower, model.q_upper, model.coulomb_friction)
     key = tuple((t.data_ptr(), t._version) for t in leaves)
     hit = _ROW_DOFS.get(model)
     if hit is not None and hit[0] == key:
         return hit[1]
-    lo, hi, cf = (t.detach().cpu().numpy() for t in leaves)
+    with torch._C._DisableFuncTorch():
+        lo, hi, cf = (t.detach().cpu().numpy() for t in leaves)
     rows = (tuple(int(d) for d in range(model.nq) if np.isfinite(lo[d]) or np.isfinite(hi[d])),
             tuple(int(d) for d in range(model.nq) if cf[d] > 0.0))
     _ROW_DOFS[model] = (key, rows)
@@ -180,6 +182,40 @@ def _no_unported_rows(model: Model) -> None:
             "queue A, M4)")
 
 
+class _MassSolve(torch.autograd.Function):
+    """X = M^-1 B by LU with partial pivoting (``torch.linalg.solve``, as
+    ``jnp.linalg.solve``), with the derivatives of a linear solve spelled
+    through M^-1: dX = M^-1 (dB - dM X), and the transpose. torch's own
+    forward derivatives of ``linalg.solve`` and ``linalg.lu_solve`` mix the
+    points of a vmap (``vmap(jacfwd)`` of the full step gave another point's
+    tangent); those of ``linalg.inv`` and matmul do not."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(M, B):
+        return torch.linalg.solve(M, B)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(inputs[0], output)
+        ctx.save_for_backward(inputs[0], output)
+
+    @staticmethod
+    def jvp(ctx, dM, dB):
+        M, X = ctx.saved_tensors
+        rhs = torch.zeros_like(X) if dB is None else dB
+        if dM is not None:
+            rhs = rhs - dM @ X
+        return torch.linalg.inv(M) @ rhs
+
+    @staticmethod
+    def backward(ctx, g):
+        M, X = ctx.saved_tensors
+        gB = torch.linalg.inv(M).transpose(-1, -2) @ g
+        return -gB @ X.transpose(-1, -2), gB
+
+
 def build_constraint_system(
     model: Model,
     q: torch.Tensor,
@@ -245,7 +281,7 @@ def build_constraint_system(
     if spd_solve is None:
         spd_solve = planner and nq <= 40
     Jt = J.transpose(-1, -2)
-    Minv_Jt = solve_spd(M, Jt) if spd_solve else torch.linalg.solve(M, Jt)
+    Minv_Jt = solve_spd(M, Jt) if spd_solve else _MassSolve.apply(M, Jt)
     m_total = J.shape[-2]
     A = J @ Minv_Jt + CFM * torch.eye(m_total, dtype=dtype, device=device)
     return J, A, b, lo, hi, fscale, Minv_Jt

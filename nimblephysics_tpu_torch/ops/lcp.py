@@ -15,11 +15,12 @@ per-world functions, the port writes the batch out.
 Ported: ``pgs_solve``, ``direct_boxed_solve`` (pseudoinverse rounds, PGS
 polish, exact polish), ``direct_boxed_solve_lane`` (the form the
 class-rollout kernel runs, ``csrc/step.cuh``), ``_classify`` /
-``classify_lane``, ``lcp_residual`` and ``boxed_lcp`` forward with
+``classify_lane``, ``lcp_residual`` and ``boxed_lcp`` with
 ``method="direct"`` and ``method="gs"`` (``pgs_solve``; the CUDA kernel K7,
-``ops/cuda_lcp.pgs_batched``, on CUDA tensors). The implicit active-set
-derivative of ``boxed_lcp`` (``_boxed_lcp_jvp``) and the
-``jacobi``/``staged`` methods are ROADMAP queue A, M4.
+``ops/cuda_lcp.pgs_batched``, on CUDA tensors) and its implicit
+active-set derivative (``_boxed_lcp_jvp``, forward and reverse: the
+``torch.autograd.Function`` ``_ImplicitLCP``). The ``jacobi``/``staged``
+methods are ROADMAP queue A, M4 (b).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import Tuple
 
 import torch
 
-from nimblephysics_tpu_torch.ops.linalg_small import solve_spd
+from nimblephysics_tpu_torch.ops.linalg_small import inv_spd, solve_spd
 
 _BIG = 1e20
 # Reference: ConstrainedGroupGradientMatrices.cpp:24
@@ -77,17 +78,24 @@ def pgs_solve(A, b, lo_const, hi_const, fscale, x0, findex: Tuple[int, ...],
     diag = torch.diagonal(A, dim1=-2, dim2=-1)
     inv_diag = torch.where(diag.abs() > 1e-12, 1.0 / diag, torch.zeros_like(diag))
     x = list((x0 + 0.0 * b).unbind(-1))
+    # the rows and entries as views, taken once; a row's products A_ij x_j
+    # in one multiplication, summed from j = 0 up as a sequential sum
+    rows = A.unbind(-2)
+    b_i, inv_i, lo_i, hi_i, fs_i = (t.unbind(-1) for t in (b, inv_diag, lo_const, hi_const,
+                                                           fscale))
     for _ in range(iters):
         for i in range(m):
-            resid = sum(A[..., i, j] * x[j] for j in range(m)) - b[..., i]
-            xi = x[i] - resid * inv_diag[..., i]
+            prod = (rows[i] * torch.stack(x, dim=-1)).unbind(-1)
+            acc = prod[0]
+            for j in range(1, m):
+                acc = acc + prod[j]
+            xi = x[i] - (acc - b_i[i]) * inv_i[i]
             f = findex[i]
             if f >= 0:
-                f_hi = fscale[..., i] * torch.clamp(x[f], min=0.0)
-                lo_i, hi_i = -f_hi, f_hi
+                f_hi = fs_i[i] * torch.clamp(x[f], min=0.0)
+                x[i] = torch.clamp(xi, -f_hi, f_hi)
             else:
-                lo_i, hi_i = lo_const[..., i], hi_const[..., i]
-            x[i] = torch.clamp(xi, lo_i, hi_i)
+                x[i] = torch.clamp(xi, lo_i[i], hi_i[i])
     return torch.stack(x, dim=-1)
 
 
@@ -240,51 +248,147 @@ def lcp_residual(A, x, b, lo_const, hi_const, fscale, findex: Tuple[int, ...]):
     return torch.clamp(torch.amax(r + oob, dim=-1), min=0.0)
 
 
-class _ForwardOnlyLCP(torch.autograd.Function):
-    """A boxed-LCP solve as a function with no derivative: the implicit
-    active-set rule is not ported yet, and autograd through the solver's
-    iterations would give the derivative of the iteration instead."""
+def _implicit_parts(A, x, lo_const, hi_const, fscale, findex: Tuple[int, ...]):
+    """The classes of a converged solution as the implicit rule uses them:
+    (R, cmask, Qf) with x = R x_C on fixed classes, cmask the clamping rows
+    and Qf = A[C, :] R padded to the identity off the clamping set."""
+    m = x.shape[-1]
+    dtype = x.dtype
+    clamping, upper, s = _classify(x, lo_const, hi_const, fscale, findex)
+    eye = torch.eye(m, dtype=dtype, device=x.device)
+    gov = torch.zeros((m, m), dtype=dtype, device=x.device)
+    for i, f in enumerate(findex):
+        if f >= 0:
+            gov[i, f] = 1.0
+    S = (upper.to(dtype) * s)[..., :, None] * gov
+    cmask = clamping.to(dtype)
+    R = (eye + S) * cmask[..., None, :]
+    Qf = (cmask[..., :, None] * (A @ R) * cmask[..., None, :]
+          + torch.diag_embed(1.0 - cmask))
+    return R, cmask, Qf
+
+
+def _qf_solver(Qf):
+    """The map rhs -> dx_C of ``_boxed_lcp_jvp`` and its transpose: up to
+    24 rows the regularized normal equations through the pivot-free SPD
+    inverse (eps scaled to the dtype and to max |Qf|), above a
+    pseudoinverse truncated at ``_pinv_rtol``. Both depend on the primal
+    Qf only, so the rule stays linear in the tangents."""
+    m = Qf.shape[-1]
+    dtype = Qf.dtype
+    QfT = Qf.transpose(-1, -2)
+    if m <= 24:
+        eye = torch.eye(m, dtype=dtype, device=Qf.device)
+        qscale = torch.clamp(torch.amax(Qf.abs(), dim=(-2, -1)), min=1.0)
+        Mi = inv_spd(QfT @ Qf + (_eps(dtype) * qscale * qscale)[..., None, None] * eye)
+        return (lambda r: _mv(Mi, _mv(QfT, r)),
+                lambda g: _mv(Qf, _mv(Mi.transpose(-1, -2), g)))
+    P = torch.linalg.pinv(Qf, rtol=_pinv_rtol(dtype))
+    return lambda r: _mv(P, r), lambda g: _mv(P.transpose(-1, -2), g)
+
+
+def _broadcast(A, *vecs, lead=()):
+    """A (..., m, m) and the vectors (..., m) expanded to one batch shape
+    behind ``lead``, the dimensions every one of them already has in
+    front."""
+    k = len(lead)
+    batch = torch.broadcast_shapes(A.shape[k:-2], *(v.shape[k:-1] for v in vecs))
+
+    def fit(t, tail):
+        own = t.dim() - k - tail
+        t = t.reshape(t.shape[:k] + (1,) * (len(batch) - own) + t.shape[k:])
+        return t.expand(lead + batch + t.shape[t.dim() - tail:])
+
+    return (fit(A, 2),) + tuple(fit(v, 1) for v in vecs)
+
+
+def _solve(A, b, lo_const, hi_const, fscale, x0, findex, iters, method, kernels):
+    if method == "direct":
+        if not bool((hi_const > lo_const).any()):
+            # every row boxed to [0, 0] (the limit rows of a step inside its
+            # limits): 0 is the only solution, which the direct solve returns
+            # too after ~1,000 launches (scripts/torch_step_op_count.py)
+            return torch.zeros_like(_broadcast(A, b, lo_const, hi_const)[1])
+        return direct_boxed_solve(A, b, lo_const, hi_const, rounds=min(iters, 4))
+    if kernels:
+        # imported here: ops/cuda_lcp.py imports this module
+        from nimblephysics_tpu_torch.ops.cuda_lcp import pgs_batched
+        return pgs_batched(*_broadcast(A, b, lo_const, hi_const, fscale, x0), findex,
+                           iters=iters)
+    return pgs_solve(A, b, lo_const, hi_const, fscale, x0, findex, iters=iters)
+
+
+class _ImplicitLCP(torch.autograd.Function):
+    """x = boxed LCP solve, with the implicit active-set derivative of the
+    JAX package's ``_boxed_lcp_jvp`` instead of the solver's iterations:
+
+        classes fixed:  x = R x_C,   Q x_C = b_C,   Q = A[C, :] R
+        dx = R Qf^+ P_C^T (db - dA x)
+
+    Forward mode applies that map; reverse mode its exact transpose,
+    gb = P_C Qf^+T R^T g, giving b the cotangent gb and A -gb x^T. lo, hi,
+    fscale and x0 get none, as in the JAX package.
+
+    The solve always runs on plain tensors: under ``torch.func.vmap`` the
+    ``vmap`` rule folds the vmapped dimension into the LCP batch and solves
+    it in one call (K7 on the card), and under ``jvp``/``jacfwd`` a
+    direction's tangent never reaches the solver: the primal is solved once
+    and the rule alone is vmapped over the directions."""
 
     @staticmethod
-    def forward(solve, *args):
-        return solve(*args)
+    def forward(A, b, lo_const, hi_const, fscale, x0, findex, iters, method, kernels):
+        args = (t.detach() for t in (A, b, lo_const, hi_const, fscale, x0))
+        return _solve(*args, findex, iters, method, kernels)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        A, _, lo_const, hi_const, fscale, _, findex = inputs[:7]
+        ctx.findex = findex
+        ctx.save_for_forward(A, lo_const, hi_const, fscale, output)
+        ctx.save_for_backward(A, lo_const, hi_const, fscale, output)
 
     @staticmethod
-    def backward(ctx, grad):
-        raise NotImplementedError(
-            "the implicit derivative of boxed_lcp is not ported yet (ROADMAP "
-            "queue A, M4)")
+    def jvp(ctx, dA, db, *_):
+        A, lo_const, hi_const, fscale, x = ctx.saved_tensors
+        R, cmask, Qf = _implicit_parts(A, x, lo_const, hi_const, fscale, ctx.findex)
+        rhs = torch.zeros_like(x) if db is None else db
+        if dA is not None:
+            rhs = rhs - _mv(dA, x)
+        apply, _ = _qf_solver(Qf)
+        return _mv(R, cmask * apply(cmask * rhs))
 
     @staticmethod
-    def jvp(ctx, *tangents):
-        raise NotImplementedError(
-            "the implicit derivative of boxed_lcp is not ported yet (ROADMAP "
-            "queue A, M4)")
+    def backward(ctx, g):
+        A, lo_const, hi_const, fscale, x = ctx.saved_tensors
+        R, cmask, Qf = _implicit_parts(A, x, lo_const, hi_const, fscale, ctx.findex)
+        _, apply_t = _qf_solver(Qf)
+        gb = cmask * apply_t(cmask * _mv(R.transpose(-1, -2), g))
+        gA = -gb[..., :, None] * x[..., None, :]
+        return gA, gb, None, None, None, None, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, A, b, lo_const, hi_const, fscale, x0, findex, iters, method,
+             kernels):
+        n = info.batch_size
+        args = [t.movedim(d, 0) if d is not None else t.expand(n, *t.shape)
+                for t, d in zip((A, b, lo_const, hi_const, fscale, x0), in_dims)]
+        return _ImplicitLCP.apply(*_broadcast(*args, lead=(n,)), findex, iters, method,
+                                  kernels), 0
 
 
 def boxed_lcp(A, b, lo_const, hi_const, fscale, x0, findex: Tuple[int, ...],
               iters: int = 60, method: str = "gs", kernels: bool = True):
-    """Solve the boxed LCP, forward only: ``method="gs"`` runs ``iters``
-    projected Gauss-Seidel sweeps from x0 with friction coupling (on CUDA
-    tensors the kernel K7 when ``kernels``, else ``pgs_solve``);
-    ``"direct"`` the direct active-set solve (no friction coupling,
+    """Solve the boxed LCP, differentiable by the implicit active-set rule
+    (``_ImplicitLCP``), forward and reverse, under ``torch.func`` too.
+    ``method="gs"`` runs ``iters`` projected Gauss-Seidel sweeps from x0
+    with friction coupling: through K7's wrapper ``ops/cuda_lcp.pgs_batched``
+    when ``kernels`` (the kernel on CUDA tensors, where it launches or
+    raises; its plain version on CPU tensors), else ``pgs_solve``.
+    ``"direct"`` runs the direct active-set solve (no friction coupling,
     ``min(iters, 4)`` rounds)."""
-    if method == "direct":
-        return _ForwardOnlyLCP.apply(
-            lambda *a: direct_boxed_solve(*a[:4], rounds=a[4]), A, b, lo_const, hi_const,
-            min(iters, 4))
-    if method == "gs":
-        if kernels and b.is_cuda:
-            from nimblephysics_tpu_torch.ops.cuda_lcp import pgs_batched as solve
-        else:
-            solve = pgs_solve
-        return _ForwardOnlyLCP.apply(
-            lambda *a: solve(*a[:6], findex, iters=a[6]), A, b, lo_const, hi_const, fscale,
-            x0, iters)
-    raise NotImplementedError(
-        f"boxed_lcp(method={method!r}) is not ported yet (ROADMAP queue A, M4: jacobi "
-        "and staged)")
+    if method not in ("gs", "direct"):
+        raise NotImplementedError(
+            f"boxed_lcp(method={method!r}) is not ported yet (ROADMAP queue A, M4 (b): "
+            "jacobi and staged)")
+    return _ImplicitLCP.apply(A, b, lo_const, hi_const, fscale, x0, tuple(findex), int(iters),
+                              method, bool(kernels))

@@ -6,8 +6,11 @@ re-optimize warm, publish the new plan} runs beside a control thread that
 reads ``control_now``. Each replan is one ``ilqr_solve_batch`` call at
 B = 1 (semantically ``vmap(ilqr_solve)``): on the card its linearize (K3),
 Riccati backward (K1) and line-search rollout (K2) run as CUDA kernels,
-on the CPU their plain versions. Warm starting is the shifted previous
-solution (``Problem::advanceSteps`` + ``Solution::reoptimize``).
+on the CPU their plain versions; a planning model with constraint rows
+takes the full constrained step (jacfwd of the step, K1, rollouts of the
+step; K7 for the LCPs of a model with contact slots). Warm starting is
+the shifted previous solution (``Problem::advanceSteps`` +
+``Solution::reoptimize``).
 """
 
 from __future__ import annotations
@@ -22,7 +25,6 @@ import torch
 
 from nimblephysics_tpu_torch._device import resolve_device
 from nimblephysics_tpu_torch.models.model import Model, State
-from nimblephysics_tpu_torch.ops.contact import lcp_dim
 from nimblephysics_tpu_torch.realtime.buffer import (
     ControlPlan,
     VectorLog,
@@ -58,12 +60,13 @@ class MPC:
         device="cuda",
     ):
         """``model`` is the plant (state estimation steps it, limits and
-        all); ``planning_model`` is what iLQR linearizes. A planning model
-        with constraint rows needs the implicit boxed-LCP derivative
-        (ROADMAP queue A, M4 (a)) and raises: pass ``relax_limits(model)``
-        to plan on the smooth dynamics while the plant keeps its limits.
-        On the card the costs must be a QuadraticCost and a
-        QuadraticFinalCost (the line-search kernel takes the cost as
+        all); ``planning_model`` is what iLQR linearizes, the plant itself
+        when None. A planning model with constraint rows plans on the full
+        constrained step (``ilqr_solve_batch`` without classes: the LCP
+        solved in every step and differentiated by its implicit rule);
+        ``relax_limits(model)`` plans on the smooth dynamics while the plant
+        keeps its limits. On the card the costs must be a QuadraticCost and
+        a QuadraticFinalCost (the line-search kernel takes the cost as
         data). ``device`` is where the plan is made: "cuda" by default."""
         self.device = resolve_device(device)
         plan_model = planning_model if planning_model is not None else model
@@ -71,10 +74,6 @@ class MPC:
                                                and isinstance(final_cost, QuadraticFinalCost)):
             raise TypeError("MPC: on the card the costs must be a QuadraticCost and a "
                             "QuadraticFinalCost (ROADMAP queue B, K2: other costs on the card)")
-        if lcp_dim(plan_model) > 0:
-            raise NotImplementedError(
-                "MPC: iLQR on the full constrained step needs the implicit boxed_lcp "
-                "derivative (ROADMAP queue A, M4); plan on relax_limits(model)")
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         for name, m in (("model", model), ("planning_model", plan_model)):

@@ -7,7 +7,9 @@ PyTorch counterpart of ``nimblephysics_tpu/simulation/step.py``:
     q_t+1  = integrate(q_t, v_t)    (pre-step velocity)
 
 States carry leading batch dimensions. A model with constraint rows
-(joint limits, Coulomb friction) dispatches to ``ops/contact.contact_step``.
+(joint limits, Coulomb friction) dispatches to ``ops/contact.contact_step``,
+differentiable forward and reverse (``torch.func`` included) through the
+boxed LCP's implicit active-set rule.
 """
 
 from __future__ import annotations

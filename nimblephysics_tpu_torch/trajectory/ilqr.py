@@ -12,7 +12,11 @@ PyTorch counterpart of ``nimblephysics_tpu/trajectory/ilqr.py``:
     package's "auto" takes it, else K4; "jvp" K4 at the frozen solve's
     default depth, as ``linearize_pallas(classes=)``; "chain" K5 through
     ``ops/lane_chain.py``), the Riccati backward (K1) and the line-search
-    rollout (K2), the last also for the first open-loop rollout.
+    rollout (K2), the last also for the first open-loop rollout. A model
+    with constraint rows and no classes takes the JAX package's unfused
+    branch on the full constrained step: rollouts of the step (its LCPs
+    on K7 for a model with contact slots), jacfwd of the step chunked over
+    time, K1.
   * ``solve_contact_mpc`` (one world, plain) and ``solve_contact_mpc_batch``:
     the per-step LCP classes come from one full-LCP rollout
     (``class_refresh="rollout"``, K6 in the batch) or from the pointwise
@@ -36,7 +40,7 @@ from torch.func import grad, hessian, jacfwd, vmap
 
 from nimblephysics_tpu_torch.models.model import Model, State
 from nimblephysics_tpu_torch.ops import frozen_contact
-from nimblephysics_tpu_torch.ops.contact import lcp_dim
+from nimblephysics_tpu_torch.ops.contact import contact_step, lcp_dim
 from nimblephysics_tpu_torch.ops.cuda_linearize import (
     dyn_for_trace,
     dyn_frozen_for_trace,
@@ -124,16 +128,74 @@ def _check(model: Model, config: ILQRConfig, classes, dtype, device):
     if model.device != device or model.dtype != dtype:
         raise ValueError(f"model is {model.dtype} on {model.device}, "
                          f"inputs are {dtype} on {device}")
-    m = lcp_dim(model)
-    if m == 0:
+    if classes is None or lcp_dim(model) == 0:
         # the frozen-class step of a model without rows is the contact-free step
         return None
-    if classes is None:
-        raise NotImplementedError(
-            "iLQR on the full constrained step needs the implicit boxed_lcp "
-            "derivative (ROADMAP queue A, M4); pass frozen classes "
-            "(solve_contact_mpc_batch) or plan on relax_limits(model)")
     return tuple(c.contiguous() for c in classes)
+
+
+def _full_step_dyn(model: Model, kernels: bool):
+    """The full constrained step x' = f(x, u), the LCP solved in every step
+    and differentiated by its implicit rule (the JAX package's ``_make_dyn``
+    of a model with rows): K7 for a model with contact slots on CUDA
+    tensors when ``kernels``, the direct solve (plain) for a limits-only
+    model."""
+
+    def dyn(x, u):
+        return contact_step(model, State.from_flat(x), model.action_to_tau(u),
+                            kernels=kernels).flat()
+
+    return dyn
+
+
+def _full_step_fns(model: Model, running_cost, final_cost, kernels: bool):
+    """(linearize, rollout) of ``ilqr_solve_batch`` on the full constrained
+    step, the JAX package's unfused branch: fx, fu by jacfwd of the step,
+    chunked over time (Tc = max(1, min(T, 16384 // B)) steps per chunk, 1
+    when Tc does not divide T), each chunk one vmap over its B Tc points, so
+    the LCPs of a chunk are solved in one batch and only the implicit rule
+    sees the tangent directions; the line search's alphas folded into the
+    batch, so each time step solves A B LCPs at once. The costs are the
+    callables."""
+    dyn = _full_step_dyn(model, kernels)
+    jac = vmap(jacfwd(dyn, argnums=(0, 1)))
+    clamp = _controls_clamp(model)
+
+    def lin(model_, xs, u):
+        B, T, nx = xs.shape
+        na = u.shape[-1]
+        Tc = max(1, min(T, 16384 // max(B, 1)))
+        if T % Tc != 0:
+            Tc = 1
+        fx, fu = [], []
+        for c in range(0, T, Tc):
+            a, b = jac(xs[:, c:c + Tc].reshape(B * Tc, nx), u[:, c:c + Tc].reshape(B * Tc, na))
+            fx.append(a.reshape(B, Tc, nx, nx))
+            fu.append(b.reshape(B, Tc, nx, na))
+        return torch.cat(fx, 1), torch.cat(fu, 1)
+
+    def roll(model_, running_cost_, final_cost_, x0_flat, xs_ref, u_ref, K, k, alphas):
+        A = alphas.shape[0]
+        B, T, na = u_ref.shape
+        nx = x0_flat.shape[-1]
+        al = alphas[:, None, None]
+        x = x0_flat.expand(A, B, nx)
+        xs, us = [x], []
+        for t in range(T):
+            du = (K[:, t] @ (x - xs_ref[:, t])[..., None])[..., 0]
+            u_t = clamp(u_ref[:, t] + al * k[:, t] + du)
+            x = dyn(x.reshape(A * B, nx), u_t.reshape(A * B, na)).reshape(A, B, nx)
+            xs.append(x)
+            us.append(u_t)
+        xss, uss = torch.stack(xs, 2), torch.stack(us, 2)
+        ts = torch.arange(T, device=u_ref.device).repeat(A * B)
+        run = vmap(running_cost)(xss[:, :, :-1].reshape(A * B * T, nx),
+                                 uss.reshape(A * B * T, na), ts)
+        costs = run.reshape(A, B, T).sum(-1) + vmap(final_cost)(xss[:, :, -1].reshape(A * B, nx)
+                                                                ).reshape(A, B)
+        return xss, uss, costs
+
+    return lin, roll
 
 
 def _controls_clamp(model: Model):
@@ -174,13 +236,16 @@ def ilqr_solve_batch(
     Riccati and rollout kernels on CUDA tensors (``config.kernels``).
 
     ``running_cost(x, u, t)`` and ``final_cost(x)`` act on one point; on the
-    card they must be a QuadraticCost and a QuadraticFinalCost. ``classes``
-    (a FrozenClasses or (cmask, us) pair, each (B, T, m)): solve on the
-    frozen-class contact dynamics, required for a model with constraint
-    rows."""
+    card, where K2 runs the line search, they must be a QuadraticCost and a
+    QuadraticFinalCost. ``classes`` (a FrozenClasses or (cmask, us) pair,
+    each (B, T, m)): solve on the frozen-class contact dynamics. A model
+    with constraint rows and no classes is solved on the full constrained
+    step (``_full_step_fns``: K7 and K1 on the card, ``linearize``,
+    ``planner_cg_iters`` and ``rollout`` unused, as in the JAX package)."""
     B, T, na = u_init.shape
     dtype, device = u_init.dtype, u_init.device
     cl = _check(model, config, classes, dtype, device)
+    full = cl is None and lcp_dim(model) > 0
     nx = x0_flat.shape[-1]
     cg = config.planner_cg_iters
     mode = config.linearize
@@ -199,13 +264,16 @@ def ilqr_solve_batch(
                       "jvp": lambda model, xs, u, cl, cg: linearize_split_plain(
                           model, xs, u, cl)}
 
-    def lin(model, xs, u):
-        if cl is None:
-            return lin_free(model, xs, u)
-        return lin_frozen[mode](model, xs, u, cl, cg)
+    if full:
+        lin, roll = _full_step_fns(model, running_cost, final_cost, config.kernels)
+    else:
+        def lin(model, xs, u):
+            if cl is None:
+                return lin_free(model, xs, u)
+            return lin_frozen[mode](model, xs, u, cl, cg)
 
-    def roll(*args):
-        return roll_fn(*args, classes=cl, cg_iters=cg)
+        def roll(*args):
+            return roll_fn(*args, classes=cl, cg_iters=cg)
 
     clamp = _controls_clamp(model)
     x0_flat = x0_flat.contiguous()
@@ -254,12 +322,15 @@ def ilqr_solve(
 
     ``classes`` (a FrozenClasses or (cmask, us) pair, each (T, m)): solve on
     the frozen-class contact dynamics (the solve's default PCG depth, as
-    the JAX package's ``ilqr_solve``)."""
+    the JAX package's ``ilqr_solve``); without them a model with constraint
+    rows is solved on the full constrained step (K7 on CUDA tensors with
+    ``config.kernels`` for a model with contact slots)."""
     T, na = u_init.shape
     dtype, device = u_init.dtype, u_init.device
     cl = _check(model, config, classes, dtype, device)
     if cl is None:
-        step_free = dyn_for_trace(model)
+        step_free = (_full_step_dyn(model, config.kernels) if lcp_dim(model) > 0
+                     else dyn_for_trace(model))
 
         def dyn(x, u, cl_t):
             return step_free(x, u)

@@ -12,10 +12,10 @@ the largest |pole| angle, the largest over the last 20 steps and the
 largest |cart| position of: the JAX MPC planning on relax_limits of the
 plant, the JAX MPC planning on the plant itself (its full constrained
 step), and the port's MPC (device="cpu", the plain versions of the
-kernels) planning on relax_limits of the plant (the port cannot plan on
-the limits yet: ROADMAP queue A, M4 (a)). chip_smoke.py phase 13 gates the
-pole at the config where the relaxed planner balances it. Takes a few
-minutes, most of it the port's eager loop at horizon 100.
+kernels) planning on relax_limits of the plant and on the plant itself;
+at the defaults also the port's MPC on the plant itself replanning every
+20 steps, as chip_smoke.py phase 13 runs it on the card. Takes ~15
+minutes, most of it the port's eager loop at horizon 100 on the limits.
 """
 
 import os
@@ -60,9 +60,9 @@ def jax_costs():
     return running, final
 
 
-def loop(mpc, state, plant_step, pole, cart):
-    """tests/test_realtime.py's closed loop; (|pole| max, over the last 20
-    steps, |cart| max)."""
+def loop(mpc, state, plant_step, pole, cart, every=EVERY):
+    """tests/test_realtime.py's closed loop, a replan every ``every``
+    steps; (|pole| max, over the last 20 steps, |cart| max)."""
     t = 0.0
     mpc.record_state(t, state)
     mpc.replan_at(t)
@@ -71,7 +71,7 @@ def loop(mpc, state, plant_step, pole, cart):
         state = plant_step(state, mpc.control_now(t, state))
         t += DT
         mpc.record_state(t, state)
-        if i % EVERY == 0:
+        if i % every == 0:
             mpc.replan_at(t)
         poles.append(abs(pole(state)))
         carts.append(abs(cart(state)))
@@ -94,14 +94,20 @@ def main() -> int:
             print(f"{name} config {kw}: {label}: |pole| max {res[0]:.10f}, last 20 steps "
                   f"{res[1]:.10f}, |cart| max {res[2]:.10f} ({time.perf_counter() - t0:.1f} s)",
                   flush=True)
-        t0 = time.perf_counter()
-        mpc = MPC(mt, run, fin, MPCConfig(**kw), planning_model=relax_limits(mt), device="cpu")
-        res = loop(mpc, State(q=torch.tensor([0.0, 0.15], dtype=torch.float64),
-                              v=torch.zeros(2, dtype=torch.float64)),
-                   lambda s, u: step(mt, s, u), lambda s: float(s.q[1]), lambda s: float(s.q[0]))
-        print(f"{name} config {kw}: port MPC (plain path), planner relax_limits: |pole| max "
-              f"{res[0]:.10f}, last 20 steps {res[1]:.10f}, |cart| max {res[2]:.10f} "
-              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        runs = [("planner relax_limits", relax_limits(mt), EVERY),
+                ("planner with the limits", None, EVERY)]
+        if not kw:
+            runs.append(("planner with the limits, a replan every 20", None, 20))
+        for label, planner, every in runs:
+            t0 = time.perf_counter()
+            mpc = MPC(mt, run, fin, MPCConfig(**kw), planning_model=planner, device="cpu")
+            res = loop(mpc, State(q=torch.tensor([0.0, 0.15], dtype=torch.float64),
+                                  v=torch.zeros(2, dtype=torch.float64)),
+                       lambda s, u: step(mt, s, u), lambda s: float(s.q[1]),
+                       lambda s: float(s.q[0]), every)
+            print(f"{name} config {kw}: port MPC (plain path), {label}: |pole| max "
+                  f"{res[0]:.10f}, last 20 steps {res[1]:.10f}, |cart| max {res[2]:.10f} "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
     return 0
 
 

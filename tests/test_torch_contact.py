@@ -168,17 +168,27 @@ def test_solve_frozen_short_pcg_takes_the_implicit_tangent(lcp_case, monkeypatch
 
 
 def test_boxed_lcp_direct_has_no_derivative_yet():
+    """The direct solve now carries the implicit derivative (its JAX parity
+    is tests/test_torch_lcp_grad.py): backward gives the transpose of its
+    forward-mode Jacobian, zero on the rows that do not clamp; "jacobi"
+    still raises (M4 (b))."""
     A, b, lo, hi, _, _ = lcp_systems(4, seed=1)
     args = [t64(a) for a in (A, b, lo, hi)]
     args[1].requires_grad_(True)
-    x = tl.boxed_lcp(args[0], args[1], args[2], args[3], torch.zeros(N_SYS, 4),
-                     torch.zeros(N_SYS, 4), (-1,) * 4, 3, "direct")
+    zeros = torch.zeros(N_SYS, 4, dtype=torch.float64)
+    x = tl.boxed_lcp(args[0], args[1], args[2], args[3], zeros, zeros, (-1,) * 4, 3, "direct")
     close(x.detach(), tl.direct_boxed_solve(args[0], args[1].detach(), args[2], args[3]))
+    x.sum().backward()
+    jac = torch.func.vmap(torch.func.jacfwd(
+        lambda b_, A_, lo_, hi_: tl.boxed_lcp(A_, b_, lo_, hi_, torch.zeros_like(b_),
+                                              torch.zeros_like(b_), (-1,) * 4, 3, "direct")))(
+        args[1].detach(), args[0], args[2], args[3])
+    close(args[1].grad, jac.sum(-2), 1e-13)
+    clamping = tl._classify(x.detach(), args[2], args[3], zeros, (-1,) * 4)[0]
+    assert bool(clamping.any()) and not bool(clamping.all())
+    assert bool((args[1].grad[~clamping] == 0.0).all())
     with pytest.raises(NotImplementedError, match="M4"):
-        x.sum().backward()
-    with pytest.raises(NotImplementedError, match="M4"):
-        tl.boxed_lcp(*[a.detach() for a in args], torch.zeros(N_SYS, 4), torch.zeros(N_SYS, 4),
-                     (-1,) * 4, 60, "jacobi")
+        tl.boxed_lcp(*[a.detach() for a in args], zeros, zeros, (-1,) * 4, 60, "jacobi")
 
 
 # ---------------------------------------------- the narrowed-limit cartpole

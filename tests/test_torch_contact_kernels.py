@@ -360,5 +360,8 @@ def test_contact_options_not_ported_raise(case, mpc):
         solve_contact_mpc_batch(*args, class_refresh="scan")
     with pytest.raises(NotImplementedError, match="M2/M3/M5"):
         solve_contact_mpc_batch(*args, ILQRConfig(linearize="xla"))
-    with pytest.raises(NotImplementedError, match="M4"):
-        ilqr_solve_batch(*args)
+    # without classes a model with rows plans on the full constrained step
+    # (its JAX parity: tests/test_torch_lcp_grad.py), kernels or not
+    sol = ilqr_solve_batch(*args, ILQRConfig(iters=1))
+    assert sol.u.shape == (B, T, 1) and bool(torch.isfinite(sol.cost).all())
+    assert torch.equal(sol.u, ilqr_solve_batch(*args, ILQRConfig(iters=1, kernels=False)).u)

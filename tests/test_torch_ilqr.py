@@ -94,12 +94,12 @@ def test_unported_options_raise(case):
     for linearize in ("jvp", "chain"):
         sol = ilqr_solve_batch(*args, ILQRConfig(iters=ITERS, linearize=linearize))
         assert torch.equal(sol.u, case["sol_t"].u)
-    # a model with limit rows needs frozen classes (or the implicit LCP
-    # derivative, not ported yet); classes on a model without rows are the
-    # contact-free step
+    # a model with limit rows and no classes plans on the full constrained
+    # step (its JAX parity: tests/test_torch_lcp_grad.py); classes on a
+    # model without rows are the contact-free step
     limited = builders.cartpole(device="cpu", dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="M4"):
-        ilqr_solve_batch(limited, *args[1:])
+    sol = ilqr_solve_batch(limited, *args[1:], ILQRConfig(iters=1))
+    assert bool(torch.isfinite(sol.cost).all()) and sol.u.shape == case["sol_t"].u.shape
     z = torch.zeros(B, T, 0, dtype=torch.float64)
     sol = ilqr_solve_batch(*args, ILQRConfig(iters=ITERS), classes=(z, z))
     assert torch.equal(sol.u, case["sol_t"].u)

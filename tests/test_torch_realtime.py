@@ -209,9 +209,9 @@ def test_ticker_runs_its_callbacks():
 def test_mpc_refusals(monkeypatch):
     mt = to_port(jb.cartpole(dt=DT))
     run, fin = port_costs(mt)
-    # a planning model with limit rows needs the implicit LCP derivative
-    with pytest.raises(NotImplementedError, match="M4"):
-        MPC(mt, run, fin, device="cpu")
+    # a planning model with limit rows plans on the full constrained step
+    # (its JAX parity: tests/test_torch_lcp_grad.py)
+    assert MPC(mt, run, fin, device="cpu").plan_model is mt
     # the model and the plan on different devices
     with pytest.raises(ValueError, match="is on cpu, the plan on meta"):
         MPC(mt, run, fin, planning_model=relax_limits(mt), device="meta")

@@ -35,7 +35,11 @@ and holding each one against its plain PyTorch version:
   * the full constrained step: ``ilqr_solve_batch`` without classes on the
     jump worm (the LCP solved in every step of every rollout and of the
     linearization, differentiated by its implicit rule): kernels K7 and
-    K1.
+    K1;
+  * the gradient oracles and first-order solvers on that step:
+    ``neural.step_jacobians`` and ``backprop_state``, ``realtime.SSID`` and
+    ``trajectory.shooting``'s two solvers, reverse and forward mode
+    through rollouts of the worm's step: kernel K7.
 
 Phases:
 
@@ -147,15 +151,39 @@ Phases:
      classes the two solutions share; an LCP whose classes differ passes
      only near a class boundary, phase 8's share), K7 launched once per
      call under each transform; the worm's ilqr_solve_batch without
-     classes in f64 at B=16, H=20, 2 iterations, kernel path against plain
-     path (phase 6's rules; K7 62 launches, K1 2); then at bench.py's worm
-     widths in f32 (B=2048, H=100, 4 iterations, 4 alphas), cold and warm,
-     timed, with its launches (K7 900: the first rollout and every line
-     search one per step, every linearization one per one-step chunk; K1
-     4), no world above its initial cost, and its peak device memory;
- 15. a JSON line with every kernel's numbers and its layout ("design"; K7
-     and K1 worm also their launches per full-step replan), then the
-     result line.
+     classes in f64 at B=16, H=10, 2 iterations, kernel path against plain
+     path (phase 6's rules; K7 32 launches, K1 2); then at bench.py's worm
+     width in f32 (B=2048, 4 iterations, 4 alphas) at a fifth of its
+     horizon, H=20, cold and warm, timed, with its launches (K7 180: the first
+     rollout and every line search one per step, every linearization one
+     per one-step chunk; K1 4), no world above its initial cost, and its
+     peak device memory;
+ 15. the gradient oracles, SSID and shooting on the worm's full step
+     (neural/, realtime/ssid.py, trajectory/shooting.py), each f64 check
+     against the same call on CPU tensors (the plain PGS path, one child
+     process of this script per task, run while the card runs): (a)
+     step_jacobians at B=64 worm states with feet on the floor, all six
+     Jacobians, and (b) backprop_state with and without the explore flag,
+     under phase 14's rule (rel 1e-9 on every state whose LCP classes the
+     two solutions share), K7 once per call, the explore flag choosing the
+     overridden classes' direction at some states, the same states as on
+     the CPU; then each in f32 at B=2048, ms per call (mean of 3 warm
+     calls), K7 once per call; (c) SSID on a T=40 window (controls of std
+     5, masses scaled by seeded factors in [0.7, 1.4]): f64 3 iterations,
+     masses and loss history within rel 1e-8 of the CPU run, K7 40
+     launches per iteration; f32 5 iterations, the loss falling; (d)
+     single shooting (bench's worm cost over T=40, Adam, grad_clip=10) and
+     multiple shooting (4 segments of 10 steps, all segments in one K7
+     launch per step): f64 3 iterations against the CPU run (decision
+     variables and loss history within rel 1e-8), then f32 3 iterations.
+     Each f32 solve runs at 1 iteration, at N and at 1 again: seconds and
+     K7 launches per iteration are the difference of the last two over N
+     - 1, the set-up, start and final rollouts and first iteration left
+     out;
+ 16. a JSON line with every kernel's numbers and its layout ("design"; K7
+     and K1 worm also their launches per full-step replan, K7 its launches
+     per call or per iteration on phase 15's paths as its f32 runs counted
+     them), then the result line.
 
 Exits non-zero without CUDA, and on any failure. Imports nothing of JAX.
 """
@@ -176,11 +204,13 @@ import torch
 from nimblephysics_tpu_torch import native
 from nimblephysics_tpu_torch.models import builders
 from nimblephysics_tpu_torch.models.model import State, relax_limits
+from nimblephysics_tpu_torch.neural import backprop_state, step_jacobians
 from nimblephysics_tpu_torch.ops import _build, device_step
 from nimblephysics_tpu_torch.ops import dynamics as dyn
 from nimblephysics_tpu_torch.ops.collide import detect_contacts
 from nimblephysics_tpu_torch.ops.contact import (
     build_constraint_system,
+    contact_step,
     lcp_dim,
     lcp_findex,
     limited_dofs,
@@ -216,8 +246,14 @@ from nimblephysics_tpu_torch.ops.lcp import (
     direct_boxed_solve_lane,
     lcp_residual,
 )
-from nimblephysics_tpu_torch.realtime import MPC, AsyncMPC, MPCConfig
-from nimblephysics_tpu_torch.simulation.step import step
+from nimblephysics_tpu_torch.realtime import MPC, SSID, AsyncMPC, MPCConfig, SSIDConfig
+from nimblephysics_tpu_torch.simulation.step import rollout, step
+from nimblephysics_tpu_torch.trajectory.shooting import (
+    MultipleShootingProblem,
+    SingleShootingProblem,
+    solve_multiple_shooting,
+    solve_single_shooting,
+)
 from nimblephysics_tpu_torch.trajectory.costs import QuadraticCost, QuadraticFinalCost
 from nimblephysics_tpu_torch.trajectory.ilqr import (
     ILQRConfig,
@@ -1508,7 +1544,14 @@ def phase_11_12(dev, records, work, warm, plain, full_w):
 # step of every rollout and of the linearization) in f64 at a small size,
 # kernel path against plain path, then at bench.py's worm widths in f32
 FULL_LCP_B, FULL_JAC_B, FULL_LCP_STEPS = 512, 32, 100
-FULL_CHECK_B, FULL_CHECK_H, FULL_CHECK_ITERS = 16, 20, 2
+# the f64 check at 10 steps: its plain path, solved three times, is
+# host-bound like the replan below
+FULL_CHECK_B, FULL_CHECK_H, FULL_CHECK_ITERS = 16, 10, 2
+# phase 14c's horizon: a fifth of bench.py's worm horizon, so that phase 15
+# fits in the script's time on a slow host (the replan is host-bound: its
+# time goes with the horizon, not with B); not a multiple of 8, so that the
+# linearization runs one step per chunk as at bench.py's H=100
+FULL_REPLAN_H = 20
 # the kernels of the full-step path, by their rows in the kernels' line
 FULL_STEP_COUNTER = {"pgs_batched": "pgs_batched", "riccati_backward[worm]": "riccati_backward"}
 
@@ -1712,7 +1755,7 @@ def phase_full_step(dev, smi):
         raise AssertionError("f64 full step: kernel path and plain path disagree on the cost")
     check_solution(sol_k, cost0, "f64 full step, kernel path")
 
-    B, T, it = WORM_B, H, WORM_ITERS
+    B, T, it = WORM_B, FULL_REPLAN_H, WORM_ITERS
     log(f"{elapsed()} phase 14c: the full-step replan at bench.py's worm widths, f32, B={B}, "
         f"H={T}, iters={it}, alphas={WORM_ALPHAS}, x0 as phase 10's")
     model = worm_model(dev, f32)
@@ -1737,6 +1780,374 @@ def phase_full_step(dev, smi):
         f"{counts['riccati_backward']}; peak device memory of the call {peaks[0]:.3f} / "
         f"{peaks[1]:.3f} GiB; {smi}")
     return counts, times
+
+
+# ------------------------------------------------------ the gradient oracles
+
+# neural/ (step_jacobians, backprop_state), realtime/ssid.py and
+# trajectory/shooting.py on the jump worm's full constrained step: reverse
+# and forward mode through rollouts of it, K7 launched once per step or per
+# call. Each f64 check holds the card to the same call on CPU tensors (the
+# plain PGS path), run in child processes of this script
+# (ORACLE_CPU_FLAG) while the card runs; then f32 timed.
+ORACLE_B, ORACLE_STEPS = 64, 100
+ORACLE_T, ORACLE_SSID_ITERS = 40, (3, 5)        # the window; f64, f32 iterations
+ORACLE_SHOOT_ITERS = 3                          # f64 and f32
+ORACLE_SEGMENTS, ORACLE_SEG_LEN = 4, 10
+ORACLE_RTOL = 1e-8
+ORACLE_TASKS = ("oracles", "ssid", "single", "multi")
+ORACLE_CPU_FLAG = "--oracle-cpu"
+ORACLE_CPU_TIMEOUT = 600
+JAC_FIELDS = ("pos_pos", "pos_vel", "vel_pos", "vel_vel", "force_vel", "mass_vel")
+
+
+def worm_loss(traj):
+    """bench.py's worm cost over a shooting trajectory: 1e-5 |u|^2 + 2 (q1 +
+    0.4)^2 per step (the states after each step), 20 (q1 + 0.4)^2 at the
+    end."""
+    return (torch.sum(1e-5 * traj.u ** 2) + 2.0 * torch.sum((traj.q[:, 1] + 0.4) ** 2)
+            + 20.0 * (traj.q[-1, 1] + 0.4) ** 2)
+
+
+def worm_state_loss(traj):
+    """worm_loss plus 0.01 |x|^2 over the trajectory, so that every segment
+    start of multiple shooting has a gradient well above Adam's eps (one
+    whose gradient is zero up to rounding would move by rounding over
+    eps)."""
+    return worm_loss(traj) + 0.01 * (torch.sum(traj.q ** 2) + torch.sum(traj.v ** 2))
+
+
+def oracle_inputs(dev):
+    """Phase 15's f64 inputs, made on the card and handed to the CPU runs as
+    numpy: ORACLE_B worm states after ORACLE_STEPS full steps (feet on the
+    floor) with their last controls and a seeded cotangent; the SSID window
+    (ORACLE_T steps of controls of std 5 from the first state, the true
+    model's states after each step, masses scaled by seeded factors in
+    [0.7, 1.4]); the shooting start (the second state) and initial
+    controls of std 5."""
+    f64 = torch.float64
+    model = worm_model(dev, f64)
+    x, u = full_step_points(model, ORACLE_B, ORACLE_STEPS, SEED)
+    rng = np.random.default_rng(SEED + 15)
+    us = 5.0 * rng.standard_normal((ORACLE_T, 2))
+    with torch.no_grad():
+        _, obs = rollout(model, State.from_flat(x[0]), torch.tensor(us, dtype=f64, device=dev))
+    return dict(x=x.cpu().numpy(), u=u.cpu().numpy(), g=rng.standard_normal((ORACLE_B, 8)),
+                ssid_us=us, obs_q=obs.q.cpu().numpy(), obs_v=obs.v.cpu().numpy(),
+                mass_scale=rng.uniform(0.7, 1.4, model.num_bodies),
+                shoot_u=5.0 * rng.standard_normal((ORACLE_T, 2)),
+                segments=np.asarray(ORACLE_SEGMENTS), seg_len=np.asarray(ORACLE_SEG_LEN),
+                iters=np.asarray([ORACLE_SSID_ITERS[0], ORACLE_SHOOT_ITERS]))
+
+
+def oracle_task(task, dev, dtype, inp, iters=None):
+    """One task of phase 15 on ``dev``: returns (outputs as numpy, K7
+    launches by call, host seconds of the task; of the solve ending in a
+    synchronize for SSID and shooting). "oracles": step_jacobians and backprop_state (with and
+    without the explore flag) at the states, and the states' impulses;
+    "ssid": identify_masses on the window; "single" / "multi": the
+    shooting solvers from the shooting start."""
+    model = worm_model(dev, dtype)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    out, launches = {}, {}
+    if task == "oracles":
+        s, u, g = State.from_flat(t(inp["x"])), t(inp["u"]), t(inp["g"])
+        calls = (("step_jacobians", lambda: step_jacobians(model, s, u)),
+                 ("backprop_state", lambda: backprop_state(model, s, u, g)),
+                 ("backprop_state[explore]", lambda: backprop_state(
+                     model, s, u, g, explore_alternate_strategies=True)))
+        t0 = time.perf_counter()
+        for name, fn in calls:
+            reset_counts()
+            res = fn()
+            launches[name] = pgs_batched.launches
+            for k, r in zip(JAC_FIELDS if name == "step_jacobians" else ("gx", "ga"),
+                            res):
+                out[f"{name}.{k}"] = r.cpu().numpy()
+        _, info = contact_step(model, s, model.action_to_tau(u), return_info=True)
+        out["impulses"] = info.impulses.cpu().numpy()
+        return out, launches, time.perf_counter() - t0
+    if task == "ssid":
+        wrong = model.replace(mass=model.mass * t(inp["mass_scale"]))
+        ssid = SSID(wrong, SSIDConfig(iters=iters, lr=0.05), device=dev)
+        x0 = t(inp["x"][0])
+        reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        masses, hist = ssid.identify_masses(x0[:4], x0[4:], inp["ssid_us"], inp["obs_q"],
+                                            inp["obs_v"])
+        sync()
+        out.update(masses=masses.cpu().numpy(), hist=hist.cpu().numpy())
+        return out, {"ssid": pgs_batched.launches}, time.perf_counter() - t0
+    x0 = State.from_flat(t(inp["x"][1]))
+    u0 = t(inp["shoot_u"])
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    if task == "single":
+        sol = solve_single_shooting(SingleShootingProblem(model, x0, u0.shape[0], worm_loss),
+                                    u_init=u0, iters=iters, grad_clip=10.0, device=dev)
+        out.update(u=sol.u.cpu().numpy())
+    else:
+        prob = MultipleShootingProblem(model, x0, int(inp["segments"]), int(inp["seg_len"]),
+                                       worm_state_loss)
+        sol = solve_multiple_shooting(prob, u_init=u0, outer_iters=1, inner_iters=iters,
+                                      device=dev)
+        out.update(u=sol.u.cpu().numpy(), starts_q=sol.starts_q.cpu().numpy(),
+                   starts_v=sol.starts_v.cpu().numpy())
+    sync()
+    secs = time.perf_counter() - t0
+    out.update(hist=sol.loss_history.cpu().numpy(), loss=sol.loss.cpu().numpy())
+    return out, {task: pgs_batched.launches}, secs
+
+
+def oracle_launches(task, iters, inp):
+    """K7 launches of one call: once per step_jacobians / backprop_state
+    call; SSID once per step of each iteration's rollout; single shooting
+    once per step of each iteration's rollout and of the final one;
+    multiple shooting once per step of the chained start rollout (one
+    segment at a time), then once per step of each segment rollout (all
+    segments at once): each inner iteration, the round's multiplier update
+    and the final loss."""
+    if task == "oracles":
+        return {"step_jacobians": 1, "backprop_state": 1, "backprop_state[explore]": 1}
+    T, S, L = inp["shoot_u"].shape[0], int(inp["segments"]), int(inp["seg_len"])
+    if task == "ssid":
+        return {"ssid": iters * T}
+    if task == "single":
+        return {"single": (iters + 1) * T}
+    return {"multi": S * L + (iters + 2) * L}
+
+
+def oracle_cpu_main(task, in_path, out_path) -> int:
+    """The child process: one f64 task on CPU tensors."""
+    torch.set_num_threads(1)
+    inp = dict(np.load(in_path))
+    iters = int(inp["iters"][0 if task == "ssid" else 1])
+    out, _, secs = oracle_task(task, torch.device("cpu"), torch.float64, inp, iters)
+    np.savez(out_path, secs=np.asarray(secs), **out)
+    return 0
+
+
+def start_oracle_cpu(inp, tmp):
+    """Start one child process per task on the CPU (no card visible)."""
+    in_path = os.path.join(tmp, "oracle_inputs.npz")
+    np.savez(in_path, **inp)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    procs = {}
+    for task in ORACLE_TASKS:
+        out_path = os.path.join(tmp, f"oracle_{task}.npz")
+        procs[task] = (subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), ORACLE_CPU_FLAG, task, in_path,
+             out_path], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            out_path)
+    return procs
+
+
+def finish_oracle_cpu(procs):
+    """Wait for the children; their results by task, and their seconds."""
+    res = {}
+    for task, (proc, out_path) in procs.items():
+        try:
+            text, _ = proc.communicate(timeout=ORACLE_CPU_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 15: the CPU run of {task!r} failed:\n{text[-4000:]}")
+        res[task] = dict(np.load(out_path))
+    return res
+
+
+def oracle_close(label, card, cpu, keys, tol=ORACLE_RTOL):
+    """Hold each output of a card run to the CPU run's, rel to its largest
+    entry."""
+    worst = 0.0
+    for k in keys:
+        _, r = rel_errors([torch.as_tensor(card[k])], [torch.as_tensor(cpu[k])])
+        worst = max(worst, r)
+        if not r <= tol:
+            raise AssertionError(f"{label}: {k} differs from the CPU run by rel {r:.3e} "
+                                 f"(tol {tol:.0e})")
+    log(f"  {label}: card against the CPU run, max rel err {worst:.3e} over {list(keys)} "
+        f"(tol rel {tol:.0e})")
+    return worst
+
+
+def check_oracle_launches(label, got, expected):
+    log(f"  K7 launches ({label}): {got}, expected {expected}")
+    if got != expected:
+        raise AssertionError(f"{label}: K7 launches {got}, expected {expected}")
+
+
+def oracle_f64_checks(dev, inp, card, cpu):
+    """15a-b under phase 14's rule, per state; 15c-d at ORACLE_RTOL.
+    Returns the errors by call."""
+    f64 = torch.float64
+    model = worm_model(dev, f64)
+    x, u = (torch.as_tensor(inp[k], device=dev) for k in ("x", "u"))
+    _, _, lo, hi, fs, _ = worm_lcps(model, x, u)
+    findex = lcp_findex(model)
+    x_k = torch.as_tensor(card["oracles"]["impulses"], device=dev)
+    x_p = torch.as_tensor(cpu["oracles"]["impulses"], device=dev)
+    clamping = _classify(x_p, lo, hi, fs, findex)[0]
+    log(f"  phase 15 states: {float(clamping[:, :24].any(-1).float().mean()):.4f} with a clamping "
+        f"contact row")
+    if not bool(clamping[:, :24].any()):
+        raise AssertionError("phase 15: no state has a clamping contact row")
+    ck, cp = _classify(x_k, lo, hi, fs, findex), _classify(x_p, lo, hi, fs, findex)
+    same = ~((ck[0] != cp[0]) | (ck[1] != cp[1])).any(-1).cpu().numpy()
+    alt_k, alt_p = (explore_alternates(*(d["oracles"][f"{n}.{k}"]
+                                         for n in ("backprop_state[explore]", "backprop_state")
+                                         for k in ("gx", "ga"))) for d in (card, cpu))
+    log(f"  15b backprop_state[explore], f64, B={ORACLE_B}: the overridden classes' direction "
+        f"chosen at {alt_k.mean():.4f} of the states on the card, {alt_p.mean():.4f} on the CPU")
+    if not alt_k.any() or ((alt_k != alt_p) & same).any():
+        raise AssertionError("15b backprop_state[explore], f64: no state chose the overridden "
+                             "classes' direction, or the card and the CPU chose it at different "
+                             "states whose classes agree")
+    errs = {}
+    for name, keys in (("step_jacobians", JAC_FIELDS), ("backprop_state", ("gx", "ga")),
+                       ("backprop_state[explore]", ("gx", "ga"))):
+        outs = [torch.as_tensor(d["oracles"][f"{name}.{k}"], device=dev)
+                for d in (card, cpu) for k in keys]
+        errs[name] = lcp_grad_rows(f"15{'a' if name == 'step_jacobians' else 'b'} {name}, f64, "
+                                   f"B={ORACLE_B}", x_k, x_p, outs[:len(keys)], outs[len(keys):],
+                                   lo, hi, fs, findex, TOL["float64"])
+    errs["ssid"] = oracle_close(f"15c SSID, f64, T={ORACLE_T}, {ORACLE_SSID_ITERS[0]} iterations",
+                                card["ssid"], cpu["ssid"], ("masses", "hist"))
+    errs["single"] = oracle_close(f"15d single shooting, f64, T={ORACLE_T}, "
+                                  f"{ORACLE_SHOOT_ITERS} iterations", card["single"],
+                                  cpu["single"], ("u", "hist", "loss"))
+    errs["multi"] = oracle_close(f"15d multiple shooting, f64, {ORACLE_SEGMENTS} x "
+                                 f"{ORACLE_SEG_LEN} steps, {ORACLE_SHOOT_ITERS} iterations",
+                                 card["multi"], cpu["multi"],
+                                 ("u", "starts_q", "starts_v", "hist", "loss"))
+    return errs
+
+
+def explore_alternates(gx, ga, gx_plain, ga_plain):
+    """Per state, whether backprop_state's explore flag chose the overridden
+    classes' direction: its result is not the plain gradient."""
+    return (gx != gx_plain).any(-1) | (ga != ga_plain).any(-1)
+
+
+def oracle_f32_times(dev, inp):
+    """Phase 15 in f32: step_jacobians and backprop_state at B=WORM_B (ms
+    per call, mean of 3 warm calls); SSID and shooting on the f64 run's
+    inputs, each solved at 1 iteration (a warm-up), at N and at 1 again:
+    seconds per iteration are the difference of the last two over N - 1,
+    so the set-up, the start and final rollouts and the first iteration
+    drop out. Returns the times and K7's launches as counted: per call,
+    and per iteration (the difference of the two solves' launches over N -
+    1); each is also held to its expected count."""
+    f32 = torch.float32
+    B = WORM_B
+    m32 = worm_model(dev, f32)
+    x32, u32 = full_step_points(m32, B, ORACLE_STEPS, SEED)
+    g32 = torch.tensor(np.random.default_rng(SEED + 16).standard_normal((B, 8)), dtype=f32,
+                       device=dev)
+    s32 = State.from_flat(x32)
+    times, launches, res = {}, {}, {}
+    for name, fn in (("step_jacobians", lambda: step_jacobians(m32, s32, u32)),
+                     ("backprop_state", lambda: backprop_state(m32, s32, u32, g32)),
+                     ("backprop_state[explore]", lambda: backprop_state(
+                         m32, s32, u32, g32, explore_alternate_strategies=True))):
+        res[name] = fn()
+        if not all(bool(torch.isfinite(r).all()) for r in res[name]):
+            raise AssertionError(f"15 {name}, f32: non-finite output")
+        secs = []
+        for _ in range(3):
+            reset_counts()
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            secs.append(time.perf_counter() - t0)
+            launches[name] = pgs_batched.launches
+            check_oracle_launches(f"{name}, f32, B={B}", {name: launches[name]}, {name: 1})
+        times[name] = 1e3 * sum(secs) / len(secs)
+        log(f"  15{'a' if name == 'step_jacobians' else 'b'} {name}, f32, B={B}: "
+            f"{times[name]:.2f} ms per call (mean of 3 warm calls, host clock ending in a "
+            f"synchronize), K7 {launches[name]} launch per call")
+    alt = explore_alternates(*res["backprop_state[explore]"], *res["backprop_state"])
+    log(f"  15b backprop_state[explore], f32, B={B}: the overridden classes' direction chosen "
+        f"at {float(alt.float().mean()):.4f} of the states")
+    for task, iters in (("ssid", ORACLE_SSID_ITERS[1]), ("single", ORACLE_SHOOT_ITERS),
+                        ("multi", ORACLE_SHOOT_ITERS)):
+        runs = []
+        for n in (1, iters, 1):
+            out, got, secs = oracle_task(task, dev, f32, inp, n)
+            check_oracle_launches(f"{task}, f32, {n} iteration(s)", got,
+                                  oracle_launches(task, n, inp))
+            runs.append((out, got[task], secs))
+        (out, l_n, s_n), (_, l_1, s_1) = runs[1], runs[2]
+        hist = out["hist"]
+        if not (np.isfinite(hist).all() and (task != "ssid" or hist[-1] < hist[0])):
+            raise AssertionError(f"15 {task}, f32: a non-finite loss, or SSID's did not fall: "
+                                 f"{hist}")
+        if (l_n - l_1) % (iters - 1):
+            raise AssertionError(f"15 {task}, f32: K7 launches {l_n} at {iters} iterations and "
+                                 f"{l_1} at 1 are not a whole number per iteration")
+        times[task] = (s_n - s_1) / (iters - 1)
+        launches[task] = (l_n - l_1) // (iters - 1)
+        log(f"  15{'c' if task == 'ssid' else 'd'} {task}, f32: {iters} iterations {s_n:.3f} s, "
+            f"1 iteration {s_1:.3f} s (after a 1-iteration warm-up; each a solve on the host "
+            f"clock ending in a synchronize): {times[task]:.3f} s per iteration (the "
+            f"difference over {iters - 1}); loss {hist[0]:.6g} -> {hist[-1]:.6g}; K7 {l_n} and "
+            f"{l_1} launches, {launches[task]} per iteration")
+    return times, launches
+
+
+def phase_oracles(dev, smi):
+    """Phase 15: the gradient oracles, SSID and shooting on the card: the
+    f64 runs, then the f32 timings while the CPU's f64 runs finish in their
+    child processes, then the f64 checks. Returns K7's launches per call on
+    these paths, the f32 times and the f64 errors."""
+    import shutil
+    import tempfile
+
+    log(f"{elapsed()} phase 15: the gradient oracles, SSID and shooting on the jump worm's "
+        f"full constrained step, f64 against the same calls on CPU tensors (child processes)")
+    inp = oracle_inputs(dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_oracles_")
+    try:
+        procs = start_oracle_cpu(inp, tmp)
+        try:
+            card = {}
+            for task in ORACLE_TASKS:
+                iters = int(inp["iters"][0 if task == "ssid" else 1])
+                out, got, _ = oracle_task(task, dev, torch.float64, inp, iters)
+                check_oracle_launches(f"{task}, f64", got, oracle_launches(task, iters, inp))
+                card[task] = out
+            times, launches = oracle_f32_times(dev, inp)
+            t0 = time.perf_counter()
+            cpu = finish_oracle_cpu(procs)
+            log(f"  the CPU runs (f64, one process per task) ended {time.perf_counter() - t0:.1f} "
+                f"s after the card's f32 runs; their own seconds: "
+                f"{ {k: round(float(v['secs']), 1) for k, v in cpu.items()} }")
+        finally:
+            for proc, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    errs = oracle_f64_checks(dev, inp, card, cpu)
+    log(f"  phase 15: {smi}")
+    # K7's launches as the f32 runs counted them: per call, and per
+    # iteration of the solvers
+    per_call = {"launches_step_jacobians": launches["step_jacobians"],
+                "launches_backprop_state": launches["backprop_state"],
+                "launches_backprop_state_explore": launches["backprop_state[explore]"],
+                "launches_ssid_iteration": launches["ssid"],
+                "launches_single_shooting_iteration": launches["single"],
+                "launches_multiple_shooting_iteration": launches["multi"]}
+    return per_call, times, errs
 
 
 # ---------------------------------------------------------- the serving edge
@@ -2221,6 +2632,7 @@ def main() -> int:
     serve_cold_ms, serve_warm_ms, serve_ms = phase_serving(dev, smi)
     lcp_grad_err = phase_lcp_grad(dev)
     full_counts, full_times = phase_full_step(dev, smi)
+    oracle_counts, oracle_times, oracle_errs = phase_oracles(dev, smi)
 
     out = []
     for name in list(KERNELS) + list(CONTACT_KERNELS) + list(WORM_KERNELS) + list(SLICE_KERNELS):
@@ -2248,6 +2660,9 @@ def main() -> int:
             # the same kernel's launches per call of the worm's full-step
             # replan (phase 14c)
             out[-1]["launches_full_step"] = full_counts[FULL_STEP_COUNTER[name]]
+        if name == "pgs_batched":
+            # and per call on phase 15's paths
+            out[-1].update(oracle_counts)
         log(f"  {name}: least bytes {b} ({t_bytes:.5f} ms), operations {ops} "
             f"({t_ops:.5f} ms)")
     log(f"{elapsed()} done: contact-free {rate:.1f} solves/s (B={B_FULL}); contact "
@@ -2258,8 +2673,15 @@ def main() -> int:
         f"edge: replan cold {serve_cold_ms:.2f} ms, warm {serve_warm_ms:.2f} ms, control_now "
         f"median {serve_ms:.4f} ms (cold and warm planning on the limits at MPCConfig's "
         f"defaults); worm full-step replan cold {full_times[0]:.3f} s, warm "
-        f"{full_times[1]:.3f} s (B={WORM_B}); boxed_lcp derivative through K7 max abs err "
-        f"{lcp_grad_err:.3e}; build {nvcc_s:.1f} s")
+        f"{full_times[1]:.3f} s (B={WORM_B}, H={FULL_REPLAN_H}); boxed_lcp derivative through "
+        f"K7 max abs err {lcp_grad_err:.3e}; f32 step_jacobians "
+        f"{oracle_times['step_jacobians']:.2f} ms, backprop_state "
+        f"{oracle_times['backprop_state']:.2f} ms (explore "
+        f"{oracle_times['backprop_state[explore]']:.2f} ms) at B={WORM_B}, SSID "
+        f"{oracle_times['ssid']:.3f} s, single shooting {oracle_times['single']:.3f} s, "
+        f"multiple shooting {oracle_times['multi']:.3f} s per iteration; phase 15's f64 max rel "
+        f"err against the CPU {max(oracle_errs[k] for k in ('ssid', 'single', 'multi')):.3e}; "
+        f"build {nvcc_s:.1f} s")
     log(smi)
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2269,4 +2691,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 5 and sys.argv[1] == ORACLE_CPU_FLAG:
+        sys.exit(oracle_cpu_main(*sys.argv[2:]))
     sys.exit(main())

@@ -2,8 +2,8 @@
 
 PyTorch counterpart of ``nimblephysics_tpu/models/model.py``: chains of
 joints with joint limits, Coulomb joint friction and collision shapes
-(``ShapeSpec``; the narrow phase of ops/collide.py covers box against
-halfspace). ``Model`` holds the static topology as plain Python fields
+(``ShapeSpec``; the narrow phase of ops/collide.py covers box and sphere
+against halfspace). ``Model`` holds the static topology as plain Python fields
 (joint types, parents, names, the actuated dofs, each shape's kind and
 body) and every numeric parameter as a tensor; all tensors of one model
 lie on one device and have one dtype.
@@ -54,8 +54,9 @@ class ShapeSpec:
     geometry such as a floor), with its friction and restitution.
 
     params by kind, as in the JAX package: box [sx, sy, sz, 0] full
-    extents; halfspace [nx, ny, nz, offset], the plane n.x = offset in the
-    shape frame with the solid below; the other kinds' narrow phase is not
+    extents; sphere [r, 0, 0, 0]; halfspace [nx, ny, nz, offset], the plane
+    n.x = offset in the shape frame with the solid below; the other kinds'
+    narrow phase is not
     ported yet (ops/collide.py raises naming ROADMAP M4)."""
 
     kind: str

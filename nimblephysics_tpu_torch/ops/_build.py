@@ -154,10 +154,10 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def check(rc: int, name: str) -> None:
+def check(rc: int, name: str, sizes: str = "") -> None:
     if rc == -1:
-        raise ValueError(f"{name}: no kernel instance for these sizes (the "
-                         "instances are listed in the launcher in csrc/)")
+        raise ValueError(f"{name}: no kernel instance for these sizes{sizes and f' ({sizes})'} "
+                         "(the instances are listed in the launcher in csrc/)")
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 

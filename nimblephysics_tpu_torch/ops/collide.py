@@ -7,8 +7,8 @@ each slot's (point, normal, depth, active) is computed from the body
 transforms, batched over their leading dimensions. The normal points from
 body B into body A; depth > 0 means penetrating.
 
-Ported pair: box against halfspace (8 corner slots, the jump worm's
-floor). The slot table of the reference is kept whole, so the static
+Ported pairs: box against halfspace (8 corner slots, the jump worm's
+floor) and sphere against halfspace (1 slot). The slot table of the reference is kept whole, so the static
 topology (``enumerate_pairs``, ``total_slots``) of any model matches the
 JAX package; the narrow phase of every other pair raises naming ROADMAP
 queue A, M4.
@@ -129,6 +129,19 @@ def _halfspace_world(pb: torch.Tensor, Tb: Transform):
     return n_w, d_w
 
 
+def _sphere_halfspace(pa, pb, Ta: Transform, Tb: Transform):
+    """One slot at the sphere's deepest point, moved half the depth back
+    (params [r, 0, 0, 0]). The distances keep a trailing axis (torch.func's
+    forward-mode promotion of 0-dim tensors)."""
+    n, d = _halfspace_world(pb, Tb)
+    c = Ta.p
+    r = pa[0]
+    dist = (n * c).sum(-1, keepdim=True) - d
+    depth = r - dist
+    point = c - n * (r - 0.5 * depth)
+    return [point], [n.expand(point.shape)], [depth[..., 0]]
+
+
 def _box_halfspace(pa, pb, Ta: Transform, Tb: Transform):
     n, d = _halfspace_world(pb, Tb)
     corners = _box_corners(pa)
@@ -143,11 +156,13 @@ def _box_halfspace(pa, pb, Ta: Transform, Tb: Transform):
 
 def _narrow_phase(sa: ShapeSpec, sb: ShapeSpec, Ta: Transform, Tb: Transform):
     kinds = _capsule_fallback(sa.kind, sb.kind)
+    if kinds == ("sphere", "halfspace"):
+        return _sphere_halfspace(sa.params, sb.params, Ta, Tb)
     if kinds == ("box", "halfspace"):
         return _box_halfspace(sa.params, sb.params, Ta, Tb)
     raise NotImplementedError(
         f"the {kinds[0]}/{kinds[1]} narrow phase is not ported yet (ROADMAP queue A, M4: "
-        "ops/collide.py pair functions beyond box/halfspace)")
+        "ops/collide.py pair functions beyond box/halfspace and sphere/halfspace)")
 
 
 def detect_contacts(model: Model, T_wb: List) -> ContactSlots:

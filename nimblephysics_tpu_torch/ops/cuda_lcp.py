@@ -51,7 +51,7 @@ def pgs_batched(A, b, lo, hi, fscale, x0, findex: Tuple[int, ...], iters: int = 
     rc = lib.nptt_pgs(int(dtype == torch.float64), m, n, int(iters), A_f.data_ptr(),
                       *(t.data_ptr() for t in flat), fi.data_ptr(), x.data_ptr(),
                       _build.stream_ptr(dev))
-    _build.check(rc, name)
+    _build.check(rc, name, f"m = {m}; csrc/lcp.cu NPTT_PGS_SIZES")
     pgs_batched.launches += 1
     return x.reshape(b.shape)
 

@@ -1,6 +1,6 @@
 """Articulated-body dynamics: forward kinematics, velocity kinematics, ABA
 forward dynamics, CRBA mass matrix, RNEA inverse dynamics and the world
-and point Jacobians of the contact rows.
+and point Jacobians of the contact rows, and the model's centre of mass.
 
 PyTorch counterpart of ``nimblephysics_tpu/ops/dynamics.py``. Topology is
 static Python data, so the loops over bodies unroll into straight-line
@@ -292,3 +292,12 @@ def _point_rows(Jw: torch.Tensor, point_w: torch.Tensor) -> torch.Tensor:
     w_cols, v_cols = Jw[..., :3, :], Jw[..., 3:, :]
     p = point_w.unsqueeze(-2).expand(w_cols.transpose(-1, -2).shape)
     return v_cols + lie.cross(w_cols.transpose(-1, -2), p).transpose(-1, -2)
+
+
+def com_position(model: Model, kin: Kinematics) -> torch.Tensor:
+    """World COM of the whole model (mass-weighted), (..., 3)."""
+    total = torch.sum(model.mass)
+    acc = model.mass.new_zeros(3)
+    for i in range(model.num_bodies):
+        acc = acc + model.mass[i] * kin.T_wb[i].apply(model.com[i])
+    return acc / total

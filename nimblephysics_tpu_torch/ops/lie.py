@@ -1,8 +1,8 @@
 """SO(3)/SE(3) helpers that the joints and the dynamics need.
 
 PyTorch counterpart of ``nimblephysics_tpu/ops/lie.py`` (``hat``,
-``expm_so3``, ``Transform`` and the ``Ad*`` helpers, ``Ad_apply`` among
-them). Every function takes
+``vee``, ``expm_so3``, ``logm_so3``, ``Transform`` and the ``Ad*``
+helpers, ``Ad_apply`` among them). Every function takes
 leading batch dimensions and is free of data-dependent control flow, so it
 also runs under ``torch.func`` transforms.
 
@@ -44,6 +44,17 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     )
 
 
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) skew-symmetric matrix -> (..., 3) vector."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], dim=-1)
+
+
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: min(max(x, lo), hi), whose derivative is split in half
+    at a tie, where ``torch.clamp`` passes it whole."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
 def _trig_coeffs(theta_sq: torch.Tensor):
     """(sin t/t, (1-cos t)/t^2, (t - sin t)/t^3), Taylor-safe near 0."""
     small = theta_sq < _SMALL_THETA_SQ
@@ -77,6 +88,41 @@ def expm_so3(w: torch.Tensor) -> torch.Tensor:
     W = hat(w)
     W2 = W @ W
     return _eye3(w, W.shape[:-2]) + A[..., None] * W + B[..., None] * W2
+
+
+def logm_so3(R: torch.Tensor) -> torch.Tensor:
+    """Rotation (..., 3, 3) -> exp-map coordinates (..., 3).
+
+    Safe at theta = 0, and near theta = pi it reads the axis from the
+    diagonal. The branches' inputs are sanitized, not only their outputs:
+    reverse mode multiplies the zero cotangent of a discarded branch by
+    that branch's derivative, so an infinite one there (arccos' at +-1,
+    sqrt' at 0) would make the gradient NaN. The scalars keep a trailing
+    axis (torch.func's forward-mode promotion of 0-dim tensors)."""
+    trace = (R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2])[..., None]
+    cos_t = _clip((trace - 1.0) * 0.5, -1.0, 1.0)
+    small = cos_t > 1.0 - 1e-12           # theta below ~1.4e-6
+    near_pi = cos_t < -1.0 + 1e-8         # theta above ~pi - 1.4e-4
+    zero, one = torch.zeros_like(cos_t), torch.ones_like(cos_t)
+    acos_in = _clip(torch.where(small, zero, cos_t), -1.0 + 1e-12, 1.0)
+    theta = torch.where(small, zero, torch.arccos(acos_in))
+    # generic branch: w = theta / (2 sin theta) vee(R - R^T)
+    sin_t = torch.sin(theta)
+    safe_sin = torch.where(small | near_pi, one, sin_t)
+    antisym = vee(R - _swap(R))
+    w_generic = (theta / (2.0 * safe_sin)) * antisym
+    w_small = 0.5 * antisym
+    # near pi: u_i^2 = (R_ii - cos theta) / (1 - cos theta)
+    one_minus_cos = torch.where(near_pi, 1.0 - cos_t, one)
+    diag = torch.stack([R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]], dim=-1)
+    ratio = (diag - cos_t) / one_minus_cos
+    u_sq = _clip(torch.where(near_pi, ratio, torch.ones_like(ratio)), 0.0, 1.0)
+    # components at or below the floor are exactly 0 with subgradient 0
+    u_abs = torch.where(u_sq <= 1e-12, torch.zeros_like(u_sq),
+                        torch.sqrt(torch.maximum(u_sq, u_sq.new_tensor(1e-12))))
+    sign = torch.where(antisym >= 0.0, torch.ones_like(antisym), -torch.ones_like(antisym))
+    w_pi = theta * u_abs * sign
+    return torch.where(small, w_small, torch.where(near_pi, w_pi, w_generic))
 
 
 def _matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,9 @@
 """Real-time control: receding-horizon MPC and control buffers.
 
 PyTorch counterpart of ``nimblephysics_tpu/realtime`` (``dart/realtime/``:
-MPCLocal, RealTimeControlBuffer, Ticker, ObservationLog). Online system
-identification (``SSID``) waits for the implicit boxed-LCP derivative
-(ROADMAP queue A, M4 (a) and M7)."""
+MPCLocal, RealTimeControlBuffer, Ticker, ObservationLog) and online system
+identification (``SSID``: masses fitted to a logged window by Adam through
+the differentiable rollout)."""
 
 from nimblephysics_tpu_torch.realtime.buffer import (  # noqa: F401
     ControlPlan,
@@ -13,3 +13,4 @@ from nimblephysics_tpu_torch.realtime.buffer import (  # noqa: F401
     plan_index,
 )
 from nimblephysics_tpu_torch.realtime.mpc import MPC, AsyncMPC, MPCConfig, Ticker  # noqa: F401
+from nimblephysics_tpu_torch.realtime.ssid import SSID, SSIDConfig  # noqa: F401

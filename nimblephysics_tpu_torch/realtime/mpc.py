@@ -23,7 +23,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from nimblephysics_tpu_torch._device import resolve_device
+from nimblephysics_tpu_torch._device import model_device, resolve_device
 from nimblephysics_tpu_torch.models.model import Model, State
 from nimblephysics_tpu_torch.realtime.buffer import (
     ControlPlan,
@@ -74,11 +74,8 @@ class MPC:
                                                and isinstance(final_cost, QuadraticFinalCost)):
             raise TypeError("MPC: on the card the costs must be a QuadraticCost and a "
                             "QuadraticFinalCost (ROADMAP queue B, K2: other costs on the card)")
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
         for name, m in (("model", model), ("planning_model", plan_model)):
-            if m.device != self.device:
-                raise ValueError(f"MPC: {name} is on {m.device}, the plan on {self.device}")
+            self.device = model_device(f"MPC: {name}", m, device, "the plan")
         self.model = model
         self.plan_model = plan_model
         self.running_cost, self.final_cost = running_cost, final_cost

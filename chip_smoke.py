@@ -39,7 +39,12 @@ and holding each one against its plain PyTorch version:
   * the gradient oracles and first-order solvers on that step:
     ``neural.step_jacobians`` and ``backprop_state``, ``realtime.SSID`` and
     ``trajectory.shooting``'s two solvers, reverse and forward mode
-    through rollouts of the worm's step: kernel K7.
+    through rollouts of the worm's step: kernel K7;
+  * the catapult (``builders.catapult``, examples/catapult_trajopt.py's
+    world): box/box contact, ``simulation.timestep`` and ``World``,
+    ``contact_step``'s staged and hyper cascades and the example's throw
+    by single shooting, on 129-row LCPs: kernel K7's shared-memory body
+    (``csrc/lcp_wide.cu``).
 
 Phases:
 
@@ -153,8 +158,8 @@ Phases:
      call under each transform; the worm's ilqr_solve_batch without
      classes in f64 at B=16, H=10, 2 iterations, kernel path against plain
      path (phase 6's rules; K7 32 launches, K1 2); then at bench.py's worm
-     width in f32 (B=2048, 4 iterations, 4 alphas) at a fifth of its
-     horizon, H=20, cold and warm, timed, with its launches (K7 180: the first
+     width in f32 (B=2048, 4 iterations, 4 alphas) at a tenth of its
+     horizon, H=10, cold and warm, timed, with its launches (K7 90: the first
      rollout and every line search one per step, every linearization one
      per one-step chunk; K1 4), no world above its initial cost, and its
      peak device memory;
@@ -168,22 +173,45 @@ Phases:
      two solutions share), K7 once per call, the explore flag choosing the
      overridden classes' direction at some states, the same states as on
      the CPU; then each in f32 at B=2048, ms per call (mean of 3 warm
-     calls), K7 once per call; (c) SSID on a T=40 window (controls of std
+     calls), K7 once per call; (c) SSID on a T=20 window (controls of std
      5, masses scaled by seeded factors in [0.7, 1.4]): f64 3 iterations,
-     masses and loss history within rel 1e-8 of the CPU run, K7 40
+     masses and loss history within rel 1e-8 of the CPU run, K7 20
      launches per iteration; f32 5 iterations, the loss falling; (d)
-     single shooting (bench's worm cost over T=40, Adam, grad_clip=10) and
-     multiple shooting (4 segments of 10 steps, all segments in one K7
+     single shooting (bench's worm cost over T=20, Adam, grad_clip=10) and
+     multiple shooting (4 segments of 5 steps, all segments in one K7
      launch per step): f64 3 iterations against the CPU run (decision
      variables and loss history within rel 1e-8), then f32 3 iterations.
      Each f32 solve runs at 1 iteration, at N and at 1 again: seconds and
      K7 launches per iteration are the difference of the last two over N
      - 1, the set-up, start and final rollouts and first iteration left
      out;
- 16. a JSON line with every kernel's numbers and its layout ("design"; K7
+ 16. the catapult, m = 129: (a) K7's shared-memory instance on the 62
+     catapult_swing LCPs of tests/golden/world_lcp_golden.npz against
+     pgs_batched_plain at 60 sweeps (f64 rel 1e-9, f32 rel 2e-4), in f64
+     at 10,000 sweeps v* + Minv_Jt x within 2e-5 of the reference's
+     Dantzig answers (scaled by max(1, |v_ref|)), and in f32 at B=2048
+     (the 62 repeated) against the plain version and timed; (b) 2048
+     states from the example's q0, the projectile moved by up to 1 cm,
+     after 100 full steps under controls of std 50 (rolled out in f32) (the share with an
+     active box/box and edge-edge slot, which must not be 0): timestep
+     and step_jacobians in f32 at B=2048 timed, K7 once per call; in f64
+     at B=64 against the same calls on CPU tensors (a child process)
+     under phase 14's rule; World on the card, 5 steps and a
+     state_jacobian; (c) the throw: solve_single_shooting of the
+     example's loss (target (2.2, 2.2), Adam at lr 0.5, u0 of std 50) at
+     T=40 (the example's 250 cut for time), f64 2 iterations against the
+     CPU (u and the loss history within rel 1e-8), f32 seconds per
+     iteration the difference of a solve at 2 iterations and one at 1
+     (after the f64 solve), K7 40 launches per iteration, the loss
+     falling; (d) contact_step(accuracy="staged") on (b)'s f32 batch: K7's
+     launches as the gates sent the LCPs on, every residual at most the
+     standard step's; in f64 at B=64 the kernel path against
+     kernels=False (phase 14's rule), and accuracy="hyper" once;
+ 17. a JSON line with every kernel's numbers and its layout ("design"; K7
      and K1 worm also their launches per full-step replan, K7 its launches
      per call or per iteration on phase 15's paths as its f32 runs counted
-     them), then the result line.
+     them, K7's catapult instance per call of step_jacobians and the
+     staged step and per iteration of the throw), then the result line.
 
 Exits non-zero without CUDA, and on any failure. Imports nothing of JAX.
 """
@@ -245,8 +273,10 @@ from nimblephysics_tpu_torch.ops.lcp import (
     boxed_lcp,
     direct_boxed_solve_lane,
     lcp_residual,
+    staged_solve,
 )
 from nimblephysics_tpu_torch.realtime import MPC, SSID, AsyncMPC, MPCConfig, SSIDConfig
+from nimblephysics_tpu_torch.simulation import World, timestep
 from nimblephysics_tpu_torch.simulation.step import rollout, step
 from nimblephysics_tpu_torch.trajectory.shooting import (
     MultipleShootingProblem,
@@ -1547,11 +1577,12 @@ FULL_LCP_B, FULL_JAC_B, FULL_LCP_STEPS = 512, 32, 100
 # the f64 check at 10 steps: its plain path, solved three times, is
 # host-bound like the replan below
 FULL_CHECK_B, FULL_CHECK_H, FULL_CHECK_ITERS = 16, 10, 2
-# phase 14c's horizon: a fifth of bench.py's worm horizon, so that phase 15
-# fits in the script's time on a slow host (the replan is host-bound: its
-# time goes with the horizon, not with B); not a multiple of 8, so that the
-# linearization runs one step per chunk as at bench.py's H=100
-FULL_REPLAN_H = 20
+# phase 14c's horizon: a tenth of bench.py's worm horizon (a fifth until
+# phase 16 joined), so that phases 15 and 16 fit in the script's time on a
+# slow host (the replan is host-bound: its time goes with the horizon, not
+# with B); not a multiple of 8, so that the linearization runs one step per
+# chunk as at bench.py's H=100
+FULL_REPLAN_H = 10
 # the kernels of the full-step path, by their rows in the kernels' line
 FULL_STEP_COUNTER = {"pgs_batched": "pgs_batched", "riccati_backward[worm]": "riccati_backward"}
 
@@ -1791,9 +1822,10 @@ def phase_full_step(dev, smi):
 # plain PGS path), run in child processes of this script
 # (ORACLE_CPU_FLAG) while the card runs; then f32 timed.
 ORACLE_B, ORACLE_STEPS = 64, 100
-ORACLE_T, ORACLE_SSID_ITERS = 40, (3, 5)        # the window; f64, f32 iterations
+# the window: T = 40 until phase 16 joined, cut to 20 to pay for it
+ORACLE_T, ORACLE_SSID_ITERS = 20, (3, 5)        # the window; f64, f32 iterations
 ORACLE_SHOOT_ITERS = 3                          # f64 and f32
-ORACLE_SEGMENTS, ORACLE_SEG_LEN = 4, 10
+ORACLE_SEGMENTS, ORACLE_SEG_LEN = 4, 5
 ORACLE_RTOL = 1e-8
 ORACLE_TASKS = ("oracles", "ssid", "single", "multi")
 ORACLE_CPU_FLAG = "--oracle-cpu"
@@ -1926,19 +1958,23 @@ def oracle_cpu_main(task, in_path, out_path) -> int:
     """The child process: one f64 task on CPU tensors."""
     torch.set_num_threads(1)
     inp = dict(np.load(in_path))
-    iters = int(inp["iters"][0 if task == "ssid" else 1])
-    out, _, secs = oracle_task(task, torch.device("cpu"), torch.float64, inp, iters)
+    cpu = torch.device("cpu")
+    if task in CAT_TASKS:
+        out, secs = catapult_task(task, cpu, torch.float64, inp, CAT_THROW_ITERS[0])
+    else:
+        iters = int(inp["iters"][0 if task == "ssid" else 1])
+        out, _, secs = oracle_task(task, cpu, torch.float64, inp, iters)
     np.savez(out_path, secs=np.asarray(secs), **out)
     return 0
 
 
-def start_oracle_cpu(inp, tmp):
+def start_oracle_cpu(inp, tmp, tasks=ORACLE_TASKS):
     """Start one child process per task on the CPU (no card visible)."""
     in_path = os.path.join(tmp, "oracle_inputs.npz")
     np.savez(in_path, **inp)
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     procs = {}
-    for task in ORACLE_TASKS:
+    for task in tasks:
         out_path = os.path.join(tmp, f"oracle_{task}.npz")
         procs[task] = (subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), ORACLE_CPU_FLAG, task, in_path,
@@ -2148,6 +2184,351 @@ def phase_oracles(dev, smi):
                 "launches_single_shooting_iteration": launches["single"],
                 "launches_multiple_shooting_iteration": launches["multi"]}
     return per_call, times, errs
+
+
+# ------------------------------------------------------------ the catapult
+
+# builders.catapult (examples/catapult_trajopt.py's world): a projectile
+# box on a translational2d joint and a 3-link tail on a welded root, its
+# last link carrying a box, over a floor: 41 contact slots (25 box/box, 8
+# and 8 box/floor) and 3 limited tails, m = 129 LCP rows, which K7 solves
+# with csrc/lcp_wide.cu's shared-memory body. Each f64 check against the
+# CPU runs in a child process of this script (ORACLE_CPU_FLAG), as phase
+# 15's do.
+CAT_M = 129
+CAT_B, CAT_B_CHECK = 2048, 64
+CAT_STEPS, CAT_U_STD = 100, 50.0
+CAT_Q0 = (-0.104, -0.02, np.pi / 4, 0.0, np.pi / 4)   # the example's start
+CAT_TARGET = (2.2, 2.2)
+# the throw: the example's T = 250 cut to 40 for the script's time
+CAT_T, CAT_LR, CAT_THROW_ITERS = 40, 0.5, (2, 2)    # horizon, Adam's rate; f64, f32 iterations
+CAT_LCP_ITERS, CAT_DEEP_SWEEPS = 60, 10_000
+CAT_HYPER_SWEEPS = 2_500                            # contact_step's "hyper" default
+CAT_VEL_TOL = 2e-5                                  # tests/test_parity_lcp.py's
+CAT_TASKS = ("cat_step", "cat_throw")
+CAT_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                          "world_lcp_golden.npz")
+REPLACES["pgs_batched[catapult]"] = ("nimblephysics_tpu_torch/csrc/lcp_wide.cu",
+                                     "nimblephysics_tpu/ops/pallas_lcp.py:96")
+DESIGN["pgs_batched[catapult]"] = (
+    "one warp per LCP and per block (csrc/lcp_wide.cu): A and findex staged row-major in "
+    "dynamic shared memory by coalesced loads (67,080 B in f32, 133,644 B in f64), the rows on "
+    "the lanes, x, the residual and the bounds of a lane's rows in registers, the residual kept "
+    "current by one broadcast per row update")
+
+
+def catapult_model(dev, dtype):
+    return builders.catapult(dtype=dtype, device=dev)
+
+
+def catapult_loss(traj):
+    """examples/catapult_trajopt.py's loss: the projectile's last position
+    to the target, half its closest approach, and 1e-6 |u|^2."""
+    tgt = torch.tensor(CAT_TARGET, dtype=traj.q.dtype, device=traj.q.device)
+    closest = torch.min(torch.sum((traj.q[:, :2] - tgt) ** 2, dim=1))
+    return torch.sum((traj.q[-1, :2] - tgt) ** 2) + 0.5 * closest + 1e-6 * torch.sum(traj.u ** 2)
+
+
+def catapult_golden(dev, dtype):
+    """The 62 catapult_swing LCPs of tests/golden/world_lcp_golden.npz with
+    the reference's Dantzig answers: (A, b, lo, hi, fscale, x_ref,
+    Minv_Jt, v_star), findex."""
+    d = np.load(CAT_GOLDEN)
+    ps = [p for p in range(int(d["n_problems"])) if "catapult_swing" in str(d[f"w{p}_name"])]
+    out = [torch.tensor(np.stack([d[f"w{p}_{k}"] for p in ps]), dtype=dtype, device=dev)
+           for k in ("A", "b", "lo", "hi", "fscale", "x_ref", "Minv_Jt", "v_star")]
+    return out, tuple(int(f) for f in d[f"w{ps[0]}_findex"])
+
+
+def catapult_states(model, B, steps, seed):
+    """B catapult states: the example's q0 with the projectile moved by up
+    to 1 cm in x and 5 mm in y (seeded), after ``steps`` full steps under
+    controls of std CAT_U_STD; the last controls beside them."""
+    dev, dtype = model.device, model.dtype
+    rng = np.random.default_rng(seed)
+    q = np.tile(np.asarray(CAT_Q0), (B, 1))
+    q[:, 0] += rng.uniform(-0.01, 0.01, B)
+    q[:, 1] += rng.uniform(-0.005, 0.005, B)
+    x = torch.tensor(np.concatenate([q, np.zeros_like(q)], 1), dtype=dtype, device=dev)
+    u = None
+    with torch.no_grad():
+        for _ in range(steps):
+            u = torch.tensor(CAT_U_STD * rng.standard_normal((B, 3)), dtype=dtype, device=dev)
+            x = step(model, State.from_flat(x), u).flat()
+    return x, u
+
+
+def catapult_active(model, x):
+    """The share of states with an active box/box slot, and with an active
+    edge-edge slot (slots 16-24 of the pair)."""
+    kin = dyn.forward_kinematics(model, x[:, :model.nq])
+    act = detect_contacts(model, kin.T_wb).active
+    return float(act[:, :25].any(-1).float().mean()), float(act[:, 16:25].any(-1).float().mean())
+
+
+def catapult_bounds(model, x, u):
+    """lo, hi and fscale of the LCPs of the step at the flat states x under
+    the controls u."""
+    s = State.from_flat(x)
+    kin = dyn.forward_kinematics(model, s.q)
+    v_star = s.v + model.dt * dyn.aba(model, s.q, s.v, model.action_to_tau(u), kin=kin)
+    return build_constraint_system(model, s.q, v_star, kin,
+                                   detect_contacts(model, kin.T_wb))[3:6]
+
+
+def catapult_task(task, dev, dtype, inp, iters=None):
+    """One f64 task of phase 16 on ``dev``, outputs as numpy. "cat_step":
+    timestep, step_jacobians and the impulses of the step at the check
+    states; "cat_throw": single shooting of the example's loss from q0."""
+    model = catapult_model(dev, dtype)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    out = {}
+    t0 = time.perf_counter()
+    if task == "cat_step":
+        s, u = State.from_flat(t(inp["x"])), t(inp["u"])
+        with torch.no_grad():
+            nxt = timestep(model, s, u)
+            _, info = contact_step(model, s, model.action_to_tau(u), return_info=True)
+        out.update(next=nxt.flat().cpu().numpy(), impulses=info.impulses.cpu().numpy())
+        for k, r in zip(JAC_FIELDS, step_jacobians(model, s, u)):
+            out[f"jac.{k}"] = r.cpu().numpy()
+    else:
+        q0 = t(CAT_Q0)
+        prob = SingleShootingProblem(model, State(q0, torch.zeros_like(q0)), CAT_T,
+                                     catapult_loss)
+        sol = solve_single_shooting(prob, u_init=t(inp["throw_u"]), iters=iters, lr=CAT_LR,
+                                    device=dev)
+        out.update(u=sol.u.cpu().numpy(), hist=sol.loss_history.cpu().numpy(),
+                   loss=sol.loss.cpu().numpy())
+    return out, time.perf_counter() - t0
+
+
+def phase_catapult_k7(dev, records, work):
+    """16a: K7's shared-memory body on the golden catapult LCPs."""
+    log(f"{elapsed()} phase 16a: K7 at m = {CAT_M} (csrc/lcp_wide.cu) on the 62 golden "
+        f"catapult_swing LCPs, against pgs_batched_plain")
+    for dt in (torch.float32, torch.float64):
+        lay = _build.group_shape("pgs", dt, CAT_M)
+        log(f"  layout {str(dt).split('.')[-1]}: {lay['lanes']} lanes per LCP, "
+            f"{lay['per_block']} LCP per block, {lay['shared_bytes']} B of shared memory per "
+            f"block")
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        (A, b, lo, hi, fs, x_ref, Mj, vs), findex = catapult_golden(dev, dtype)
+        x0 = torch.zeros_like(b)
+        args = (A, b, lo, hi, fs, x0, findex)
+        abs_err, rel_err = rel_errors([pgs_batched(*args, CAT_LCP_ITERS)],
+                                      [pgs_batched_plain(*args, CAT_LCP_ITERS)])
+        ok = rel_err <= TOL[dname]
+        log(f"  {dname}, {len(b)} LCPs, {CAT_LCP_ITERS} sweeps: max abs err {abs_err:.3e}, rel "
+            f"err {rel_err:.3e} (tol rel {TOL[dname]:.0e}) {'PASS' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K7 m = {CAT_M} {dname} disagrees with its plain version")
+    (A, b, lo, hi, fs, x_ref, Mj, vs), findex = catapult_golden(dev, torch.float64)
+    x = pgs_batched(A, b, lo, hi, fs, torch.zeros_like(b), findex, CAT_DEEP_SWEEPS)
+    v, v_ref = (vs + (Mj @ xx[..., None])[..., 0] for xx in (x, x_ref))
+    err = float(((v - v_ref).abs().amax(-1) / v_ref.abs().amax(-1).clamp(min=1.0)).max())
+    log(f"  f64 at {CAT_DEEP_SWEEPS} sweeps: v* + Minv_Jt x within {err:.3e} of the reference's "
+        f"Dantzig answers, scaled by max(1, |v_ref|) (tol {CAT_VEL_TOL:.0e})")
+    if not err <= CAT_VEL_TOL:
+        raise AssertionError("K7 m = 129: the velocities miss the reference's")
+    (A, b, lo, hi, fs, *_), findex = catapult_golden(dev, torch.float32)
+    rep = -(-CAT_B // len(b))
+    A, b, lo, hi, fs = (t.repeat((rep,) + (1,) * (t.dim() - 1))[:CAT_B].contiguous()
+                        for t in (A, b, lo, hi, fs))
+    args = (A, b, lo, hi, fs, torch.zeros_like(b), findex, CAT_LCP_ITERS)
+    abs_err, rel_err = rel_errors([pgs_batched(*args)], [pgs_batched_plain(*args)])
+    if rel_err > TOL["float32"]:
+        raise AssertionError("K7 m = 129: f32 disagrees at B=2048")
+    ms = time_ms(lambda: pgs_batched(*args), 20)
+    plain_ms = time_ms(lambda: pgs_batched_plain(*args), 1)
+    records["pgs_batched[catapult]"] = (abs_err, ms, plain_ms)
+    nc = sum(1 for f in findex if f >= 0)
+    work["pgs_batched[catapult]"] = (
+        4 * CAT_B * (CAT_M * CAT_M + 6 * CAT_M) + 4 * CAT_M,
+        CAT_B * (CAT_M + CAT_LCP_ITERS * (CAT_M * (2 * CAT_M + 2) + 2 * nc)))
+    log(f"  f32, B={CAT_B} (the 62 repeated), {CAT_LCP_ITERS} sweeps: max abs err {abs_err:.3e} "
+        f"(rel {rel_err:.3e}); kernel {ms:.4f} ms (CUDA events, mean of 20), plain "
+        f"{plain_ms:.4f} ms")
+
+
+def time_call(fn, label, expected_k7, reps=3):
+    """Mean host seconds of reps warm calls ending in a synchronize, K7's
+    launches held to expected_k7 per call."""
+    fn()
+    secs = []
+    for _ in range(reps):
+        reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        secs.append(time.perf_counter() - t0)
+        check_oracle_launches(label, {label: pgs_batched.launches}, {label: expected_k7})
+    return sum(secs) / len(secs)
+
+
+def phase_catapult(dev, smi, records, work):
+    """Phase 16: the catapult on the card. 16a K7 alone; 16b timestep,
+    step_jacobians and World; 16c the throw; 16d the staged cascade. The
+    f64 checks of 16b and 16c against the CPU run in child processes
+    while the card works. Returns K7's launch counts on these paths and
+    the f32 times."""
+    import shutil
+    import tempfile
+
+    log(f"{elapsed()} phase 16: the catapult (builders.catapult, m = {CAT_M}: box/box contact, "
+        f"the staged cascade, the World/timestep facade, the throw)")
+    m64 = catapult_model(dev, torch.float64)
+    # the states rolled out in f32 (K7 a quarter of f64's time), then held
+    # in f64
+    x, u = (t.double() for t in catapult_states(catapult_model(dev, torch.float32), CAT_B,
+                                                  CAT_STEPS, SEED))
+    rng = np.random.default_rng(SEED + 17)
+    inp = dict(x=x[:CAT_B_CHECK].cpu().numpy(), u=u[:CAT_B_CHECK].cpu().numpy(),
+               throw_u=CAT_U_STD * rng.standard_normal((CAT_T, 3)))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_catapult_")
+    try:
+        procs = start_oracle_cpu(inp, tmp, CAT_TASKS)
+        try:
+            phase_catapult_k7(dev, records, work)
+            counts, times, card = catapult_card(dev, smi, m64, x, u, inp)
+            t0 = time.perf_counter()
+            cpu = finish_oracle_cpu(procs)
+            log(f"  the CPU runs (f64) ended {time.perf_counter() - t0:.1f} s after the card's; "
+                f"their own seconds: { {k: round(float(v['secs']), 1) for k, v in cpu.items()} }")
+        finally:
+            for proc, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    catapult_f64_checks(dev, m64, inp, card, cpu)
+    log(f"  phase 16: {smi}")
+    return counts, times
+
+
+def catapult_card(dev, smi, m64, x, u, inp):
+    """16b-d on the card; the f64 outputs of the CPU's tasks beside."""
+    f32, f64 = torch.float32, torch.float64
+    share, share_edge = catapult_active(m64, x)
+    log(f"{elapsed()} phase 16b: {CAT_B} catapult states after {CAT_STEPS} full steps under "
+        f"controls of std {CAT_U_STD}: {share:.4f} with an active box/box slot, "
+        f"{share_edge:.4f} with an active edge-edge slot")
+    if not share > 0.0:
+        raise AssertionError("16b: no catapult state has an active box/box slot")
+    card, counts, times = {}, {}, {}
+    out, _ = catapult_task("cat_step", dev, f64, inp)
+    card["cat_step"] = out
+    m32 = catapult_model(dev, f32)
+    s32, u32 = State.from_flat(x.to(f32)), u.to(f32)
+    for name, fn in (("timestep", lambda: timestep(m32, s32, u32)),
+                     ("step_jacobians", lambda: step_jacobians(m32, s32, u32))):
+        res = fn()
+        if not all(bool(torch.isfinite(r).all()) for r in res):
+            raise AssertionError(f"16b {name}, f32: non-finite output")
+        times[name] = 1e3 * time_call(fn, f"{name}, f32, B={CAT_B}", 1)
+        counts[f"launches_{name}"] = pgs_batched.launches
+        log(f"  16b {name}, f32, B={CAT_B}: {times[name]:.2f} ms per call (mean of 3 warm "
+            f"calls, host clock ending in a synchronize), K7 {pgs_batched.launches} launch per "
+            f"call")
+    world = World(m32, State(x[0, :5].to(f32), x[0, 5:].to(f32)), device=dev)
+    reset_counts()
+    for k in range(5):
+        world.step(u32[k])
+    check_oracle_launches("World, 5 steps", {"world": pgs_batched.launches}, {"world": 5})
+    jac = world.state_jacobian(u32[0])
+    if not (len(world.recording) == 5 and jac.shape == (10, 10)
+            and bool(torch.isfinite(jac).all())):
+        raise AssertionError("16b World: 5 steps and a state_jacobian failed")
+    log(f"  16b World on {dev} (f32): 5 steps, K7 once per step; state_jacobian finite, "
+        f"max |entry| {float(jac.abs().max()):.4g}")
+
+    log(f"{elapsed()} phase 16c: the throw, solve_single_shooting of the example's loss at "
+        f"T={CAT_T} (cut from 250), Adam lr {CAT_LR}, u0 of std {CAT_U_STD}")
+    it64 = CAT_THROW_ITERS[0]
+    reset_counts()
+    out, s64 = catapult_task("cat_throw", dev, f64, inp, it64)
+    check_oracle_launches(f"throw, f64, {it64} iterations", {"throw": pgs_batched.launches},
+                          {"throw": (it64 + 1) * CAT_T})
+    card["cat_throw"] = out
+    it = CAT_THROW_ITERS[1]
+    runs = []
+    for n in (it, 1):  # the f64 solve before warmed the same path
+        reset_counts()
+        sync()
+        res, secs = catapult_task("cat_throw", dev, f32, inp, n)
+        sync()
+        check_oracle_launches(f"throw, f32, {n} iteration(s)", {"throw": pgs_batched.launches},
+                              {"throw": (n + 1) * CAT_T})
+        runs.append((res, pgs_batched.launches, secs))
+    (res, l_n, s_n), (_, l_1, s_1) = runs
+    hist = res["hist"]
+    if not (np.isfinite(hist).all() and float(res["loss"]) < hist[0]):
+        raise AssertionError(f"16c throw, f32: the loss did not fall: {hist}, {res['loss']}")
+    times["throw"] = (s_n - s_1) / (it - 1)
+    counts["launches_throw_iteration"] = (l_n - l_1) // (it - 1)
+    log(f"  16c throw, f32: {it} iterations {s_n:.3f} s, 1 iteration {s_1:.3f} s: "
+        f"{times['throw']:.3f} s per iteration; loss {hist[0]:.6g} -> {float(res['loss']):.6g}; "
+        f"K7 {counts['launches_throw_iteration']} launches per iteration")
+
+    log(f"{elapsed()} phase 16d: contact_step(accuracy=\"staged\") on 16b's states")
+    tau32 = m32.action_to_tau(u32)
+    with torch.no_grad():
+        _, info_s = contact_step(m32, s32, tau32, return_info=True)
+        reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        _, info_g = contact_step(m32, s32, tau32, return_info=True, accuracy="staged")
+        sync()
+        secs = time.perf_counter() - t0
+    gated = staged_solve.gated
+    counts["launches_staged"] = pgs_batched.launches
+    expected = 1 + int(gated[0] > 0) + int(gated[1] > 0)
+    log(f"  f32, B={CAT_B}: {secs:.3f} s; the gates sent {gated[0]} LCPs to the deep PGS and "
+        f"{gated[1]} to the direct stage; K7 {pgs_batched.launches} launches (expected "
+        f"{expected}); residual max {float(info_s.residual.max()):.3e} standard, "
+        f"{float(info_g.residual.max()):.3e} staged")
+    check_oracle_launches("staged, f32", {"staged": pgs_batched.launches}, {"staged": expected})
+    if not bool((info_g.residual <= info_s.residual).all()):
+        raise AssertionError("16d: a staged residual exceeds the standard step's")
+    B = CAT_B_CHECK
+    s64 = State.from_flat(x[:B])
+    tau64 = m64.action_to_tau(u[:B])
+    with torch.no_grad():
+        res = [contact_step(m64, s64, tau64, return_info=True, accuracy="staged", kernels=k)
+               for k in (True, False)]
+        lcp_grad_rows(f"16d staged, f64, B={B}, kernel path against kernels=False",
+                      res[0][1].impulses, res[1][1].impulses,
+                      [res[0][0].v, res[0][1].impulses], [res[1][0].v, res[1][1].impulses],
+                      *catapult_bounds(m64, x[:B], u[:B]), lcp_findex(m64), TOL["float64"])
+        reset_counts()
+        t0 = time.perf_counter()
+        _, info_h = contact_step(m64, s64, tau64, return_info=True, accuracy="hyper",
+                                 lcp_iters=CAT_HYPER_SWEEPS)
+        sync()
+    log(f"  hyper, f64, B={B}: {time.perf_counter() - t0:.3f} s, K7 {pgs_batched.launches} "
+        f"launches, gates {staged_solve.gated}, residual max {float(info_h.residual.max()):.3e} "
+        f"(staged {float(res[0][1].residual.max()):.3e})")
+    return counts, times, card
+
+
+def catapult_f64_checks(dev, m64, inp, card, cpu):
+    """16b and 16c's f64 card runs against the CPU's."""
+    lo, hi, fs = catapult_bounds(m64, *(torch.as_tensor(inp[k], device=dev)
+                                        for k in ("x", "u")))
+    x_k, x_p = (torch.as_tensor(d["cat_step"]["impulses"], device=dev) for d in (card, cpu))
+    keys = ["next"] + [f"jac.{k}" for k in JAC_FIELDS]
+    outs = [torch.as_tensor(d["cat_step"][k], device=dev) for d in (card, cpu) for k in keys]
+    lcp_grad_rows(f"16b timestep and step_jacobians, f64, B={CAT_B_CHECK}, card against the CPU",
+                  x_k, x_p, outs[:len(keys)], outs[len(keys):], lo, hi, fs, lcp_findex(m64),
+                  TOL["float64"])
+    oracle_close(f"16c throw, f64, T={CAT_T}, {CAT_THROW_ITERS[0]} iterations",
+                 card["cat_throw"], cpu["cat_throw"], ("u", "hist", "loss"))
 
 
 # ---------------------------------------------------------- the serving edge
@@ -2526,7 +2907,7 @@ def main() -> int:
                          ("linearize_split", f"B x T = {WORM_B} x {H}"),
                          ("pgs", f"LCP of the B x T = {WORM_B} x {H}")):
         shapes = {d: (_build.layout(name, WORM_M, dt) if name in ("rollout", "linearize_split")
-                      else _build.group_shape(name, dt))
+                      else _build.group_shape(name, dt, WORM_M))
                   for d, dt in (("f32", torch.float32), ("f64", torch.float64))}
         log(f"  {name} worm instance on lane groups: one group per {groups} at the path's "
             f"shape, {shapes['f32']['lanes']} lanes per group, "
@@ -2633,9 +3014,11 @@ def main() -> int:
     lcp_grad_err = phase_lcp_grad(dev)
     full_counts, full_times = phase_full_step(dev, smi)
     oracle_counts, oracle_times, oracle_errs = phase_oracles(dev, smi)
+    cat_counts, cat_times = phase_catapult(dev, smi, records, work)
 
     out = []
-    for name in list(KERNELS) + list(CONTACT_KERNELS) + list(WORM_KERNELS) + list(SLICE_KERNELS):
+    for name in (list(KERNELS) + list(CONTACT_KERNELS) + list(WORM_KERNELS) + list(SLICE_KERNELS)
+                 + ["pgs_batched[catapult]"]):
         b, ops = work[name]
         t_bytes = b / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS["float32"] * 1e3
@@ -2646,8 +3029,11 @@ def main() -> int:
             launches = counts_c[CONTACT_COUNTER[name]]
         elif name in WORM_KERNELS:
             launches = counts_w[WORM_COUNTER[name]]
-        else:
+        elif name in SLICE_KERNELS:
             launches = slice_counts[name]
+        else:
+            # the catapult's main path: one timestep of the batch (16b)
+            launches = cat_counts["launches_timestep"]
         out.append({
             "name": name, "route": "cuda", "source": REPLACES[name][0],
             "replaces": REPLACES[name][1], "launches": launches,
@@ -2663,6 +3049,10 @@ def main() -> int:
         if name == "pgs_batched":
             # and per call on phase 15's paths
             out[-1].update(oracle_counts)
+        if name == "pgs_batched[catapult]":
+            # per call of step_jacobians and the staged step, per iteration
+            # of the throw (phase 16)
+            out[-1].update({k: v for k, v in cat_counts.items() if k != "launches_timestep"})
         log(f"  {name}: least bytes {b} ({t_bytes:.5f} ms), operations {ops} "
             f"({t_ops:.5f} ms)")
     log(f"{elapsed()} done: contact-free {rate:.1f} solves/s (B={B_FULL}); contact "
@@ -2681,7 +3071,9 @@ def main() -> int:
         f"{oracle_times['ssid']:.3f} s, single shooting {oracle_times['single']:.3f} s, "
         f"multiple shooting {oracle_times['multi']:.3f} s per iteration; phase 15's f64 max rel "
         f"err against the CPU {max(oracle_errs[k] for k in ('ssid', 'single', 'multi')):.3e}; "
-        f"build {nvcc_s:.1f} s")
+        f"catapult (B={CAT_B}, f32): timestep {cat_times['timestep']:.2f} ms, step_jacobians "
+        f"{cat_times['step_jacobians']:.2f} ms, the throw {cat_times['throw']:.3f} s per "
+        f"iteration (T={CAT_T}); build {nvcc_s:.1f} s")
     log(smi)
     log(json.dumps({"kernels": out}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

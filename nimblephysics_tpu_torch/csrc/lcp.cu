@@ -37,8 +37,10 @@
 // and the row update (pgs_sweep_ops in chip_smoke.py).
 #include "lane_group.cuh"
 
-// The LCP sizes the kernel is built for; the wrapper refuses any other.
-// The jump worm: 8 contact slots and 2 limited dofs, 28 rows.
+// The LCP sizes the kernel is built for, at most one row per lane
+// (wider LCPs take csrc/lcp_wide.cu's shared-memory body); the wrapper
+// refuses any other. The jump worm: 8 contact slots and 2 limited dofs, 28
+// rows.
 #define NPTT_PGS_SIZES(X) X(28)
 
 namespace nptt {
@@ -195,12 +197,21 @@ extern "C" int nptt_pgs(int is_double, int m, long long n, int iters, const void
 #endif
 
 #ifdef __CUDACC__
-// K7's lane-group layout: out = (lanes per group, groups per block, shared
-// bytes per block).
-extern "C" int nptt_pgs_group_shape(int is_double, long long* out) {
-  out[0] = nptt::kK7Group;
-  out[1] = 128 / nptt::kK7Group;
-  out[2] = 0;
-  return 0;
+extern "C" int nptt_pgs_wide_group_shape(int is_double, int m, long long* out);
+
+// The layout of K7's instance that runs at m rows: out = (lanes per group,
+// groups per block, shared bytes per block); lcp_wide.cu's for its sizes;
+// -1 without an instance.
+extern "C" int nptt_pgs_group_shape(int is_double, int m, long long* out) {
+#define NPTT_PGS_SHAPE(M)             \
+  if (m == M) {                       \
+    out[0] = nptt::kK7Group;          \
+    out[1] = 128 / nptt::kK7Group;    \
+    out[2] = 0;                       \
+    return 0;                         \
+  }
+  NPTT_PGS_SIZES(NPTT_PGS_SHAPE)
+#undef NPTT_PGS_SHAPE
+  return nptt_pgs_wide_group_shape(is_double, m, out);
 }
 #endif

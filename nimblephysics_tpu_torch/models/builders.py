@@ -1,9 +1,10 @@
 """Programmatic builders for the benchmark worlds.
 
 PyTorch counterpart of ``pendulum``, ``inverted_double_pendulum``,
-``cartpole`` and ``jump_worm`` in ``nimblephysics_tpu/models/builders.py``. The leaves are
-computed in float64 exactly as the JAX package computes them and then cast
-to ``dtype`` on ``device``.
+``cartpole``, ``catapult`` and ``jump_worm`` in
+``nimblephysics_tpu/models/builders.py``. The leaves are computed in
+float64 exactly as the JAX package computes them and then cast to
+``dtype`` on ``device``.
 """
 
 from __future__ import annotations
@@ -120,6 +121,49 @@ def cartpole(
         ),
     ]
     return build_model(joints, dt=dt, actuated=(0,), dtype=dtype, device=device)
+
+
+def catapult(
+    dt: float = 0.002, dtype: Optional[torch.dtype] = None, device="cuda",
+) -> Model:
+    """A 2D projectile (translational2d, unactuated) carrying a box, and a
+    3-link tail on a welded root, each link revolute about z, limited to
+    [0, pi] and actuated; a box on the last link and a floor halfspace
+    (top surface y = -0.575)."""
+    joints = [
+        dict(
+            type="translational2d", name="projectile_joint",
+            body_name="projectile", parent=-1,
+            axes=[[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]],
+            mass=1.0, tau_lower=0.0, tau_upper=0.0,
+        ),
+        dict(
+            type="weld", name="root_joint", body_name="root", parent=-1,
+            T_pj=_tf([0.5, -0.45, 0.0]), mass=1.0,
+        ),
+    ]
+    parent = 1
+    for k in range(3):
+        joints.append(
+            dict(
+                type="revolute", name=f"tail{k}_joint", body_name=f"tail{k}",
+                parent=parent, axes=[[0.0, 0.0, 1.0]],
+                T_pj=_tf([0.0, 0.125, 0.0]) if k > 0 else _tf(),
+                T_cj=_tf([0.0, -0.125, 0.0]),
+                mass=1.0, tau_lower=-1000.0, tau_upper=1000.0,
+                q_lower=0.0, q_upper=np.pi,
+            )
+        )
+        parent = 2 + k
+    shapes = (
+        dict(kind="box", body_index=0, params=[0.1, 0.1, 0.1, 0.0]),
+        dict(kind="box", body_index=4, params=[0.05, 0.25, 0.05, 0.0]),
+        # the floor box at (0, -0.7, 0), height 0.25, as the halfspace
+        # y >= -0.575 under the projectile's flight
+        dict(kind="halfspace", body_index=-1, params=[0.0, 1.0, 0.0, -0.575]),
+    )
+    return build_model(joints, dt=dt, shapes=shapes, actuated=(2, 3, 4), dtype=dtype,
+                       device=device)
 
 
 def jump_worm(

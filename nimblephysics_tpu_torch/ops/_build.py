@@ -46,8 +46,9 @@ SIGNATURES = {
     "nptt_classes": [_I] * 7 + [_LL, _I] + [_P] * 7,
     "nptt_linearize_vjp": [_I, _I, _I, _I, _I, _I, _LL, _I] + [_P] * 9,
     "nptt_pgs": [_I, _I, _LL, _I] + [_P] * 9,
+    "nptt_pgs_wide": [_I, _I, _LL, _I] + [_P] * 9,
     "nptt_linearize_vjp_group_shape": [_I, _P],
-    "nptt_pgs_group_shape": [_I, _P],
+    "nptt_pgs_group_shape": [_I, _I, _P],
     "nptt_rollout_layout": [_I, _I, _P],
     "nptt_linearize_split_layout": [_I, _I, _P],
 }
@@ -195,12 +196,16 @@ def check_shape(name: str, key: str, t, shape: tuple) -> None:
                          f"expected {tuple(shape)}")
 
 
-def group_shape(name: str, dtype) -> dict:
+def group_shape(name: str, dtype, m: int = 0) -> dict:
     """The lane-group layout of K5's worm instance (``name``
-    "linearize_vjp") or K7's ("pgs"): lanes per group, groups per block and
-    shared bytes per block (csrc/frozen_group.cuh, csrc/lcp.cu)."""
+    "linearize_vjp") or of K7's instance at m rows ("pgs"; the register
+    body of csrc/lcp.cu or the shared-memory body of csrc/lcp_wide.cu,
+    whichever runs at m): lanes per group, groups per block and shared
+    bytes per block (csrc/frozen_group.cuh, csrc/lcp.cu)."""
     out = (ctypes.c_longlong * 3)()
-    getattr(load(), f"nptt_{name}_group_shape")(int(dtype == torch.float64), out)
+    fn = getattr(load(), f"nptt_{name}_group_shape")
+    args = (int(dtype == torch.float64),) + ((m,) if name == "pgs" else ())
+    check(fn(*args, out), name, f"m = {m}")
     return {"lanes": out[0], "per_block": out[1], "shared_bytes": out[2]}
 
 

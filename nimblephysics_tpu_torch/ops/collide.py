@@ -8,7 +8,9 @@ transforms, batched over their leading dimensions. The normal points from
 body B into body A; depth > 0 means penetrating.
 
 Ported pairs: box against halfspace (8 corner slots, the jump worm's
-floor) and sphere against halfspace (1 slot). The slot table of the reference is kept whole, so the static
+floor), sphere against halfspace (1 slot) and box against box (25 slots:
+each box's 8 vertices inside the other, and 9 edge-edge slots of the
+separating-axis test; the catapult's projectile on its arm). The slot table of the reference is kept whole, so the static
 topology (``enumerate_pairs``, ``total_slots``) of any model matches the
 JAX package; the narrow phase of every other pair raises naming ROADMAP
 queue A, M4.
@@ -154,15 +156,121 @@ def _box_halfspace(pa, pb, Ta: Transform, Tb: Transform):
     return pts, ns, ds
 
 
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dot product over the last axis, keeping it (torch.func's forward-mode
+    promotion of 0-dim tensors)."""
+    return (a * b).sum(-1, keepdim=True)
+
+
+def _vertex_in_box(v_w, half, Tb: Transform):
+    """Depth and normal of a world point against a box of half extents
+    ``half``: the depth is the least face distance (negative outside), the
+    normal that face's outward normal in the world. Depths (..., 1); the
+    first least axis wins a tie, as jnp.argmin's."""
+    local = Tb.inverse().apply(v_w)
+    d = half - local.abs()
+    axis = d.argmin(-1, keepdim=True)
+    depth = d.amin(-1, keepdim=True)
+    e = (axis == torch.arange(3, device=d.device)).to(d.dtype)
+    n_local = e * torch.sign(torch.gather(local, -1, axis))
+    return depth, Tb.rotate(n_local)
+
+
+def _box_box(pa, pb, Ta: Transform, Tb: Transform):
+    """Each box's 8 vertices against the other box (16 slots), then the 9
+    edge-edge slots of ``_box_box_edges``. A vertex of A inside B pushes A
+    out along B's face normal; a vertex of B inside A pushes B along minus
+    A's."""
+    half_a, half_b = pa[:3] / 2.0, pb[:3] / 2.0
+    pts, ns, ds = [], [], []
+    for corners, half, T_v, T_box, sign in ((_box_corners(pa), half_b, Ta, Tb, 1.0),
+                                             (_box_corners(pb), half_a, Tb, Ta, -1.0)):
+        for k in range(8):
+            v_w = T_v.apply(corners[k])
+            depth, n_out = _vertex_in_box(v_w, half, T_box)
+            pts.append(v_w)
+            ns.append(n_out if sign > 0 else -n_out)
+            ds.append(depth[..., 0])
+    e_pts, e_ns, e_ds = _box_box_edges(half_a, half_b, Ta, Tb)
+    return pts + e_pts, ns + e_ns, ds + e_ds
+
+
+def _box_box_edges(half_a, half_b, Ta: Transform, Tb: Transform):
+    """9 edge-edge slots, one per pair (i, j) of the boxes' axes: the
+    normal cross(ua_i, ub_j) oriented B -> A, its overlap the depth, the
+    point the midpoint of the closest points of the two supporting edges.
+    A slot is active only when every axis overlaps, its axis is within
+    5% (ODE's face-preferring fudge) of the least overlap, and the edges
+    meet there (their gap within 1.5 depth + 1e-3)."""
+    ua = [Ta.R[..., :, k] for k in range(3)]
+    ub = [Tb.R[..., :, k] for k in range(3)]
+    d_ab = Ta.p - Tb.p
+
+    def overlap(axis):
+        ra = sum(half_a[k] * _dot(axis, ua[k]).abs() for k in range(3))
+        rb = sum(half_b[k] * _dot(axis, ub[k]).abs() for k in range(3))
+        return ra + rb - _dot(axis, d_ab).abs()
+
+    min_face = torch.minimum(
+        torch.cat([overlap(ua[k]) for k in range(3)], dim=-1).amin(-1, keepdim=True),
+        torch.cat([overlap(ub[k]) for k in range(3)], dim=-1).amin(-1, keepdim=True))
+    axes, depths, parallels, cps = [], [], [], []
+    for i in range(3):
+        for j in range(3):
+            n_raw = torch.linalg.cross(ua[i], ub[j])
+            length = torch.sqrt(torch.clamp(_dot(n_raw, n_raw), min=1e-18))
+            n = n_raw / torch.clamp(length, min=1e-9)
+            n = torch.where(_dot(n, d_ab) >= 0.0, n, -n)
+            # the supporting edge of A in -n (its material deepest toward
+            # B), of B in +n
+            ea_c = Ta.p + sum(-torch.sign(_dot(n, ua[k])) * half_a[k] * ua[k]
+                              for k in range(3) if k != i)
+            eb_c = Tb.p + sum(torch.sign(_dot(n, ub[k])) * half_b[k] * ub[k]
+                              for k in range(3) if k != j)
+            cps.append(_segment_closest_points(
+                ea_c - half_a[i] * ua[i], 2.0 * half_a[i] * ua[i],
+                eb_c - half_b[j] * ub[j], 2.0 * half_b[j] * ub[j]))
+            axes.append(n)
+            depths.append(overlap(n))
+            parallels.append(length < 1e-6)
+    edge_valid = torch.where(torch.cat(parallels, dim=-1), torch.inf, torch.cat(depths, dim=-1))
+    min_all = torch.minimum(min_face, edge_valid.amin(-1, keepdim=True))
+    pts, ds = [], []
+    for k in range(9):
+        cpa, cpb = cps[k]
+        gap = torch.sqrt(torch.clamp(((cpa - cpb) ** 2).sum(-1, keepdim=True), min=1e-18))
+        depth = depths[k]
+        valid = (~parallels[k] & (min_all > 0.0) & (depth <= min_all * 1.05 + 1e-6)
+                 & (gap <= depth * 1.5 + 1e-3))
+        pts.append(0.5 * (cpa + cpb))
+        ds.append(torch.where(valid, depth, -depth.abs() - 1.0)[..., 0])
+    return pts, axes, ds
+
+
+def _segment_closest_points(p1, d1, p2, d2):
+    """Closest points of the segments p1 + s d1 and p2 + t d2, s and t in
+    [0, 1] (clamped, branch-free)."""
+    r = p1 - p2
+    a, e, b = _dot(d1, d1), _dot(d2, d2), _dot(d1, d2)
+    c, f = _dot(d1, r), _dot(d2, r)
+    denom = torch.clamp(a * e - b * b, min=1e-12)
+    s = torch.clamp((b * f - c * e) / denom, 0.0, 1.0)
+    t = torch.clamp((b * s + f) / torch.clamp(e, min=1e-12), 0.0, 1.0)
+    s = torch.clamp((b * t - c) / torch.clamp(a, min=1e-12), 0.0, 1.0)
+    return p1 + s * d1, p2 + t * d2
+
+
 def _narrow_phase(sa: ShapeSpec, sb: ShapeSpec, Ta: Transform, Tb: Transform):
     kinds = _capsule_fallback(sa.kind, sb.kind)
     if kinds == ("sphere", "halfspace"):
         return _sphere_halfspace(sa.params, sb.params, Ta, Tb)
     if kinds == ("box", "halfspace"):
         return _box_halfspace(sa.params, sb.params, Ta, Tb)
+    if kinds == ("box", "box"):
+        return _box_box(sa.params, sb.params, Ta, Tb)
     raise NotImplementedError(
         f"the {kinds[0]}/{kinds[1]} narrow phase is not ported yet (ROADMAP queue A, M4: "
-        "ops/collide.py pair functions beyond box/halfspace and sphere/halfspace)")
+        "ops/collide.py pair functions beyond box/halfspace, sphere/halfspace and box/box)")
 
 
 def detect_contacts(model: Model, T_wb: List) -> ContactSlots:

@@ -14,9 +14,9 @@ coupled to their normal impulse), the joint-limit rows and the Coulomb
 joint-friction rows. ``contact_step`` solves a model with contact slots by
 projected Gauss-Seidel (``method="gs"``, 60 sweeps, the CUDA kernel K7 on
 CUDA tensors) and a limits-only model by the direct active-set solve,
-both differentiated by the LCP's implicit rule (``ops/lcp.boxed_lcp``).
-Servo, mimic and loop-closure rows and the staged accuracy cascade are
-ROADMAP queue A, M4.
+both differentiated by the LCP's implicit rule (``ops/lcp.boxed_lcp``);
+``accuracy="staged"`` and ``"hyper"`` take the staged cascade. Servo, mimic
+and loop-closure rows are ROADMAP queue A, M4 (d).
 """
 
 from __future__ import annotations
@@ -298,16 +298,17 @@ def contact_step(
     accuracy: str = "standard",
     kernels: bool = True,
 ):
-    """One constrained timestep. A model with contact slots takes projected
-    Gauss-Seidel (``lcp_iters`` sweeps, 60 by default) from ``x_warm``
-    (zeros when None), through K7 on CUDA tensors when ``kernels``; a
-    limit/Coulomb-only LCP takes the direct active-set solve
-    (``lcp_iters`` rounds, 3 by default), for which ``x_warm`` is unused.
-    ``accuracy`` other than "standard" is not ported yet."""
-    if accuracy != "standard":
-        raise NotImplementedError(
-            f"contact_step(accuracy={accuracy!r}) is not ported yet (ROADMAP "
-            "queue A, M4: the staged LCP cascade)")
+    """One constrained timestep. ``accuracy`` "standard": a model with
+    contact slots takes projected Gauss-Seidel (``lcp_iters`` sweeps, 60 by
+    default) from ``x_warm`` (zeros when None), through K7 on CUDA tensors
+    when ``kernels``; a limit/Coulomb-only LCP takes the direct active-set
+    solve (``lcp_iters`` rounds, 3 by default), for which ``x_warm`` is
+    unused. "staged": the residual-gated cascade (``ops/lcp.staged_solve``,
+    ``lcp_iters`` 60 by default), "hyper" the same at 2,500 sweeps, the
+    reference's hyper-accurate setting; their PGS stages go through K7
+    likewise."""
+    if accuracy not in ("standard", "staged", "hyper"):
+        raise ValueError(f"contact_step: unknown accuracy {accuracy!r}")
     q, v = state.q, state.v
     kin0 = dyn.forward_kinematics(model, q)
     qdd = dyn.aba(model, q, v, tau, kin=kin0)
@@ -319,7 +320,11 @@ def contact_step(
     if m == 0:
         out = State(integrate_positions(model, q, v), v_star)
         return (out, None) if return_info else out
-    if total_slots(model) > 0:
+    if accuracy != "standard":
+        method = "staged"
+        if lcp_iters is None:
+            lcp_iters = 2500 if accuracy == "hyper" else 60
+    elif total_slots(model) > 0:
         method = "gs"
         lcp_iters = 60 if lcp_iters is None else lcp_iters
     else:

@@ -3,10 +3,13 @@
 Port of ``nimblephysics_tpu/ops/pallas_lcp.py :: pallas_pgs_batched``:
 ``vmap(pgs_solve)`` over a batch of LCPs, a fixed number of sweeps, rows
 in order, friction rows bounded by +-fscale max(x[findex], 0).
-``pgs_batched`` launches the CUDA kernel of ``csrc/lcp.cu`` on CUDA
-tensors (one lane group per LCP, its rows on the lanes, the residual kept
-current) and runs ``pgs_batched_plain`` (``ops/lcp.py`` ``pgs_solve`` on
-the batch) on CPU tensors. The port's ``boxed_lcp(method="gs")`` calls it,
+``pgs_batched`` launches a CUDA kernel on CUDA tensors (one lane group
+per LCP, its rows on the lanes, the residual kept current) and runs
+``pgs_batched_plain`` (``ops/lcp.py`` ``pgs_solve`` on the batch) on CPU
+tensors. It routes by m: up to one row per lane (the worm's 28) to
+``csrc/lcp.cu``, whose lanes keep their rows of A in registers; above, to
+``csrc/lcp_wide.cu``, whose block stages A in shared memory (the
+catapult's 129). The port's ``boxed_lcp(method="gs")`` calls it,
 so the pointwise classification of the contact replan
 (``frozen_contact.classify_points``) solves its LCPs here.
 """
@@ -19,6 +22,10 @@ import torch
 
 from nimblephysics_tpu_torch.ops import _build
 from nimblephysics_tpu_torch.ops.lcp import pgs_solve
+
+
+# The most rows csrc/lcp.cu's register body takes: one row of A per lane.
+REGISTER_ROWS_MAX = 32
 
 
 def pgs_batched_plain(A, b, lo, hi, fscale, x0, findex: Tuple[int, ...], iters: int = 60):
@@ -48,10 +55,13 @@ def pgs_batched(A, b, lo, hi, fscale, x0, findex: Tuple[int, ...], iters: int = 
     fi = torch.tensor(findex, dtype=torch.int32, device=dev)
     x = torch.empty((n, m), dtype=dtype, device=dev)
     lib = _build.load()
-    rc = lib.nptt_pgs(int(dtype == torch.float64), m, n, int(iters), A_f.data_ptr(),
-                      *(t.data_ptr() for t in flat), fi.data_ptr(), x.data_ptr(),
-                      _build.stream_ptr(dev))
-    _build.check(rc, name, f"m = {m}; csrc/lcp.cu NPTT_PGS_SIZES")
+    wide = m > REGISTER_ROWS_MAX
+    launch = lib.nptt_pgs_wide if wide else lib.nptt_pgs
+    rc = launch(int(dtype == torch.float64), m, n, int(iters), A_f.data_ptr(),
+                *(t.data_ptr() for t in flat), fi.data_ptr(), x.data_ptr(),
+                _build.stream_ptr(dev))
+    _build.check(rc, name, f"m = {m}; " + ("csrc/lcp_wide.cu NPTT_PGS_WIDE_SIZES" if wide
+                                           else "csrc/lcp.cu NPTT_PGS_SIZES"))
     pgs_batched.launches += 1
     return x.reshape(b.shape)
 

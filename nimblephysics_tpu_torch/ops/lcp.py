@@ -16,11 +16,12 @@ Ported: ``pgs_solve``, ``direct_boxed_solve`` (pseudoinverse rounds, PGS
 polish, exact polish), ``direct_boxed_solve_lane`` (the form the
 class-rollout kernel runs, ``csrc/step.cuh``), ``_classify`` /
 ``classify_lane``, ``lcp_residual`` and ``boxed_lcp`` with
-``method="direct"`` and ``method="gs"`` (``pgs_solve``; the CUDA kernel K7,
-``ops/cuda_lcp.pgs_batched``, on CUDA tensors) and its implicit
-active-set derivative (``_boxed_lcp_jvp``, forward and reverse: the
-``torch.autograd.Function`` ``_ImplicitLCP``). The ``jacobi``/``staged``
-methods are ROADMAP queue A, M4 (b).
+``jacobi_solve``, ``staged_solve`` and ``boxed_lcp`` with every method of
+the JAX package: "direct", "gs" (``pgs_solve``; the CUDA kernel K7,
+``ops/cuda_lcp.pgs_batched``, on CUDA tensors), "jacobi" and "staged"
+(its PGS stages through K7 likewise), and its implicit active-set
+derivative (``_boxed_lcp_jvp``, forward and reverse: the
+``torch.autograd.Function`` ``_ImplicitLCP``), whatever the method.
 """
 
 from __future__ import annotations
@@ -71,12 +72,21 @@ def _comp_residual(A, b, lo, hi, x, tol):
     return torch.clamp(torch.amax(r, dim=-1), min=0.0)
 
 
+# Up to this many rows pgs_solve sums each row's products one by one from
+# j = 0 (K7's order at the worm's m = 28); above it, as the JAX package
+# does past its own unrolled size, a row is one product and one sum, and
+# the sweep's eager operations stay ~10 per row (the catapult's m = 129).
+_PGS_SEQUENTIAL_ROWS = 32
+
+
 def pgs_solve(A, b, lo_const, hi_const, fscale, x0, findex: Tuple[int, ...],
               iters: int = 60):
     """Projected Gauss-Seidel, fixed sweep count, warm-startable."""
     m = b.shape[-1]
     diag = torch.diagonal(A, dim1=-2, dim2=-1)
     inv_diag = torch.where(diag.abs() > 1e-12, 1.0 / diag, torch.zeros_like(diag))
+    if m > _PGS_SEQUENTIAL_ROWS:
+        return _pgs_rows(A, b, lo_const, hi_const, fscale, x0 + 0.0 * b, inv_diag, findex, iters)
     x = list((x0 + 0.0 * b).unbind(-1))
     # the rows and entries as views, taken once; a row's products A_ij x_j
     # in one multiplication, summed from j = 0 up as a sequential sum
@@ -97,6 +107,44 @@ def pgs_solve(A, b, lo_const, hi_const, fscale, x0, findex: Tuple[int, ...],
             else:
                 x[i] = torch.clamp(xi, lo_i[i], hi_i[i])
     return torch.stack(x, dim=-1)
+
+
+def _pgs_rows(A, b, lo_const, hi_const, fscale, x, inv_diag, findex, iters):
+    """pgs_solve's sweeps with x kept whole: row i is one product with A's
+    row and one sum, and x_i is replaced by a select (the rows and entries
+    as views, taken once)."""
+    m = b.shape[-1]
+    onehot = torch.eye(m, dtype=torch.bool, device=b.device).unbind(0)
+    rows = A.unbind(-2)
+    b_i, inv_i, lo_i, hi_i, fs_i = (t.unbind(-1) for t in (b, inv_diag, lo_const, hi_const,
+                                                           fscale))
+    for _ in range(iters):
+        for i in range(m):
+            xi = x[..., i] - ((rows[i] * x).sum(-1) - b_i[i]) * inv_i[i]
+            f = findex[i]
+            if f >= 0:
+                f_hi = fs_i[i] * torch.clamp(x[..., f], min=0.0)
+                xi = torch.clamp(xi, -f_hi, f_hi)
+            else:
+                xi = torch.clamp(xi, lo_i[i], hi_i[i])
+            x = torch.where(onehot[i], xi[..., None], x)
+    return x
+
+
+def jacobi_solve(A, b, lo_const, hi_const, fscale, x0, findex: Tuple[int, ...],
+                 iters: int = 10):
+    """Projected Jacobi: every row from the previous iterate at once, the
+    friction bounds from its normal impulses."""
+    diag = torch.diagonal(A, dim1=-2, dim2=-1)
+    inv_diag = torch.where(diag.abs() > 1e-12, 1.0 / diag, torch.zeros_like(diag))
+    x = x0 + 0.0 * b
+    coupled, gather = _coupling(findex, b.device)
+    for _ in range(iters):
+        xi = x - (_mv(A, x) - b) * inv_diag
+        f_hi = fscale * torch.clamp(x[..., gather], min=0.0)
+        x = torch.clamp(xi, torch.where(coupled, -f_hi, lo_const),
+                        torch.where(coupled, f_hi, hi_const))
+    return x
 
 
 def _classes(x, xn, coupled, lo_const, hi_const, fscale):
@@ -302,6 +350,76 @@ def _broadcast(A, *vecs, lead=()):
     return (fit(A, 2),) + tuple(fit(v, 1) for v in vecs)
 
 
+def _pgs(A, b, lo_const, hi_const, fscale, x0, findex, iters, kernels):
+    """PGS on one batch of LCPs: through K7's wrapper when ``kernels``,
+    else ``pgs_solve``."""
+    if kernels:
+        # imported here: ops/cuda_lcp.py imports this module
+        from nimblephysics_tpu_torch.ops.cuda_lcp import pgs_batched
+        return pgs_batched(*_broadcast(A, b, lo_const, hi_const, fscale, x0), findex,
+                           iters=iters)
+    return pgs_solve(A, b, lo_const, hi_const, fscale, x0, findex, iters=iters)
+
+
+def staged_solve(A, b, lo_const, hi_const, fscale, x0, findex: Tuple[int, ...],
+                 iters: int = 60, tol: float = 1e-8, kernels: bool = False):
+    """The residual-gated cascade of the JAX package's ``staged_solve``:
+
+      1. PGS at ``iters`` sweeps from x0;
+      2. where the residual exceeds ``tol``: PGS on from there at 10 x
+         ``iters``, kept where it lowers the residual;
+      3. where it still exceeds 10 ``tol``: the direct active-set solve
+         with the friction bounds frozen at the current normal impulses
+         (8 rounds), then PGS at ``iters`` with the coupling live, kept
+         where it lowers the residual.
+
+    Each LCP is solved as the JAX package solves it alone; stages 2 and 3
+    run only on the LCPs whose gate fires (``lax.cond`` per world, which
+    JAX's vmap turns into a select over all of them). The PGS stages go
+    through K7's wrapper when ``kernels``. ``staged_solve.gated`` holds
+    the number of LCPs that entered stages 2 and 3 on the last call."""
+    A, b, lo_const, hi_const, fscale, x0 = _broadcast(A, b, lo_const, hi_const, fscale, x0)
+    batch, m = b.shape[:-1], b.shape[-1]
+    A = A.reshape(-1, m, m)
+    b, lo_const, hi_const, fscale, x0 = (t.reshape(-1, m) for t in (b, lo_const, hi_const,
+                                                                    fscale, x0))
+    coupled, gather = _coupling(findex, b.device)
+
+    def residual(lcp, x):
+        return lcp_residual(lcp[0], x, *lcp[1:], findex)
+
+    def deep(lcp, x):
+        return _pgs(*lcp, x, findex, 10 * iters, kernels)
+
+    def direct(lcp, x):
+        A_, b_, lo_, hi_, fs_ = lcp
+        f_hi = fs_ * torch.clamp(x[..., gather], min=0.0)
+        xd = direct_boxed_solve(A_, b_, torch.where(coupled, -f_hi, lo_),
+                                torch.where(coupled, f_hi, hi_), rounds=8)
+        return _pgs(*lcp, xd, findex, iters, kernels)
+
+    every = (A, b, lo_const, hi_const, fscale)
+    x = _pgs(*every, x0, findex, iters, kernels)
+    r = residual(every, x)
+    gated = []
+    for stage, gate in ((deep, tol), (direct, 10 * tol)):
+        idx = torch.nonzero(r > gate)[:, 0]
+        gated.append(int(idx.numel()))
+        if not gated[-1]:
+            continue
+        lcp = tuple(t[idx] for t in every)
+        x_s = stage(lcp, x[idx])
+        r_s = residual(lcp, x_s)
+        better = r_s < r[idx]
+        x = x.index_copy(0, idx, torch.where(better[:, None], x_s, x[idx]))
+        r = r.index_copy(0, idx, torch.where(better, r_s, r[idx]))
+    staged_solve.gated = tuple(gated)
+    return x.reshape(batch + (m,))
+
+
+staged_solve.gated = (0, 0)
+
+
 def _solve(A, b, lo_const, hi_const, fscale, x0, findex, iters, method, kernels):
     if method == "direct":
         if not bool((hi_const > lo_const).any()):
@@ -310,12 +428,12 @@ def _solve(A, b, lo_const, hi_const, fscale, x0, findex, iters, method, kernels)
             # too after ~1,000 launches (scripts/torch_step_op_count.py)
             return torch.zeros_like(_broadcast(A, b, lo_const, hi_const)[1])
         return direct_boxed_solve(A, b, lo_const, hi_const, rounds=min(iters, 4))
-    if kernels:
-        # imported here: ops/cuda_lcp.py imports this module
-        from nimblephysics_tpu_torch.ops.cuda_lcp import pgs_batched
-        return pgs_batched(*_broadcast(A, b, lo_const, hi_const, fscale, x0), findex,
-                           iters=iters)
-    return pgs_solve(A, b, lo_const, hi_const, fscale, x0, findex, iters=iters)
+    if method == "staged":
+        return staged_solve(A, b, lo_const, hi_const, fscale, x0, findex, iters,
+                            kernels=kernels)
+    if method == "jacobi":
+        return jacobi_solve(A, b, lo_const, hi_const, fscale, x0, findex, iters)
+    return _pgs(A, b, lo_const, hi_const, fscale, x0, findex, iters, kernels)
 
 
 class _ImplicitLCP(torch.autograd.Function):
@@ -385,10 +503,11 @@ def boxed_lcp(A, b, lo_const, hi_const, fscale, x0, findex: Tuple[int, ...],
     when ``kernels`` (the kernel on CUDA tensors, where it launches or
     raises; its plain version on CPU tensors), else ``pgs_solve``.
     ``"direct"`` runs the direct active-set solve (no friction coupling,
-    ``min(iters, 4)`` rounds)."""
-    if method not in ("gs", "direct"):
-        raise NotImplementedError(
-            f"boxed_lcp(method={method!r}) is not ported yet (ROADMAP queue A, M4 (b): "
-            "jacobi and staged)")
+    ``min(iters, 4)`` rounds), ``"jacobi"`` ``iters`` projected Jacobi
+    iterations and ``"staged"`` the residual-gated cascade
+    (``staged_solve``, its PGS stages through K7's wrapper when
+    ``kernels``)."""
+    if method not in ("gs", "direct", "jacobi", "staged"):
+        raise ValueError(f"boxed_lcp: unknown method {method!r}")
     return _ImplicitLCP.apply(A, b, lo_const, hi_const, fscale, x0, tuple(findex), int(iters),
                               method, bool(kernels))

@@ -171,7 +171,7 @@ def test_boxed_lcp_direct_has_no_derivative_yet():
     """The direct solve now carries the implicit derivative (its JAX parity
     is tests/test_torch_lcp_grad.py): backward gives the transpose of its
     forward-mode Jacobian, zero on the rows that do not clamp; "jacobi"
-    still raises (M4 (b))."""
+    (ported with the staged cascade) gives jacobi_solve's answer."""
     A, b, lo, hi, _, _ = lcp_systems(4, seed=1)
     args = [t64(a) for a in (A, b, lo, hi)]
     args[1].requires_grad_(True)
@@ -187,8 +187,9 @@ def test_boxed_lcp_direct_has_no_derivative_yet():
     clamping = tl._classify(x.detach(), args[2], args[3], zeros, (-1,) * 4)[0]
     assert bool(clamping.any()) and not bool(clamping.all())
     assert bool((args[1].grad[~clamping] == 0.0).all())
-    with pytest.raises(NotImplementedError, match="M4"):
-        tl.boxed_lcp(*[a.detach() for a in args], zeros, zeros, (-1,) * 4, 60, "jacobi")
+    plain = [a.detach() for a in args]
+    assert torch.equal(tl.boxed_lcp(*plain, zeros, zeros, (-1,) * 4, 60, "jacobi"),
+                       tl.jacobi_solve(*plain, zeros, zeros, (-1,) * 4, 60))
 
 
 # ---------------------------------------------- the narrowed-limit cartpole

@@ -239,12 +239,17 @@ def test_direct_solve_of_closed_boxes_is_zero():
 
 
 def test_boxed_lcp_refuses_unported_methods():
+    """Every method of the JAX package is ported ("jacobi" and "staged"
+    give jacobi_solve's and staged_solve's answers); any other name is
+    refused."""
     A, b, lo, hi, _, _ = (t64(a) if isinstance(a, np.ndarray) else a
                           for a in lcp_systems(4, seed=1))
-    for method in ("jacobi", "staged"):
-        with pytest.raises(NotImplementedError, match=r"M4 \(b\)"):
-            tl.boxed_lcp(A, b, lo, hi, torch.zeros_like(b), torch.zeros_like(b), (-1,) * 4, 60,
-                         method)
+    z = torch.zeros_like(b)
+    for method, fn in (("jacobi", tl.jacobi_solve), ("staged", tl.staged_solve)):
+        assert torch.equal(tl.boxed_lcp(A, b, lo, hi, z, z, (-1,) * 4, 60, method),
+                           fn(A, b, lo, hi, z, z, (-1,) * 4, 60))
+    with pytest.raises(ValueError, match="unknown method"):
+        tl.boxed_lcp(A, b, lo, hi, z, z, (-1,) * 4, 60, "dantzig")
 
 
 # ------------------------------------------------------------- the full step
